@@ -1,0 +1,273 @@
+// Lin-Rood FFSL/PPM stencil helpers for the Hopper stencil kernels.
+//
+// Device twins of the whole-slab formulas in ops/tp_core.py (and of
+// cam_nor_physics_tpu/ops/tp_core.py, which the TPU kernels run in VMEM).
+// Each helper evaluates ONE output point from a slab held in device memory,
+// recomputing the few neighbour slopes and edge values it needs instead of
+// materializing whole intermediate slabs: a PPM x-flux needs cells i-3..i+2
+// of its row, a PPM y-flux rows e-3..e+2 of its column. The expressions keep
+// the operand order of the PyTorch versions so that, compiled without FMA
+// contraction (--fmad=false), kernel and plain version round alike.
+//
+// Only the orders on the dycore's path are implemented: iord/jord 1
+// (upwind) and 4 (PPM with the lmt=1 constraint), scalar pole mirroring
+// (iv=0). The host wrappers refuse every other order.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace tpc {
+
+constexpr double COS_UPW = 0.05;
+constexpr double COS_VAN = 0.10;
+constexpr double COS_PPM = 0.10;
+constexpr double R3 = 1.0 / 3.0;
+constexpr double R23 = 2.0 / 3.0;
+
+template <typename T>
+__device__ __forceinline__ T sgn(T x) {
+  return x > T(0) ? T(1) : (x < T(0) ? T(-1) : T(0));
+}
+
+template <typename T>
+__device__ __forceinline__ T tmin(T a, T b) { return a < b ? a : b; }
+
+template <typename T>
+__device__ __forceinline__ T tmax(T a, T b) { return a > b ? a : b; }
+
+// sign(d) * min(|d|, qmax, qmin): the monotonic slope limiter
+template <typename T>
+__device__ __forceinline__ T limit(T d, T qmax, T qmin) {
+  return sgn(d) * tmin(tmin(fabs(d), qmax), qmin);
+}
+
+__device__ __forceinline__ int wrap(int i, int n) {
+  i %= n;
+  return i < 0 ? i + n : i;
+}
+
+// ---------------------------------------------------------------- x row ops
+
+// xmist(q, 2) at cell i: 4th-order slope with the monotonic limiter
+template <typename T>
+__device__ T xmist4(const T* r, int i, int im) {
+  const T q = r[i];
+  const T qp1 = r[wrap(i + 1, im)], qm1 = r[wrap(i - 1, im)];
+  const T qp2 = r[wrap(i + 2, im)], qm2 = r[wrap(i - 2, im)];
+  const T dm = T(1.0 / 24.0) * (T(8.0) * (qp1 - qm1) + qm2 - qp2);
+  const T qmax = tmax(tmax(qm1, q), qp1) - q;
+  const T qmin = q - tmin(tmin(qm1, q), qp1);
+  return limit(dm, qmax, qmin);
+}
+
+// 2nd-order limited slope of the FFSL branch (tp_core.F90:392-398)
+template <typename T>
+__device__ T xslope2(const T* r, int i, int im) {
+  const T q = r[i];
+  const T qp1 = r[wrap(i + 1, im)], qm1 = r[wrap(i - 1, im)];
+  const T tmp = T(0.25) * (qp1 - qm1);
+  const T qmax = tmax(tmax(qm1, q), qp1) - q;
+  const T qmin = q - tmin(tmin(qm1, q), qp1);
+  return limit(tmp, qmax, qmin);
+}
+
+// lmppm with lmt = 1 (iord = 4); a6 enters as 0
+template <typename T>
+__device__ __forceinline__ void lmppm1(T dm, T p, T& al, T& ar, T& a6) {
+  const T da1 = dm + dm;
+  const T dl = sgn(da1) * tmin(fabs(da1), fabs(al - p));
+  const T dr = sgn(da1) * tmin(fabs(da1), fabs(ar - p));
+  a6 = T(3.0) * (dl - dr);
+  ar = p + dr;
+  al = p - dl;
+}
+
+// PPM edges (al, ar, a6) of cell i for iord = 4; SLOPE(i) gives dm at i
+template <typename T, typename Slope>
+__device__ void xedges4(const T* r, int i, int im, Slope slope, T& al,
+                        T& ar, T& a6) {
+  const int im1 = wrap(i - 1, im), ip1 = wrap(i + 1, im);
+  const T dmm = slope(im1), dm = slope(i), dmp = slope(ip1);
+  const T p = r[i];
+  al = T(0.5) * (r[im1] + p) + (dmm - dm) * T(R3);
+  ar = T(0.5) * (p + r[ip1]) + (dm - dmp) * T(R3);
+  lmppm1(dm, p, al, ar, a6);
+}
+
+// xtp at the west edge of cell i of one row. q, c, m: row pointers (im);
+// cosa the row's cosine; ffsl whether the row takes the FFSL branch; K the
+// integer-Courant bound. id = 0: density (m = Courant); id = 1: mixing
+// ratio (the FFSL flux is rescaled by m / c).
+template <typename T>
+__device__ T xtp_point(const T* q, const T* c, const T* m, int i, int im,
+                       T cosa, bool ffsl, int iord, int id, int K) {
+  const T ci = c[i];
+  if (!ffsl) {
+    const int im1 = wrap(i - 1, im);
+    const bool up = ci > T(0);
+    const T qs = up ? q[im1] : q[i];
+    if (iord == 1 || cosa < T(COS_UPW)) return m[i] * qs;
+    if (cosa < T(COS_VAN)) {
+      const T dms = up ? xmist4(q, im1, im) : xmist4(q, i, im);
+      return m[i] * (qs + dms * (sgn(ci) - ci));
+    }
+    auto slope = [&](int ii) { return xmist4(q, ii, im); };
+    T al, ar, a6, f;
+    if (up) {
+      xedges4(q, im1, im, slope, al, ar, a6);
+      f = ar + T(0.5) * ci * (al - ar + a6 * (T(1.0) - T(R23) * ci));
+    } else {
+      xedges4(q, i, im, slope, al, ar, a6);
+      f = al - T(0.5) * ci * (ar - al + a6 * (T(1.0) + T(R23) * ci));
+    }
+    return m[i] * f;
+  }
+  // FFSL branch: fractional donor cell + whole cells swept (periodic)
+  int iu = (int)trunc(ci);
+  iu = iu < -K ? -K : (iu > K ? K : iu);
+  const T rut = ci - T(iu);
+  const int g = wrap(i + (ci > T(0) ? -iu - 1 : -iu), im);
+  const T qg = q[g];
+  T f_frac;
+  if (iord == 1 || cosa < T(COS_UPW)) {
+    f_frac = rut * qg;
+  } else if (cosa > T(COS_PPM)) {
+    auto slope = [&](int ii) { return xslope2(q, ii, im); };
+    T al, ar, a6;
+    xedges4(q, g, im, slope, al, ar, a6);
+    f_frac = ci > T(0)
+        ? rut * (ar + T(0.5) * rut * (al - ar + a6 * (T(1.0) - T(R23) * rut)))
+        : rut * (al - T(0.5) * rut * (ar - al + a6 * (T(1.0) + T(R23) * rut)));
+  } else {
+    const T dmg = xslope2(q, g, im);
+    f_frac = ci > T(0) ? rut * (qg + dmg * (T(1.0) - rut))
+                       : rut * (qg - dmg * (T(1.0) + rut));
+  }
+  T f_int = T(0);
+  if (ci >= T(1)) {
+    for (int n = 1; n <= iu; ++n) f_int = f_int + q[wrap(i - n, im)];
+  } else if (ci <= T(-1)) {
+    for (int n = 0; n < -iu; ++n) f_int = f_int + q[wrap(i + n, im)];
+    f_int = -f_int;
+  }
+  T fx = f_frac + f_int;
+  if (id != 0) {
+    const T c_safe = sgn(ci) * tmax(fabs(ci), T(1e-30));
+    fx = fx * (m[i] / c_safe);
+  }
+  return fx;
+}
+
+// ---------------------------------------------------------------- y ops
+
+// ymist(q, jord, iv=0) at (j, i) of a (jm, im) slab
+template <typename T>
+__device__ T ymist_point(const T* s, int j, int i, int jm, int im, int jord) {
+  const int im2 = im / 2;
+  if (j == 0 || j == jm - 1) {
+    // pole row: the first half from the cross-pole mirror, the second
+    // half the negated first half (tp_core.F90:1149-1151)
+    const int ii = i < im2 ? i : i - im2;
+    const int jp = j == 0 ? 0 : jm - 1;      // the pole row
+    const int jn = j == 0 ? 1 : jm - 2;      // its neighbour
+    const T qp = s[jp * im + ii];
+    const T qn = s[jn * im + ii];
+    const T qmir = s[jn * im + wrap(ii + im2, im)];
+    const T tmp = j == 0 ? T(0.25) * (qn - qmir) : T(0.25) * (qmir - qn);
+    const T qmax = j == 0 ? tmax(tmax(qn, qp), qmir) - qp
+                          : tmax(tmax(qmir, qp), qn) - qp;
+    const T qmin = j == 0 ? qp - tmin(tmin(qn, qp), qmir)
+                          : qp - tmin(tmin(qmir, qp), qn);
+    const T v = limit(tmp, qmax, qmin);
+    return i < im2 ? v : T(-1.0) * v;
+  }
+  const T qm = s[(j - 1) * im + i], q = s[j * im + i], qp = s[(j + 1) * im + i];
+  T d = T(0.25) * (qp - qm);
+  if (jord > 0) {
+    const T qmax = tmax(tmax(qm, q), qp) - q;
+    const T qmin = q - tmin(tmin(qm, q), qp);
+    d = limit(d, qmin, qmax);
+  }
+  return d;
+}
+
+// fyppm's unconstrained south-edge value of row j >= 1
+template <typename T>
+__device__ T yal_full(const T* s, int j, int i, int jm, int im, int jord) {
+  return T(0.5) * (s[(j - 1) * im + i] + s[j * im + i]) +
+         T(R3) * (ymist_point(s, j - 1, i, jm, im, jord) -
+                  ymist_point(s, j, i, jm, im, jord));
+}
+
+// ytp at the south edge of row e (jord 1 or 4, iv = 0): s the advected
+// slab, c the y-Courant and ym the mass flux at the edge
+template <typename T>
+__device__ T ytp_point(const T* s, const T* c, const T* ym, int e, int i,
+                       int jm, int im, int jord) {
+  const int idx = e * im + i;
+  if (e == 0) return T(0) * ym[idx];
+  const T ce = c[idx];
+  if (jord == 1) return (ce > T(0) ? s[idx - im] : s[idx]) * ym[idx];
+  const int r = ce > T(0) ? e - 1 : e;          // donor row
+  const int im2 = im / 2;
+  T al = r == 0 ? yal_full(s, 1, wrap(i + im2, im), jm, im, jord)
+                : yal_full(s, r, i, jm, im, jord);
+  T ar = r < jm - 1 ? yal_full(s, r + 1, i, jm, im, jord)
+                    : yal_full(s, jm - 1, wrap(i + im2, im), jm, im, jord);
+  T a6;
+  lmppm1(ymist_point(s, r, i, jm, im, jord), s[r * im + i], al, ar, a6);
+  const T f = ce > T(0)
+      ? ar + T(0.5) * ce * (al - ar + a6 * (T(1.0) - T(R23) * ce))
+      : al - T(0.5) * ce * (ar - al + a6 * (T(1.0) + T(R23) * ce));
+  return f * ym[idx];
+}
+
+// ---------------------------------------------------------------- tp2d parts
+
+// adx: q advanced by the first-order inner x-operator (tp_core.F90:228-256)
+template <typename T>
+__device__ T adx_point(const T* q, const T* crx, int j, int i, int jm, int im,
+                       T cosa, bool ffsl, int K) {
+  const int idx = j * im + i;
+  if (j == 0 || j == jm - 1) return q[idx];
+  const T* qr = q + j * im;
+  const T* cr = crx + j * im;
+  const int ip1 = wrap(i + 1, im);
+  const T wk1 = xtp_point(qr, cr, cr, i, im, cosa, ffsl, 1, 0, K);
+  const T wk1e = xtp_point(qr, cr, cr, ip1, im, cosa, ffsl, 1, 0, K);
+  return q[idx] + T(0.5) * (wk1 - wk1e + q[idx] * (cr[ip1] - cr[i]));
+}
+
+// ady: q advanced by the first-order inner y-operator (tp_core.F90:260-265)
+template <typename T>
+__device__ T ady_point(const T* q, const T* va, int j, int i, int jm, int im) {
+  const int idx = j * im + i;
+  const T qc = q[idx];
+  if (j == 0 || j == jm - 1) return qc;
+  const T v = va[idx];
+  return qc + T(0.5) * v * (v > T(0) ? q[idx - im] - qc : qc - q[idx + im]);
+}
+
+// flux divergence at (j, i) with the caps given (tp_core.F90:130-152)
+template <typename T>
+__device__ T div_point(const T* fx, const T* fy, int j, int i, int jm, int im,
+                       T acosp, T cap_s, T cap_n) {
+  if (j == 0) return cap_s;
+  if (j == jm - 1) return cap_n;
+  const int idx = j * im + i;
+  return fx[idx] - fx[j * im + wrap(i + 1, im)] +
+         (fy[idx] - fy[idx + im]) * acosp;
+}
+
+// sum of one row (one thread), accumulated in double: for float rows the
+// result does not depend on the order, so it matches the plain version's
+// torch.sum of the same row in float64
+template <typename T>
+__device__ double row_sum(const T* r, int im) {
+  double s = 0.0;
+  for (int i = 0; i < im; ++i) s = s + (double)r[i];
+  return s;
+}
+
+}  // namespace tpc

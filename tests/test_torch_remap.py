@@ -1,0 +1,149 @@
+"""The port's vertical remap, filler, te_map and Held-Suarez forcing against
+the JAX package, float64 on the CPU, at 1e-12 relative to each output's
+largest magnitude (trac2d is held to JAX inside the slice test, and its
+parts tracer_div3d and fillz on their own).
+
+te_map_remap_ref (the plain version of the te_map CUDA kernel) is held to
+the Pallas kernel run by the interpreter (te_map_remap_pallas(interpret=
+True)) and to ops/remap.py's ppm_remap/ppm_remap_multi, on random columns
+whose source and target interfaces share their end points, as te_map's do.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cam_nor_physics_tpu.models.fv import cd_core as jcd
+from cam_nor_physics_tpu.models.fv import dyn_comp as jdc
+from cam_nor_physics_tpu.models.fv import grid as jgrid
+from cam_nor_physics_tpu.models.fv import held_suarez as jhs
+from cam_nor_physics_tpu.models.fv import vertical as jvert
+from cam_nor_physics_tpu.ops import fill as jfill
+from cam_nor_physics_tpu.ops import remap as jremap
+from cam_nor_physics_tpu.ops.remap_pallas import te_map_remap_pallas
+from cam_nor_physics_tpu_torch import convert
+from cam_nor_physics_tpu_torch.models.fv import dyn_comp as tdc
+from cam_nor_physics_tpu_torch.models.fv import grid as tgrid
+from cam_nor_physics_tpu_torch.models.fv import held_suarez as ths
+from cam_nor_physics_tpu_torch.models.fv import vertical as tvert
+from cam_nor_physics_tpu_torch.ops import fill as tfill
+from cam_nor_physics_tpu_torch.ops import remap as tremap
+from cam_nor_physics_tpu_torch.ops import remap_kernels as trk
+from torch_port_util import assert_close, t64
+
+torch.set_num_threads(1)
+
+TOL = 1e-12
+
+
+def _interfaces(rng, km, ncol, jitter):
+    """(km+1, ncol) increasing interfaces from 200 Pa to ~1e5 Pa."""
+    base = np.linspace(0.0, 1.0, km + 1) ** 1.5
+    pe = base[:, None] + jitter * rng.uniform(-1, 1, (km + 1, ncol)) / km
+    pe[0], pe[-1] = 0.0, 1.0
+    pe = np.sort(pe, axis=0)
+    return 200.0 + (1e5 - 200.0) * pe
+
+
+def _remap_inputs(seed, km=8, ncol=40, nf=2):
+    rng = np.random.default_rng(seed)
+    pes = [_interfaces(rng, km, ncol, j) for j in (0.3, 0.0, 0.3, 0.1, 0.3,
+                                                   0.1)]
+    fields = [250.0 + 30.0 * rng.standard_normal((km, ncol))
+              for _ in range(nf)]
+    u = 10.0 * rng.standard_normal((km, ncol))
+    v = 10.0 * rng.standard_normal((km, ncol))
+    return pes, fields, u, v
+
+
+@pytest.mark.parametrize("kord", [2, 3, 4])
+def test_te_map_remap_ref_matches_pallas_and_remap(kord):
+    pes, fields, u, v = _remap_inputs(seed=kord)
+    cen, u2, v2 = trk.te_map_remap(*[t64(p) for p in pes],
+                                   [t64(f) for f in fields], t64(u), t64(v),
+                                   kord)
+    jpes = [jnp.asarray(p) for p in pes]
+    pcen, pu, pv = te_map_remap_pallas(*jpes, [jnp.asarray(f)
+                                               for f in fields],
+                                       jnp.asarray(u), jnp.asarray(v), kord,
+                                       block_cols=128, interpret=True)
+    for g, w in zip(cen + [u2, v2], list(pcen) + [pu, pv]):
+        assert_close(g, w, TOL, "pallas")
+    # ops/remap.py (the JAX te_map's own path), (ncol, km) layout
+    want = jremap.ppm_remap_multi(pes[0].T, np.stack([f.T for f in fields]),
+                                  pes[1].T, kord)
+    for g, w in zip(cen, want):
+        assert_close(g, np.asarray(w).T, TOL, "ppm_remap_multi")
+    assert_close(u2, np.asarray(jremap.ppm_remap(pes[2].T, u.T, pes[3].T,
+                                                 kord)).T, TOL, "ppm_remap")
+
+
+def test_ppm_remap_port_matches_jax_and_conserves():
+    pes, fields, u, _ = _remap_inputs(seed=7)
+    src, tgt = pes[0].T, pes[1].T
+    got = tremap.ppm_remap(t64(src), t64(u.T), t64(tgt), 4)
+    assert_close(got, jremap.ppm_remap(src, u.T, tgt, 4), TOL)
+    mass0 = (u.T * np.diff(src, axis=1)).sum(1)
+    mass1 = (got.numpy() * np.diff(tgt, axis=1)).sum(1)
+    assert_close(mass1, mass0, 1e-13, "column mass")
+    multi = tremap.ppm_remap_multi(t64(src), t64(np.stack([f.T for f in
+                                                           fields])),
+                                   t64(tgt), 3)
+    want = jremap.ppm_remap_multi(src, np.stack([f.T for f in fields]), tgt,
+                                  3)
+    assert_close(multi, want, TOL)
+
+
+def test_fill_matches_jax():
+    rng = np.random.default_rng(4)
+    q = rng.uniform(-1e-3, 3e-3, (3, 5, 7))
+    dp = rng.uniform(100.0, 2000.0, (3, 5, 7))
+    for a, b in zip(tfill.fillz(t64(q), t64(dp)), jfill.fillz(q, dp)):
+        assert_close(a, b, 1e-15)
+    got = tfill.qneg3(t64(q))
+    want = jfill.qneg3(q)
+    assert_close(got[0], want[0], 0.0)
+    assert float(got[1]) == float(want[1]) and int(got[2]) == int(want[2])
+
+
+def _hs(im=36, jm=24, km=6, seed=3):
+    """A Held-Suarez state with winds and a tracer, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    tg = tgrid.make_grid(im, jm, km, device="cpu")
+    tc = tvert.hybrid_coefficients(km, device="cpu")
+    st = convert.dynstate_to_numpy(ths.hs_initial_state(tg, tc))
+    st["u"] = 5.0 * rng.standard_normal((km, jm, im))
+    st["v"] = 5.0 * rng.standard_normal((km, jm, im))
+    st["delp"] = st["delp"] * (1.0 + 0.02 * rng.standard_normal(
+        (km, jm, im)))
+    st["q"] = rng.uniform(0.0, 1e-2, (2, km, jm, im))
+    return st, tg, tc, jgrid.make_grid(im, jm, km), jvert.hybrid_coefficients(
+        km)
+
+
+@pytest.mark.parametrize("consv", [False, True])
+def test_te_map_matches_jax(consv):
+    st, tg, tc, jg, jc = _hs()
+    got = tdc.te_map(convert.dynstate_from_numpy(st, "cpu"), tc, tg, tc.ptop,
+                     consv=consv)
+    want = jdc.te_map(jcd.DynState(**{f: jnp.asarray(a)
+                                      for f, a in st.items()}),
+                      jc, jg, jc.ptop, consv=consv, use_pallas=False)
+    for f in convert.STATE_FIELDS:
+        assert_close(getattr(got, f), getattr(want, f), TOL, f)
+
+
+def test_hs_forcing_and_initial_state_match_jax():
+    st, tg, tc, jg, jc = _hs(seed=1)
+    jst = jhs.hs_initial_state(jg, jc, pert=1.0, dtype=jnp.float64)
+    tst = ths.hs_initial_state(tg, tc, pert=1.0)
+    for f in convert.STATE_FIELDS:
+        assert_close(getattr(tst, f), getattr(jst, f), 1e-15, f)
+    got = ths.hs_forcing(convert.dynstate_from_numpy(st, "cpu"), tg, tc.ptop,
+                         1800.0)
+    want = jhs.hs_forcing(jcd.DynState(**{f: jnp.asarray(a)
+                                          for f, a in st.items()}),
+                          jg, jc.ptop, 1800.0)
+    for f in ("u", "v", "pt"):
+        assert_close(getattr(got, f), getattr(want, f), 1e-14, f)

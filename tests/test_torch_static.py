@@ -1,0 +1,122 @@
+"""Static and CPU-only checks of the PyTorch port.
+
+- No module of cam_nor_physics_tpu_torch, nor chip_smoke.py, imports jax,
+  flax or the JAX package cam_nor_physics_tpu (the exact top-level name, so
+  the port's own package does not match).
+- Entry points default to the CUDA device and raise where it is absent.
+- convert.py carries state, grid and coordinate across and back unchanged.
+- The options the port does not implement raise NotImplementedError.
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from cam_nor_physics_tpu.models.fv import grid as jgrid
+from cam_nor_physics_tpu.models.fv import vertical as jvert
+from cam_nor_physics_tpu_torch import convert
+from cam_nor_physics_tpu_torch.entry import build_step
+from cam_nor_physics_tpu_torch.models.fv import dyn_comp as tdc
+from cam_nor_physics_tpu_torch.utils.config import FVConfig
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "flax", "cam_nor_physics_tpu"}
+
+
+def _port_sources():
+    files = sorted((REPO / "cam_nor_physics_tpu_torch").rglob("*.py"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_imports_nothing_of_jax():
+    files = _port_sources()
+    assert len(files) > 15
+    bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p) & FORBIDDEN)
+           for p in files if _imported_roots(p) & FORBIDDEN}
+    assert bad == {}
+
+
+def test_import_scan_catches_the_jax_package(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("import cam_nor_physics_tpu_torch\n"
+                     "from cam_nor_physics_tpu.ops import tp_core\n")
+    assert _imported_roots(probe) & FORBIDDEN == {"cam_nor_physics_tpu"}
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_step(8, 8, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        convert.dynstate_from_numpy({f: np.zeros(1)
+                                     for f in convert.STATE_FIELDS})
+
+
+def test_convert_round_trip():
+    im, jm, km = 24, 16, 4
+    jg = jgrid.make_grid(im, jm, km)
+    jc = jvert.hybrid_coefficients(km)
+    rng = np.random.default_rng(0)
+    fields = {f: rng.standard_normal((km, jm, im))
+              for f in ("u", "v", "pt", "delp")}
+    fields["q"] = rng.uniform(size=(2, km, jm, im))
+    back = convert.dynstate_to_numpy(convert.dynstate_from_numpy(fields,
+                                                                 "cpu"))
+    for f in convert.STATE_FIELDS:
+        np.testing.assert_array_equal(back[f], fields[f], f)
+    tables = {f: np.asarray(getattr(jg, f))
+              for f in convert.GRID_TABLES + convert.GRID_SCALARS}
+    grid = convert.grid_from_numpy(tables, "cpu")
+    for f, a in convert.grid_to_numpy(grid).items():
+        np.testing.assert_array_equal(a, tables[f], f)
+    coord = convert.coord_from_numpy({f: getattr(jc, f)
+                                      for f in convert.COORD_FIELDS}, "cpu")
+    for f, a in convert.coord_to_numpy(coord).items():
+        np.testing.assert_array_equal(a, np.asarray(getattr(jc, f)), f)
+    f32 = convert.dynstate_from_numpy(fields, "cpu", dtype=torch.float32)
+    assert f32.u.dtype == torch.float32
+
+
+@pytest.mark.parametrize("option", ["am_correction", "am_fixer", "am_diag",
+                                    "high_altitude"])
+def test_unported_dyn_run_options_raise(option):
+    step, st, grid, coord, phis = build_step(12, 8, 2, torch.float64, "cpu")
+    with pytest.raises(NotImplementedError, match=option):
+        tdc.dyn_run(st, grid, coord, phis, FVConfig(**{option: True}),
+                    1800.0)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tdc.dyn_run(st, grid, coord, phis, FVConfig(), 1800.0,
+                    mesh=object())
+
+
+def test_dyn_run_conserves_mass_without_floor_activations():
+    """Four HS large steps of the port at 24x16x4: no thickness floor
+    fires and global dry mass holds to 1e-12 (float64)."""
+    step, st, grid, coord, phis = build_step(24, 16, 4, torch.float64, "cpu")
+    w = grid.cosp.clone()
+    w[0] = w[-1] = grid.acap / grid.im
+    m0 = float((st.delp * w[:, None]).sum())
+    cfg = FVConfig(nsplit=4, nspltrac=1)
+    for _ in range(4):
+        st, diags = tdc.dyn_run(st, grid, coord, phis, cfg, 1800.0,
+                                filter_impl="matmul", return_diags=True)
+        assert int(diags["floor_activations"]) == 0
+        assert torch.isfinite(diags["omega"]).all()
+    m1 = float((st.delp * w[:, None]).sum())
+    assert abs(m1 - m0) / m0 < 1e-12

@@ -1,0 +1,161 @@
+"""The port's transport stencils (ops/stencil_kernels.py) against the JAX
+package, float64 on the CPU.
+
+On CPU tensors each wrapper runs its plain PyTorch version; these tests hold
+that version to the JAX transport3d / vort_flux3d / tracer_div3d at 1e-12
+relative to each output's largest magnitude: through the jnp path
+(prefer_pallas=False) for the orders and FFSL polar bands the dycore calls
+them with, and once per kernel through the Pallas kernel itself in
+interpret mode (as tests/test_pallas_kernels.py runs it). The CUDA kernels are held to the
+plain versions on the card (marked `cuda`, skipped without one; chip_smoke.py
+does the same at f19 shapes).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cam_nor_physics_tpu.models.fv.grid import make_grid
+from cam_nor_physics_tpu.ops import pallas_kernels as pk
+from cam_nor_physics_tpu.ops import tp_core as jtp
+from cam_nor_physics_tpu_torch.ops import stencil_kernels as sk
+from torch_port_util import assert_close, slab_fields, t64
+
+torch.set_num_threads(1)
+
+TOL = 1e-12
+KM, JM, IM = 3, 24, 36
+
+
+def _inputs(seed=0):
+    """numpy inputs of the three stencil functions on one small grid."""
+    f = slab_fields(KM, JM, IM, seed)
+    grid = make_grid(IM, JM, KM)
+    f["cosp"] = np.asarray(grid.cosp)
+    f["acosp"] = np.asarray(grid.acosp)
+    f["rcap"] = float(grid.rcap)
+    f["yfx"] = f["cry"] * f["cosp"][:, None]
+    f["va"] = 0.5 * (f["cry"] + np.asarray(jtp.edge_north(f["cry"])))
+    f["ffsl"] = np.abs(f["crx"]).max(-1) > 1.0
+    f["udt"] = 450.0 * f["crx"]
+    f["vdt"] = 450.0 * f["cry"]
+    return f
+
+
+def _transport_args(f, iord):
+    return [f[k] for k in ("delp", "pt", "crx", "cry", "yfx", "va", "ffsl",
+                           "cosp", "acosp", "rcap")] + [iord, iord]
+
+
+def _vort_args(f, iord):
+    return [f[k] for k in ("zeta", "crx", "cry", "udt", "vdt", "ffsl",
+                           "cosp")] + [iord, iord]
+
+
+def _tracer_args(f, iord):
+    return [f[k] for k in ("q", "crx", "cry", "udt", "yfx", "va", "ffsl",
+                           "cosp", "acosp", "rcap")] + [iord, iord]
+
+
+CASES = {"transport3d": _transport_args, "vort_flux3d": _vort_args,
+         "tracer_div3d": _tracer_args}
+
+
+def _torch(args):
+    return [t64(a) if isinstance(a, np.ndarray) else a for a in args]
+
+
+def _outputs(out):
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+@pytest.mark.parametrize("name,iord,band", [
+    ("transport3d", 1, 5), ("transport3d", 4, 5), ("vort_flux3d", 4, 5),
+    ("tracer_div3d", 4, None)])
+def test_plain_version_matches_jax(name, iord, band):
+    """The calls of the dycore: cd_step runs transport3d at order 1 (C half
+    step) and 4 with a polar band, vort_flux3d at 4 with a band; trac2d runs
+    tracer_div3d at 4 without one. The interpret-mode test below covers
+    order 4 without a band for the other two."""
+    f = _inputs(seed=iord + (band or 0))
+    args = CASES[name](f, iord)
+    got = getattr(sk, name)(*_torch(args), band=band)
+    arrays = [a for a in args if isinstance(a, np.ndarray)]
+    scalars = args[len(arrays):]
+    want = jax.jit(lambda *a: getattr(pk, name)(
+        *a, *scalars, prefer_pallas=False, band=band))(*arrays)
+    for i, (g, w) in enumerate(zip(_outputs(got), _outputs(want))):
+        assert_close(g, w, TOL, f"{name} output {i}")
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_plain_version_matches_pallas_interpret(name, monkeypatch):
+    """Through the Pallas kernel body, run by the interpreter on the CPU."""
+    monkeypatch.setattr(pk, "_INTERPRET", True)
+    monkeypatch.setattr(pk, "use_pallas", lambda *a: True)
+    f = slab_fields(2, 16, 24, seed=9, ffsl_rows=2)
+    grid = make_grid(24, 16, 2)
+    f.update(cosp=np.asarray(grid.cosp), acosp=np.asarray(grid.acosp),
+             rcap=float(grid.rcap))
+    f["yfx"] = f["cry"] * f["cosp"][:, None]
+    f["va"] = 0.5 * (f["cry"] + np.asarray(jtp.edge_north(f["cry"])))
+    f["ffsl"] = np.abs(f["crx"]).max(-1) > 1.0
+    f["udt"], f["vdt"] = 450.0 * f["crx"], 450.0 * f["cry"]
+    f["q"] = f["q"][:1]
+    args = CASES[name](f, 4)
+    got = getattr(sk, name)(*_torch(args))
+    jargs = [jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args]
+    want = getattr(pk, name)(*jargs, prefer_pallas=True)
+    for i, (g, w) in enumerate(zip(_outputs(got), _outputs(want))):
+        assert_close(g, w, TOL, f"{name} output {i}")
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """CPU tensors never reach the kernel: the launch counts stay put."""
+    f = _inputs(seed=3)
+    before = {n: getattr(sk, n).launches for n in CASES}
+    for name, make in CASES.items():
+        args = _torch(make(f, 4))
+        got = getattr(sk, name)(*args)
+        want = getattr(sk, name + "_ref")(*args)
+        for g, w in zip(_outputs(got), _outputs(want)):
+            assert torch.equal(g, w)
+    assert {n: getattr(sk, n).launches for n in CASES} == before
+
+
+def test_kernel_checks_refuse_unsupported_orders():
+    f = _inputs(seed=4)
+    args = _torch(_transport_args(f, 4))
+    slabs = [("delp", args[0]), ("pt", args[1])]
+    with pytest.raises(ValueError, match="iord/jord"):
+        sk._check("transport3d", slabs, args[0].shape, args[6],
+                  [("cosp", args[7])], 2, 4)
+    with pytest.raises(ValueError, match="shape"):
+        sk._check("transport3d", slabs, args[0].shape, args[6][:, :-1],
+                  [("cosp", args[7])], 4, 4)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        sk._check("transport3d", [("delp", args[0].half())], args[0].shape,
+                  args[6], [], 4, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+def test_cuda_kernel_matches_plain_version(name, dtype, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: "
+                    "pytest -m cuda tests/test_torch_*.py)")
+    f = _inputs(seed=5)
+    args = [torch.as_tensor(a, device="cuda",
+                            dtype=torch.bool if a.dtype == bool else dtype)
+            if isinstance(a, np.ndarray) else a for a in CASES[name](f, 4)]
+    n0 = getattr(sk, name).launches
+    got = getattr(sk, name)(*args, band=5)
+    want = getattr(sk, name + "_ref")(*args, band=5)
+    torch.cuda.synchronize()
+    assert getattr(sk, name).launches == n0 + 1
+    for i, (g, w) in enumerate(zip(_outputs(got), _outputs(want))):
+        assert_close(g.cpu(), w.cpu(), tol, f"{name} output {i}")
