@@ -2,7 +2,9 @@
 
 `dynstate_to_numpy`/`dynstate_from_numpy` map the DynState fields
 (u, v, pt, delp, q); `grid_to_numpy`/`grid_from_numpy` the FVGrid tables and
-scalars; `coord_to_numpy`/`coord_from_numpy` the HybridCoord. The numpy side
+scalars; `coord_to_numpy`/`coord_from_numpy` the HybridCoord;
+`physstate_*`, `pbuf_*` and `zmtend_to_numpy` the physics state, the physics
+buffer and the outputs of zm_conv_tend. The numpy side
 is a plain dict keyed by the field names both packages share, so a JAX
 object converts with {f: np.asarray(getattr(obj, f)) for f in FIELDS}.
 """
@@ -15,6 +17,10 @@ import torch
 from .models.fv.cd_core import DynState
 from .models.fv.grid import FVGrid
 from .models.fv.vertical import HybridCoord
+from .models.physics.physics_buffer import PhysicsBuffer
+from .models.physics.state import PTEND_FIELDS, PhysicsState
+from .models.physics.state import STATE_FIELDS as PHYS_STATE_FIELDS
+from .models.physics.zm_conv_intr import TEND_FIELDS
 from .utils.device import resolve_device
 
 STATE_FIELDS = ("u", "v", "pt", "delp", "q")
@@ -70,3 +76,55 @@ def coord_to_numpy(coord: HybridCoord) -> dict:
     return {"ak": coord.ak.detach().cpu().numpy(),
             "bk": coord.bk.detach().cpu().numpy(),
             "ps0": coord.ps0, "ptop": coord.ptop}
+
+
+# ---- physics state, physics buffer and zm_conv_tend outputs ----
+
+def _np(x):
+    """A tensor or array (either package's) as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def physstate_from_numpy(fields: dict, device="cuda",
+                         dtype=None) -> PhysicsState:
+    """PhysicsState from numpy arrays keyed by its field names."""
+    dev = resolve_device(device)
+    return PhysicsState(**{f: _tensor(fields[f], dtype, dev)
+                           for f in PHYS_STATE_FIELDS})
+
+
+def physstate_to_numpy(state) -> dict:
+    """{field: array} of a PhysicsState of either package."""
+    return {f: _np(getattr(state, f)) for f in PHYS_STATE_FIELDS}
+
+
+def pbuf_from_numpy(fields: dict, lifetimes: dict, device="cuda",
+                    dtype=None) -> PhysicsBuffer:
+    """PhysicsBuffer from {name: array} and {name: lifetime}."""
+    dev = resolve_device(device)
+    return PhysicsBuffer(fields={k: _tensor(v, dtype, dev)
+                                 for k, v in fields.items()},
+                         lifetimes=dict(lifetimes))
+
+
+def pbuf_to_numpy(pbuf) -> tuple[dict, dict]:
+    """({name: array}, {name: lifetime}) of a PhysicsBuffer of either
+    package."""
+    return ({k: _np(v) for k, v in pbuf.fields.items()},
+            dict(pbuf.lifetimes))
+
+
+def zmtend_to_numpy(out) -> dict:
+    """A flat {key: array} of a ZMTendOut of either package: the summed
+    ptend ("ptend.s", ...), the updated state ("state1.t", ...), every pbuf
+    field ("pbuf.ZM_MU", ...), the coupler outputs ("mcon", ...) and the
+    diagnostics ("diag.CAPE", ...)."""
+    res = {f"ptend.{f}": _np(getattr(out.ptend_all, f)) for f in PTEND_FIELDS}
+    res.update({f"state1.{f}": a
+                for f, a in physstate_to_numpy(out.state1).items()})
+    res.update({f"pbuf.{k}": a for k, a in pbuf_to_numpy(out.pbuf)[0].items()})
+    res.update({f: _np(getattr(out, f)) for f in TEND_FIELDS})
+    res.update({f"diag.{k}": _np(v) for k, v in out.diagnostics.items()})
+    return res

@@ -1,25 +1,40 @@
-"""Entry point: the Held-Suarez FV dycore large step.
+"""Entry points: the Held-Suarez FV dycore large step and the ZM step.
 
-Twin of `__graft_entry__._build`/`entry` in the JAX package: one FV large
-step `dyn_run` (nsplit=4 small steps, one tracer cycle, one remap, dt=1800 s)
-followed by `hs_forcing`. On a CUDA device the step runs the port's four
-CUDA kernels (transport3d and vort_flux3d in every small step, tracer_div3d
-in trac2d, te_map_remap in te_map).
+`build_step` is the twin of `__graft_entry__._build`/`entry` in the JAX
+package: one FV large step `dyn_run` (nsplit=4 small steps, one tracer
+cycle, one remap, dt=1800 s) followed by `hs_forcing`. On a CUDA device
+the step runs the port's four dycore CUDA kernels (transport3d and
+vort_flux3d in every small step, tracer_div3d in trac2d, te_map_remap in
+te_map).
 
     step, state, grid, coord, phis = build_step(144, 96, 26)
     for _ in range(4):
         state = step(state, grid, coord, phis)
+
+`build_zm_step` is the twin of bench.py's ZM set-up: one `zm_conv_tend`
+on ncol columns of a conditionally unstable sounding. On a CUDA device
+its tail runs the fused ZM tail kernel once a call.
+
+    zm_step, pstate, pbuf, forcing = build_zm_step(144 * 96, 26)
+    pstate, pbuf = zm_step(pstate, pbuf)
+
+Together the two are the main path that bench.py times.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .models.fv.dyn_comp import dyn_run
 from .models.fv.grid import make_grid
 from .models.fv.held_suarez import hs_forcing, hs_initial_state
 from .models.fv.vertical import hybrid_coefficients
-from .utils.config import FVConfig
+from .models.physics.constituents import default_registry
+from .models.physics.physics_buffer import pbuf_register, zm_pbuf_specs
+from .models.physics.state import make_state_from_profiles
+from .models.physics.zm_conv_intr import zm_conv_tend
+from .utils.config import FVConfig, ZMConfig
 from .utils.device import resolve_device
 
 DT = 1800.0
@@ -53,3 +68,97 @@ def build_step(im: int = 144, jm: int = 96, km: int = 26,
 
     state0 = hs_initial_state(grid, coord, pert=1.0)
     return step, state0, grid, coord, phis
+
+
+def zm_profiles(ncol: int, pver: int):
+    """bench.py's ZM sounding as float64 numpy arrays: interface pressures
+    pint (ncol, pver+1) on eta = linspace(0.003, 1, pver+1)**1.2 times
+    1e5 Pa, t = max(300 (p/1e5)**0.19, 195) K plus 2 K in the lowest
+    level, q = 0.017 (p/p_sfc)**2.5 + 1e-6 with the lowest 3 levels
+    times 1.15."""
+    eta = np.linspace(0.003, 1.0, pver + 1) ** 1.2
+    pint = np.broadcast_to(eta[None, :] * 1.0e5, (ncol, pver + 1)).copy()
+    pmid = 0.5 * (pint[:, 1:] + pint[:, :-1])
+    t = np.maximum(300.0 * (pmid / 1.0e5) ** 0.19, 195.0)
+    t[:, -1] += 2.0
+    q = 0.017 * (pmid / pmid[:, -1:]) ** 2.5 + 1e-6
+    q[:, -3:] *= 1.15
+    return pint, t, q
+
+
+def varied_zm_inputs(ncol: int, pver: int, dtype=torch.float32,
+                     device="cuda"):
+    """(pstate, pbuf, forcing) on `zm_profiles` with per-column variety
+    from np.random.default_rng(0): t + 2 N(0, 1) K; u, v from
+    N(0, 10) m/s; CLDLIQ and CLDICE uniform in [0, 1e-5] and [0, 1e-6]
+    kg/kg; CLD uniform in [0, 0.5]; landfrac 0 or 1; and every fourth
+    column the stable, dry profile t = 260 + 20 p/p_sfc K,
+    q = 1e-5 p/p_sfc (tests/test_zm_conv.py::make_sounding). pblh and
+    tpert as build_zm_step. Raises where `device` is CUDA and no card is
+    present."""
+    dev = resolve_device(device)
+    reg = default_registry()
+    rng = np.random.default_rng(0)
+    pint, t, q0 = zm_profiles(ncol, pver)
+    pmid = 0.5 * (pint[:, 1:] + pint[:, :-1])
+    t = t + 2.0 * rng.standard_normal((ncol, pver))
+    u = rng.normal(0.0, 10.0, (ncol, pver))
+    v = rng.normal(0.0, 10.0, (ncol, pver))
+    q = np.zeros((ncol, pver, reg.pcnst))
+    q[:, :, 0] = q0
+    q[:, :, 1] = rng.uniform(0.0, 1e-5, (ncol, pver))
+    q[:, :, 2] = rng.uniform(0.0, 1e-6, (ncol, pver))
+    cld = rng.uniform(0.0, 0.5, (ncol, pver))
+    landfrac = (rng.uniform(size=ncol) < 0.5).astype(np.float64)
+    stable = np.arange(ncol) % 4 == 3
+    ratio = pmid[stable] / pmid[stable][:, -1:]
+    t[stable] = 260.0 + 20.0 * ratio
+    q[stable, :, 0] = 1e-5 * ratio
+
+    def ten(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    pstate = make_state_from_profiles(ten(pint), ten(t), ten(u), ten(v),
+                                      ten(q), ten(np.zeros(ncol)))
+    pbuf = pbuf_register(zm_pbuf_specs(ncol, pver), dtype, dev).set(
+        "CLD", ten(cld))
+    forcing = dict(pblh=ten(np.full(ncol, 800.0)),
+                   tpert=ten(np.full(ncol, 0.3)), landfrac=ten(landfrac))
+    return pstate, pbuf, forcing
+
+
+def build_zm_step(ncol: int, pver: int, dtype=torch.float32, device="cuda"):
+    """Returns (step, pstate0, pbuf0, forcing) for one ZM deep-convection
+    step, the twin of bench.py's ZM set-up: `zm_profiles` with zero winds,
+    CLD = 0.1 in the physics buffer, pblh = 800 m, tpert = 0.3 K,
+    landfrac = 1, dt = 1800 s, ZMConfig() and default_registry() (Q plus
+    the convtran-1 tracers CLDLIQ and CLDICE, both zero).
+
+    step(pstate, pbuf, forcing=forcing) -> (state1, pbuf) runs
+    zm_conv_tend; `forcing` holds the (ncol,) pblh, tpert and landfrac.
+    Raises where `device` is CUDA and no card is present."""
+    dev = resolve_device(device)
+    cfg = ZMConfig()
+    reg = default_registry()
+    pint, t, q0 = zm_profiles(ncol, pver)
+
+    def ten(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    q = np.zeros((ncol, pver, reg.pcnst))
+    q[:, :, 0] = q0
+    zeros = ten(np.zeros((ncol, pver)))
+    pstate = make_state_from_profiles(ten(pint), ten(t), zeros, zeros,
+                                      ten(q), ten(np.zeros(ncol)))
+    pbuf = pbuf_register(zm_pbuf_specs(ncol, pver), dtype, dev).set(
+        "CLD", ten(np.full((ncol, pver), 0.1)))
+    forcing0 = dict(pblh=ten(np.full(ncol, 800.0)),
+                    tpert=ten(np.full(ncol, 0.3)),
+                    landfrac=ten(np.ones(ncol)))
+
+    def step(pstate, pbuf, forcing=forcing0):
+        o = zm_conv_tend(cfg, reg, pstate, pbuf, forcing["pblh"],
+                         forcing["tpert"], forcing["landfrac"], DT)
+        return o.state1, o.pbuf
+
+    return step, pstate, pbuf, forcing0

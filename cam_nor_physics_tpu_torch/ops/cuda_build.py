@@ -27,6 +27,7 @@ BUILD = PKG / "build"
 SOURCES = {
     "stencil_kernels": ("stencil_kernels.cu", "tp_core.cuh"),
     "remap_kernels": ("remap_kernels.cu",),
+    "zm_tail_kernels": ("zm_tail_kernels.cu",),
 }
 
 # --fmad=false: no multiply-add contraction, so the kernels round like
@@ -48,6 +49,9 @@ SIGNATURES = {
     ),
     "remap_kernels": (
         ("cam_te_map_remap", [_P] * 9 + [_I] * 5 + [_P] * 4),
+    ),
+    "zm_tail_kernels": (
+        ("cam_zm_tail", [_P] * 19 + [_I] * 4 + [_D] * 5 + [_P] * 4),
     ),
 }
 

@@ -1,9 +1,11 @@
-"""FV dycore configuration (dyn_fv_inparm equivalent).
+"""FV dycore and ZM deep-convection configuration.
 
-The port's copy of `FVConfig` from `cam_nor_physics_tpu.utils.config`, with
-the same fields and defaults except `use_pallas`: here the kernels are chosen
-by the device of the tensors (CUDA tensors launch the hand-written kernels,
-CPU tensors take their plain PyTorch versions), so there is no switch.
+The port's copies of `FVConfig` and `ZMConfig` from
+`cam_nor_physics_tpu.utils.config`, with the same fields and defaults except
+the Pallas switches (`FVConfig.use_pallas`, `ZMConfig.use_pallas` and
+`ZMConfig.use_pallas_tail`): here the kernels are chosen by the device of
+the tensors (CUDA tensors launch the hand-written kernels, CPU tensors take
+their plain PyTorch versions), so there is no switch.
 """
 
 from __future__ import annotations
@@ -118,3 +120,71 @@ class FVConfig:
         return ns, nspltrac, nspltvrm
 
 
+
+
+@dataclass(frozen=True)
+class ZMConfig:
+    """Zhang-McFarlane deep convection configuration (zmconv_nl equivalent).
+
+    Namelist knobs from the reference zm_conv_intr.F90:66-81,188-192;
+    hard-wired "tht" switches and tunables from zm_conv.F90:75-103.
+    Defaults are the CAM6/NorESM production values. `microp=True` is not
+    ported: zm_conv_tend raises NotImplementedError for it.
+    """
+
+    # namelist tunables
+    c0_lnd: float = 0.0075     # autoconversion coefficient over land (1/m)
+    c0_ocn: float = 0.0300     # autoconversion coefficient over ocean (1/m)
+    ke: float = 5.0e-6         # evaporation efficiency
+    ke_lnd: float = 5.0e-6
+    momcu: float = 0.4         # updraft momentum-transport pressure-gradient parameter
+    momcd: float = 0.4         # downdraft momentum-transport pressure-gradient parameter
+    num_cin: int = 5           # negative-buoyancy layers allowed (must be <= 5, zm_conv.F90:200)
+    org: bool = False          # Mapes-Neale organization tracer
+    microp: bool = False       # convective microphysics inside updraft
+    dmpdz: float = -1.0e-3     # test-parcel fractional entrainment rate (1/m, negative)
+    tiedke_add: float = 0.5    # launching buoyancy of plume ensemble (K)
+    capelmt: float = 70.0      # CAPE threshold for deep convection (J/kg)
+    parcel_pbl: bool = False   # PBL-mixed launch parcel
+    tau: float = 3600.0        # CAPE-relaxation closure timescale (s)
+    no_deep_pbl: bool = False  # eliminate deep convection entirely within PBL
+
+    # tht switches, hard-wired true in the reference (zm_conv.F90:75-78)
+    second_call: bool = True   # iterate parcel-plume calculation
+    retrigger: bool = True     # iterate trigger condition
+    use_cin: bool = True       # CIN gating of the trigger
+    tht_tweaks: bool = True    # enthalpy (not entropy) plume mixing etc.
+
+    # hard-wired tunables (zm_conv.F90:83-103)
+    capelmt_lnd: float = 70.0
+    tiedke_lnd: float = 1.0
+    cape_tau: float = 3.6e3
+    entrmn: float = 2.0e-4     # max convective entrainment rate (1/m)
+    alfadet: float = 0.1       # detrainment/entrainment ratio
+    tentr_lnd: float = 1.0e-3
+    plclmin: float = 6.0e2     # min LCL pressure (hPa): no convection if LCL above
+    cin_threshd: float = 0.33  # max CIN as fraction of CAPE
+    parcel_hscale: float = 0.5 # PBL-height scaling for parcel mixing (lparcel_pbl)
+
+    # entropy/enthalpy inversion method: "newton" (fixed-count secant,
+    # the default), "newton_exact" (analytic derivative) or "brent" (the
+    # reference's iterate-to-convergence loop, zm_conv.F90:5304-5414)
+    inversion_solver: str = "newton"
+    # parcel ascent: "batched" (one whole-profile inversion plus
+    # fixed-point precip/freeze sweeps) or "scan" (the reference-shaped
+    # level recursion)
+    parcel_impl: str = "batched"
+    precip_sweeps: int = 3     # fixed-point sweeps in the batched adjustment
+
+    def __post_init__(self) -> None:
+        if self.num_cin > 5:
+            raise ValueError("ZMConfig: num_cin must not exceed 5 "
+                             "(reference zm_conv.F90:200)")
+        if not self.tht_tweaks and (self.second_call or self.retrigger):
+            raise ValueError("ZMConfig: tht_tweaks must be True to use "
+                             "second_call or retrigger (zm_conv.F90:197)")
+
+    @property
+    def tentrm(self) -> float:
+        """Initial test-parcel entrainment rate = -dmpdz."""
+        return -self.dmpdz

@@ -21,7 +21,32 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
    ulp of pt makes in the plain run over those steps where that is larger
    (float64: within 1e-9);
 5. times each kernel and its plain version (CUDA events) and the step;
-6. prints the kernels JSON line, then {"ok": true, "device": {...}} last.
+6. holds the fused ZM tail kernel (zm_tail) against its plain version
+   (zm_tail_ref) at f19's 13,824 columns x 26 levels, on the inputs the
+   port's own zm_convr gives it on entry.varied_zm_inputs (bench.py's
+   sounding with per-column noise, winds, cloud tracers and fraction,
+   land/ocean, every fourth column stable; seed 0): float32 within 1e-5,
+   float64 within 1e-12 of each output's max (a surface rate, prec or
+   snow, that is 0 everywhere in the plain version: of its column flux's
+   max / 1000);
+7. runs the ZM step, build_zm_step(13824, 26, float32, "cuda"), once on
+   those inputs with the launch counts set to 0 just before and read just
+   after: exactly 1 zm_tail launch, a triggered share strictly inside
+   (0, 1), finite fields; then zm_conv_tend through the kernel against the
+   same call through the plain tail, float32 and float64, on the ptend's
+   s, u, v and q per species and the pbuf stores PREC_DP, SNOW_DP,
+   DP_FLXPRC, DP_FLXSNW and NEVAPR_DPCU, with the gates of item 6;
+8. times zm_tail and zm_tail_ref (CUDA events), zm_conv_tend per call
+   (host clock, synchronised, mean of 3 after 1 warm-up) and zm_convr's
+   share of it (timed inside 3 more calls),
+   and the main path's grid points per second,
+   144*96*26 / (HS large step + ZM step), as bench.py's headline;
+9. runs the HS large step and the ZM step once more each under
+   torch.profiler and prints the device kernels each launched,
+   the device's busy time (the kernels' summed durations: one stream, so
+   they do not overlap) and its share of the wall time, and the kernels
+   that took the most device time;
+10. prints the kernels JSON line, then {"ok": true, "device": {...}} last.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
 checkout of the repo, or when any phase fails.
@@ -33,6 +58,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import defaultdict
 from contextlib import contextmanager
 from pathlib import Path
 
@@ -50,6 +76,15 @@ PLAIN_TOL = 1e-3          # float32, ROADMAP.md R2 ...
 PLAIN_SPREAD = 2.0        # ... or this many times the one-ulp spread (R2b)
 PLAIN_TOL_F64 = 1e-9      # float64: roundoff amplified through 16 small steps
 
+NCOL = IM * JM                     # ZM columns: f19's 13,824
+ZM_DT = 1800.0
+ZM_CALLS = 3                       # timed zm_conv_tend calls after 1 warm-up
+# estimated operations per column and level of the fused ZM tail (formulas
+# of csrc/zm_tail_kernels.cu, each power or logarithm counted as one):
+# evaporation with the blended Goff-Gratch qsat ~100, momtran of two winds
+# ~120, the KE heating ~25, and per tracer ~50
+OPS_TAIL_POINT, OPS_TAIL_TRACER = 245, 50
+
 # name, source, the TPU kernel it replaces (file:line of the Pallas kernel)
 KERNELS = (
     ("transport3d", "cam_nor_physics_tpu_torch/csrc/stencil_kernels.cu",
@@ -60,6 +95,8 @@ KERNELS = (
      "cam_nor_physics_tpu/ops/pallas_kernels.py:326"),
     ("te_map_remap", "cam_nor_physics_tpu_torch/csrc/remap_kernels.cu",
      "cam_nor_physics_tpu/ops/remap_pallas.py:115"),
+    ("zm_tail", "cam_nor_physics_tpu_torch/csrc/zm_tail_kernels.cu",
+     "cam_nor_physics_tpu/models/physics/zm_tail_pallas.py:206"),
 )
 
 # estimated operations per grid point of the stencil formulas (tp_core.cuh):
@@ -307,6 +344,258 @@ class Smoke:
         return nbytes, ops
 
 
+class ZMSmoke:
+    """The ZM step's checks: the fused tail kernel (zm_tail) against its
+    plain version, and zm_conv_tend through the kernel against the same
+    call through the plain tail."""
+
+    def __init__(self, torch, sm: Smoke):
+        from cam_nor_physics_tpu_torch.models.physics import zm_conv_intr
+        from cam_nor_physics_tpu_torch.models.physics.constituents import \
+            default_registry
+        from cam_nor_physics_tpu_torch.ops import zm_tail_kernels
+        from cam_nor_physics_tpu_torch.utils.config import ZMConfig
+        self.torch, self.sm = torch, sm
+        self.intr, self.tk = zm_conv_intr, zm_tail_kernels
+        self.cfg, self.reg = ZMConfig(), default_registry()
+
+    @contextmanager
+    def routed(self, fn):
+        """Point zm_conv_tend's tail site at fn for a while."""
+        saved = self.intr.zm_tail
+        self.intr.zm_tail = fn
+        try:
+            yield
+        finally:
+            self.intr.zm_tail = saved
+
+    def tend(self, pstate, pbuf, forcing):
+        return self.intr.zm_conv_tend(self.cfg, self.reg, pstate, pbuf,
+                                      forcing["pblh"], forcing["tpert"],
+                                      forcing["landfrac"], ZM_DT)
+
+    def capture(self, pstate, pbuf, forcing):
+        """The arguments of the tail call of one zm_conv_tend, run through
+        the plain tail."""
+        calls = []
+
+        def rec(*a, **kw):
+            calls.append((a, kw))
+            return self.tk.zm_tail_ref(*a, **kw)
+
+        with self.routed(rec):
+            self.tend(pstate, pbuf, forcing)
+        return calls[-1]
+
+    @staticmethod
+    def tail_outputs(res):
+        """{name: tensor} of zm_tail's (ev, mt, dq_tr)."""
+        ev, mt, dq = res
+        out = dict(ev)
+        out.update({k: mt[k] for k in ("dudt", "dvdt", "seten")})
+        for k in ("pguall", "pgdall", "icwu", "icwd"):
+            out.update({f"{k}[{i}]": mt[k][i] for i in range(2)})
+        out["dq_tr"] = dq
+        return out
+
+    @staticmethod
+    def tend_outputs(out):
+        """The fields of zm_conv_tend the tail moves: the summed ptend's
+        s, u, v and q per species, and the tail's pbuf stores."""
+        res = {"ptend.s": out.ptend_all.s, "ptend.u": out.ptend_all.u,
+               "ptend.v": out.ptend_all.v}
+        for m in range(out.ptend_all.q.shape[2]):
+            res[f"ptend.q[{m}]"] = out.ptend_all.q[:, :, m]
+        for k in ("PREC_DP", "SNOW_DP", "DP_FLXPRC", "DP_FLXSNW",
+                  "NEVAPR_DPCU"):
+            res[f"pbuf.{k}"] = out.pbuf.get(k)
+        return res
+
+    def rel_errors(self, got, want, flux_of):
+        """max|g-w| / scale per field and the largest |g-w|; the scale is
+        the field's max in `want`. A surface rate (`flux_of` names its
+        column flux; the rate is the flux's bottom row / 1000) that is 0
+        everywhere in `want` is held to its flux's max / 1000 instead."""
+        rel, abs_err = {}, 0.0
+        for k, w in want.items():
+            g = got[k]
+            if not bool(self.torch.isfinite(g).all()):
+                raise RuntimeError(f"ZM {k}: non-finite output")
+            d = float((g.double() - w.double()).abs().max())
+            scale = float(w.double().abs().max())
+            if scale == 0.0 and k in flux_of:
+                scale = float(want[flux_of[k]].double().abs().max()) / 1000.0
+            rel[k] = d / max(scale, 1e-30)
+            abs_err = max(abs_err, d)
+        return rel, abs_err
+
+    def gate(self, label, rel, dtype_name):
+        worst = max(rel, key=rel.get)
+        ok = rel[worst] <= TOL[dtype_name]
+        log(f"check {label:<24} {dtype_name}: max_rel_err={rel[worst]:.3e} "
+            f"({worst}) tol={TOL[dtype_name]:.0e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{label} {dtype_name}: kernel disagrees with "
+                               f"its plain version: {rel}")
+
+    def compare_tail(self, a, kw, dtype_name):
+        a, kw = self.sm.cast(a, kw, getattr(self.torch, dtype_name))
+        got = self.tail_outputs(self.tk.zm_tail(*a, **kw))
+        want = self.tail_outputs(self.tk.zm_tail_ref(*a, **kw))
+        self.torch.cuda.synchronize()
+        rel, abs_err = self.rel_errors(
+            got, want, {"prec": "flxprec", "snow": "flxsnow"})
+        self.gate("zm_tail", rel, dtype_name)
+        return abs_err
+
+    def compare_tend(self, inputs, dtype_name):
+        got = self.tend_outputs(self.tend(*inputs))
+        with self.routed(self.tk.zm_tail_ref):
+            want = self.tend_outputs(self.tend(*inputs))
+        self.torch.cuda.synchronize()
+        rel, _ = self.rel_errors(got, want,
+                                 {"pbuf.PREC_DP": "pbuf.DP_FLXPRC",
+                                  "pbuf.SNOW_DP": "pbuf.DP_FLXSNW"})
+        self.gate("zm_conv_tend", rel, dtype_name)
+
+    def work(self, a, kw):
+        """(bytes, operations) of one tail call: inputs read once, outputs
+        written once; operations from the per-point estimate."""
+        torch = self.torch
+        out = list(self.tail_outputs(self.tk.zm_tail(*a, **kw)).values())
+        ins = [x for x in a if isinstance(x, torch.Tensor)]
+        nbytes = sum(t.numel() * t.element_size() for t in ins + out)
+        t1, q_tr = a[1], a[7]          # zm_tail(cfg, t1, qv1, ..., q_tr, ...)
+        ops = t1.numel() * (OPS_TAIL_POINT + OPS_TAIL_TRACER * q_tr.shape[2])
+        return nbytes, ops
+
+    def time_host(self, fn, calls):
+        """Mean seconds of `calls` synchronised calls after one warm-up."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return sum(times) / len(times), times
+
+    def convr_share(self, fn, calls):
+        """(zm_convr's seconds, the call's seconds), summed over `calls`
+        calls of fn after one warm-up, with zm_convr timed inside the same
+        calls (synchronised on entry and exit)."""
+        torch, orig, spent = self.torch, self.intr.zm_convr, []
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*a, **kw)
+            torch.cuda.synchronize()
+            spent.append(time.perf_counter() - t0)
+            return out
+
+        self.intr.zm_convr = timed
+        try:
+            _, times = self.time_host(fn, calls)
+        finally:
+            self.intr.zm_convr = orig
+        return sum(spent[-calls:]), sum(times)
+
+
+def run_zm(torch, sm: Smoke, card: str) -> dict:
+    """Phases 6-8: the ZM step at f19's columns."""
+    from cam_nor_physics_tpu_torch.entry import (build_zm_step,
+                                                 varied_zm_inputs)
+    zm = ZMSmoke(torch, sm)
+
+    # ---- phase 6: the tail kernel against its plain version, on the
+    # inputs the port's own zm_convr gives it on the ZM state
+    zstep, _, _, _ = build_zm_step(NCOL, KM, torch.float32, DEVICE)
+    inputs = varied_zm_inputs(NCOL, KM, torch.float32, DEVICE)
+    a, kw = zm.capture(*inputs)
+    err = zm.compare_tail(a, kw, "float32")
+    zm.compare_tail(a, kw, "float64")
+
+    # ---- phase 7: the ZM step through the kernel, counted
+    zm.tk.zm_tail.launches = 0
+    state1, pbuf1 = zstep(*inputs)
+    torch.cuda.synchronize()
+    launches = zm.tk.zm_tail.launches
+    share = float(pbuf1.get("ZM_IDEEP").double().mean())
+    log(f"main path: 1 zm_conv_tend on {NCOL}x{KM} float32, launches "
+        f"{{'zm_tail': {launches}}}, triggered share {share:.4f} [{card}]")
+    if launches != 1:
+        raise RuntimeError(f"zm_tail launched {launches} times in one "
+                           f"zm_conv_tend (expected 1)")
+    if not 0.0 < share < 1.0:
+        raise RuntimeError(f"triggered share {share} not inside (0, 1)")
+    for f in ("t", "u", "v", "q"):
+        if not bool(torch.isfinite(getattr(state1, f)).all()):
+            raise RuntimeError(f"non-finite {f} after the ZM step")
+    zm.compare_tend(inputs, "float32")
+    zm.compare_tend(varied_zm_inputs(NCOL, KM, torch.float64, DEVICE),
+                    "float64")
+
+    # ---- phase 8: times
+    ms = sm.time_call(zm.tk.zm_tail, a, kw, 50)
+    plain_ms = sm.time_call(zm.tk.zm_tail_ref, a, kw, 5)
+    nbytes, ops = zm.work(a, kw)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS * 1e3
+    bound = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"time zm_tail            kernel {ms:.4f} ms  plain {plain_ms:.4f} "
+        f"ms  bound {bound:.5f} ms by {bound_by} ({nbytes} B, {ops:.3e} "
+        f"ops)  [{card}]")
+    tend_s, tend_all = zm.time_host(lambda: zstep(*inputs), ZM_CALLS)
+    convr_s, call_s = zm.convr_share(lambda: zstep(*inputs), ZM_CALLS)
+    log(f"zm_conv_tend per call [{card}]: {1e3 * tend_s:.2f} ms (mean of "
+        f"{ZM_CALLS} after 1 warm-up: "
+        + ", ".join(f"{1e3 * t:.2f}" for t in tend_all)
+        + f" ms); zm_convr {1e3 * convr_s / ZM_CALLS:.2f} of "
+        f"{1e3 * call_s / ZM_CALLS:.2f} ms per call "
+        f"({100.0 * convr_s / call_s:.1f}%) in {ZM_CALLS} more calls with "
+        f"zm_convr timed inside them")
+    return {"row": {"launches": launches, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": bound_by},
+            "zm_s": tend_s, "step": lambda: zstep(*inputs)}
+
+
+def profile_call(torch, label, fn, card, top=6):
+    """Phase 9: one warm-up call of fn, then one under torch.profiler;
+    prints the wall time, the device kernels, the device's busy time and
+    share, and the `top` kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError(f"{label}: the profiler recorded no device time")
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    share = 100.0 * busy_us / 1e6 / wall
+    log(f"profile {label} [{card}]: wall {1e3 * wall:.2f} ms under the "
+        f"profiler, {len(kernels)} device kernels, device busy "
+        f"{busy_us / 1e3:.3f} ms ({share:.1f}% of the wall time, idle "
+        f"{100.0 - share:.1f}%)")
+    by_name = defaultdict(lambda: [0, 0.0])
+    for e in kernels:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us()
+    for name, (n, us) in sorted(by_name.items(),
+                                key=lambda x: -x[1][1])[:top]:
+        log(f"    {us / 1e3:9.3f} ms  {n:6d} x  {name[:90]}")
+
+
 def run(torch) -> dict:
     from cam_nor_physics_tpu_torch.entry import build_step
     from cam_nor_physics_tpu_torch.ops import cuda_build
@@ -424,8 +713,25 @@ def run(torch) -> dict:
             f"bound {bound:.5f} ms by {bound_by} ({nbytes} B, {ops:.3e} "
             f"ops)  [{card}]")
         rows.append((label, name, ms, plain_ms, bound, bound_by))
+    # ---- phases 6-8: the ZM step and its tail kernel
+    zm = run_zm(torch, sm, card)
+    log(f"main path [{card}]: HS large step {1e3 * steady:.2f} ms + ZM step "
+        f"{1e3 * zm['zm_s']:.2f} ms -> "
+        f"{IM * JM * KM / (steady + zm['zm_s']):.6e} grid points/s "
+        f"({IM}x{JM}x{KM})")
+
+    # ---- phase 9: where the main path's time goes
+    profile_call(torch, f"HS large step {IM}x{JM}x{KM}",
+                 lambda: step(state0, grid, coord, phis), card)
+    profile_call(torch, f"ZM step {NCOL}x{KM}", zm["step"], card)
+
     kernels = []
     for name, source, replaces in KERNELS:
+        if name == "zm_tail":
+            kernels.append({"name": name, "route": "cuda", "source": source,
+                            "replaces": replaces, **zm["row"],
+                            "library_ms": None})
+            continue
         # transport3d runs at two orders, launched equally often per
         # step: its numbers are the mean of the two per-launch values
         mine = [r for r in rows if r[1] == name]

@@ -25,6 +25,8 @@ from cam_nor_physics_tpu_torch.models.fv import grid as tgrid
 from cam_nor_physics_tpu_torch.models.fv import vertical as tvert
 from torch_port_util import assert_close, npy, t64
 
+pytest_plugins = ("torch_port_plugin",)
+
 torch.set_num_threads(1)
 
 TOL = 1e-12

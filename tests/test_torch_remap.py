@@ -32,6 +32,8 @@ from cam_nor_physics_tpu_torch.ops import remap as tremap
 from cam_nor_physics_tpu_torch.ops import remap_kernels as trk
 from torch_port_util import assert_close, t64
 
+pytest_plugins = ("torch_port_plugin",)
+
 torch.set_num_threads(1)
 
 TOL = 1e-12

@@ -22,6 +22,8 @@ from cam_nor_physics_tpu_torch.entry import build_step
 from conftest import run_test_in_subprocess
 from torch_port_util import assert_close
 
+pytest_plugins = ("torch_port_plugin",)
+
 torch.set_num_threads(1)
 
 IM, JM, KM = 24, 16, 6

@@ -1,11 +1,14 @@
 """Static and CPU-only checks of the PyTorch port.
 
-- No module of cam_nor_physics_tpu_torch, nor chip_smoke.py, imports jax,
-  flax or the JAX package cam_nor_physics_tpu (the exact top-level name, so
-  the port's own package does not match).
+- No module of cam_nor_physics_tpu_torch, nor chip_smoke.py, imports
+  jax, flax or the JAX package
+  cam_nor_physics_tpu (the exact top-level name, so the port's own package
+  does not match).
 - Entry points default to the CUDA device and raise where it is absent.
-- convert.py carries state, grid and coordinate across and back unchanged.
-- The options the port does not implement raise NotImplementedError.
+- convert.py carries state, grid and coordinate, and the physics state and
+  buffer, across and back unchanged.
+- The options the port does not implement raise NotImplementedError
+  (ZMConfig.microp among them).
 """
 
 import ast
@@ -18,9 +21,16 @@ import torch
 from cam_nor_physics_tpu.models.fv import grid as jgrid
 from cam_nor_physics_tpu.models.fv import vertical as jvert
 from cam_nor_physics_tpu_torch import convert
-from cam_nor_physics_tpu_torch.entry import build_step
+from cam_nor_physics_tpu_torch.entry import (build_step, build_zm_step,
+                                             varied_zm_inputs)
 from cam_nor_physics_tpu_torch.models.fv import dyn_comp as tdc
-from cam_nor_physics_tpu_torch.utils.config import FVConfig
+from cam_nor_physics_tpu_torch.models.physics.constituents import \
+    default_registry
+from cam_nor_physics_tpu_torch.models.physics.zm_conv_intr import \
+    zm_conv_tend
+from cam_nor_physics_tpu_torch.utils.config import FVConfig, ZMConfig
+
+pytest_plugins = ("torch_port_plugin",)
 
 torch.set_num_threads(1)
 
@@ -66,6 +76,54 @@ def test_default_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="cuda"):
         convert.dynstate_from_numpy({f: np.zeros(1)
                                      for f in convert.STATE_FIELDS})
+
+
+def test_zm_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_zm_step(8, 26)
+    with pytest.raises(RuntimeError, match="cuda"):
+        varied_zm_inputs(8, 26)
+    with pytest.raises(RuntimeError, match="cuda"):
+        convert.physstate_from_numpy({f: np.zeros(1)
+                                      for f in convert.PHYS_STATE_FIELDS})
+
+
+def test_zm_conv_tend_microp_raises():
+    pstate, pbuf, forcing = varied_zm_inputs(4, 26, torch.float64, "cpu")
+    with pytest.raises(NotImplementedError, match="microp"):
+        zm_conv_tend(ZMConfig(microp=True), default_registry(), pstate, pbuf,
+                     forcing["pblh"], forcing["tpert"], forcing["landfrac"],
+                     1800.0)
+
+
+def test_physics_convert_round_trip():
+    step, _, _, _ = build_zm_step(8, 26, torch.float64, "cpu")
+    pstate, pbuf, forcing = varied_zm_inputs(8, 26, torch.float64, "cpu")
+    fields = convert.physstate_to_numpy(pstate)
+    assert set(fields) == set(convert.PHYS_STATE_FIELDS)
+    back = convert.physstate_to_numpy(convert.physstate_from_numpy(fields,
+                                                                   "cpu"))
+    for f in fields:
+        np.testing.assert_array_equal(back[f], fields[f], f)
+    pb_np, lifetimes = convert.pbuf_to_numpy(pbuf)
+    pb_back = convert.pbuf_from_numpy(pb_np, lifetimes, "cpu",
+                                      dtype=torch.float32)
+    assert pb_back.lifetimes == pbuf.lifetimes
+    assert pb_back.get("CLD").dtype == torch.float32
+    np.testing.assert_array_equal(pb_back.get("CLD").double().numpy(),
+                                  pb_np["CLD"].astype(np.float32))
+    out = zm_conv_tend(ZMConfig(), default_registry(), pstate, pbuf,
+                       forcing["pblh"], forcing["tpert"], forcing["landfrac"],
+                       1800.0)
+    flat = convert.zmtend_to_numpy(out)
+    assert {"ptend.s", "ptend.q", "state1.t", "pbuf.ZM_MU", "pbuf.PREC_DP",
+            "mcon", "jctop", "diag.CAPE", "diag.ZMDLIQ"} <= set(flat)
+    np.testing.assert_array_equal(flat["pbuf.ZM_MU"],
+                                  out.pbuf.get("ZM_MU").numpy())
+    s1, _ = step(pstate, pbuf, forcing)
+    np.testing.assert_array_equal(flat["state1.t"], s1.t.numpy())
 
 
 def test_convert_round_trip():

@@ -23,6 +23,8 @@ from cam_nor_physics_tpu.ops import tp_core as jtp
 from cam_nor_physics_tpu_torch.ops import stencil_kernels as sk
 from torch_port_util import assert_close, slab_fields, t64
 
+pytest_plugins = ("torch_port_plugin",)
+
 torch.set_num_threads(1)
 
 TOL = 1e-12

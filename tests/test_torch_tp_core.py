@@ -18,6 +18,8 @@ import cam_nor_physics_tpu_torch.ops.tp_core as ttp
 from oracles import tp_core_oracle as orc
 from torch_port_util import assert_close, t64
 
+pytest_plugins = ("torch_port_plugin",)
+
 torch.set_num_threads(1)
 
 TOL = 1e-13

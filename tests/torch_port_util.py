@@ -22,11 +22,13 @@ def npy(x):
     return np.asarray(x)
 
 
-def assert_close(got, want, tol, name=""):
-    """|got - want| <= tol·|want| + tol·max|want| elementwise."""
+def assert_close(got, want, tol, name="", scale=None):
+    """|got - want| <= tol·|want| + tol·scale elementwise; `scale` defaults
+    to max|want|."""
     got, want = npy(got), npy(want)
     assert got.shape == want.shape, (name, got.shape, want.shape)
-    scale = max(float(np.abs(want).max()), 1e-300)
+    if scale is None:
+        scale = max(float(np.abs(want).max()), 1e-300)
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol * scale,
                                err_msg=name)
 
