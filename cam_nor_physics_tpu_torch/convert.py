@@ -26,7 +26,8 @@ from .utils.device import resolve_device
 STATE_FIELDS = ("u", "v", "pt", "delp", "q")
 GRID_TABLES = ("cosp", "sinp", "cose", "sine", "acosp", "acosu", "coslon",
                "sinlon", "cosl5", "sinl5", "f0", "fc", "pft_center",
-               "pft_edge", "lats", "lons")
+               "pft_edge", "lats", "lons", "dft_fc", "dft_fs", "dft_gc",
+               "dft_gs")
 GRID_SCALARS = ("im", "jm", "km", "dl", "dp", "acap", "rcap", "ycrit_deg",
                 "rdy")
 COORD_FIELDS = ("ak", "bk", "ps0", "ptop")

@@ -1,0 +1,658 @@
+// Hopper kernels for the fused FV small step (cd_step as K1-K4).
+//
+// Replace the Pallas TPU kernels of cam_nor_physics_tpu/models/fv/
+// cd_pallas.py; their plain PyTorch versions are k1_ref ... k4_ref in
+// models/fv/cd_fused.py, wrappers in ops/cd_fused_kernels.py:
+//   K1 <- _k1_kernel: c_sw half step (D->A->C winds, C-grid Courants,
+//         tp2c/tp2d at order 1, floors) + the downward pressure pass
+//   K2 <- _k2_kernel: upward geopotential pass, C-grid PGF and Coriolis
+//         kick, polar filter as real-DFT sums, D-grid Courants
+//   K3 <- _k3_kernel: D-grid tp2c/tp2d (PPM, FFSL), floors + the downward
+//         pressure pass
+//   K4 <- _k4_kernel: upward geopotential pass, vector-invariant wind
+//         update (vorticity with cap means, KE, ytp/xtp vorticity fluxes,
+//         corner PGF), del2/del4 divergence and del2 velocity damping,
+//         polar filter
+//
+// Design. The TPU kernels run the levels as a sequential grid and carry
+// pe, pe^kappa, ln pe (K1, K3) or the interface geopotential (K2, K4) from
+// one level to the next in VMEM scratch. Here each K is two launches: a
+// level kernel, one thread block per level walking its (jm, im) slab in
+// phases separated by __syncthreads() (as the stencil kernels do, with the
+// transport phases shared through tp_core.cuh), and a column pass, one
+// thread per (j, i) looping over k with the carry in registers. K1 and K3
+// run the level kernel first and the downward pass over its thickness and
+// pt after it; K2 and K4 run the upward pass first, over the dgz of K1/K3,
+// and the level kernel on its layer geopotential. Intermediate slabs
+// (Courants, advective operators, energy, corner fields, damping, the
+// increments to filter) live in a scratch tensor the wrapper allocates;
+// each level's are a few hundred KB and are read back from L2.
+//
+// The polar filter is the TPU kernel's two-sided real DFT, written out:
+// per level and row, nf = im/2+1 forward sums over i of a[i]*cos and
+// a[i]*sin, times the row's response, then per point the inverse sums
+// over m, each sum one product and one addition per term in index order.
+// K2 filters duc with the center response and dvc with the edge response;
+// K4 du with the edge response and dv with the center response.
+//
+// Numerics. The plain versions are written in the order these kernels
+// evaluate; row factors come in one (kNumRows, jm) table from the wrapper
+// (cd_fused._metric_rows), so no point divides by a host scalar; the
+// library compiles with --fmad=false; pow and log are CUDA's, as PyTorch's
+// elementwise kernels call them; the polar-cap sums accumulate in double.
+// The carries start from ptop, ptop^kappa and ln ptop computed in double
+// on the host.
+//
+// Bound. Per call each K reads and writes a few (km, jm, im) slabs: 4 to
+// 10 slabs of 1.4 MB at f19 in float32, a few microseconds at 3.35 TB/s.
+// The DFT sums of K2 and K4 are 8 * jm * nf * im operations per level and
+// filtered field (about 16 MFLOP per level at f19), 0.4 GFLOP per call.
+// This first version is latency-bound: one block per level keeps km of
+// the 132 SMs busy in the level kernels.
+#include "tp_core.cuh"
+
+#include <stdint.h>
+
+namespace {
+
+using namespace tpc;
+
+constexpr int kThreads = 512;      // level kernels: one block per level
+constexpr int kColThreads = 256;   // column passes: one thread per (j, i)
+
+// rows of the metric table, in the order of cd_fused.METRIC_ROWS
+enum Row {
+  kCosp, kAcosp, kCose, kCosen, kF0, kFc, kDxp, kDy, kDxe, kDye, kRdx2,
+  kRdy2, kArea, kC4, kNumRows
+};
+
+// physical constants and the step's scalars, as the host passes them
+struct Consts {
+  double cappa, cpair, rearth, dl, dp;
+};
+
+template <typename T>
+struct Slab {            // a (jm, im) level slab with periodic x
+  const T* a;
+  int jm, im;
+  __device__ T operator()(int j, int i) const {
+    return a[j * im + wrap(i, im)];
+  }
+};
+
+// ------------------------------------------------------------ column passes
+
+// downward pressure pass: pe, pe^kappa and ln pe carried from the top
+template <typename T>
+__global__ void __launch_bounds__(kColThreads)
+down_thermo_kernel(const T* __restrict__ delp, const T* __restrict__ pt,
+                   double ptop, double pk_top0, double pl_top0, Consts cs,
+                   int km, int n, T* __restrict__ pkz, T* __restrict__ dgz) {
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n;
+       p += blockDim.x * gridDim.x) {
+    T pe_top = T(ptop), pk_top = T(pk_top0), pl_top = T(pl_top0);
+    for (int k = 0; k < km; ++k) {
+      const size_t idx = (size_t)k * n + p;
+      const T pe_bot = pe_top + delp[idx];
+      const T pk_bot = pow(pe_bot, T(cs.cappa));
+      const T pl_bot = log(pe_bot);
+      pkz[idx] = (pk_bot - pk_top) / (T(cs.cappa) * (pl_bot - pl_top));
+      dgz[idx] = T(cs.cpair) * pt[idx] * (pk_bot - pk_top);
+      pe_top = pe_bot;
+      pk_top = pk_bot;
+      pl_top = pl_bot;
+    }
+  }
+}
+
+// upward geopotential pass from phis: the layer mean 0.5 (wz_top + wz_bot)
+template <typename T>
+__global__ void __launch_bounds__(kColThreads)
+up_geopotential_kernel(const T* __restrict__ dgz, const T* __restrict__ phis,
+                       int km, int n, T* __restrict__ phi) {
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n;
+       p += blockDim.x * gridDim.x) {
+    T wz_bot = phis[p];
+    for (int k = km - 1; k >= 0; --k) {
+      const size_t idx = (size_t)k * n + p;
+      const T wz_top = wz_bot + dgz[idx];
+      phi[idx] = T(0.5) * (wz_top + wz_bot);
+      wz_bot = wz_top;
+    }
+  }
+}
+
+// ------------------------------------------------------------ shared pieces
+
+// per-row FFSL flags of one level: some |crx| of the row exceeds 1
+template <typename T>
+__device__ void ffsl_flags(const T* crx, int jm, int im, uint8_t* fl) {
+  for (int j = threadIdx.x; j < jm; j += blockDim.x) {
+    T m = T(0);
+    for (int i = 0; i < im; ++i) m = tmax(m, (T)fabs(crx[j * im + i]));
+    fl[j] = m > T(1) ? 1 : 0;
+  }
+}
+
+// forward real-DFT sums of a (jm, im) slab times the response: sr, si
+// (jm, nf)
+template <typename T>
+__device__ void dft_forward(const T* a, const T* fc, const T* fs,
+                            const T* resp, int jm, int im, int nf, T* sr,
+                            T* si) {
+  for (int idx = threadIdx.x; idx < jm * nf; idx += blockDim.x) {
+    const int j = idx / nf, m = idx - j * nf;
+    const T* r = a + j * im;
+    T s = T(0), t = T(0);
+    for (int i = 0; i < im; ++i) {
+      s = s + r[i] * fc[i * nf + m];
+      t = t + r[i] * fs[i * nf + m];
+    }
+    sr[idx] = s * resp[idx];
+    si[idx] = t * resp[idx];
+  }
+}
+
+// inverse real-DFT sums at (j, i)
+template <typename T>
+__device__ T dft_inverse(const T* sr, const T* si, const T* gc, const T* gs,
+                         int j, int i, int im, int nf) {
+  T c = T(0), s = T(0);
+  for (int m = 0; m < nf; ++m) {
+    c = c + sr[j * nf + m] * gc[m * im + i];
+    s = s + si[j * nf + m] * gs[m * im + i];
+  }
+  return c + s;
+}
+
+// a center field averaged to the SW corner of (j, i); row 0 is zero
+template <typename T, typename F>
+__device__ T corner(F a, int j, int i) {
+  if (j == 0) return T(0);
+  return T(0.25) * ((a(j, i) + a(j, i - 1)) + (a(j - 1, i) + a(j - 1, i - 1)));
+}
+
+// ------------------------------------------------------------ K1
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+k1_level_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                const T* __restrict__ pt, const T* __restrict__ delp,
+                const T* __restrict__ M, double dt5, double rcap, int band,
+                int K, int jm, int im, T* __restrict__ pt_h,
+                T* __restrict__ uc0, T* __restrict__ vc0,
+                T* __restrict__ scratch, uint8_t* __restrict__ flags) {
+  const int k = blockIdx.x, km = gridDim.x;
+  const int n = jm * im;
+  const size_t off = (size_t)k * n;
+  auto S = [&](int s) { return scratch + ((size_t)s * km + k) * n; };
+  T *crx = S(0), *cry = S(1), *yfx = S(2), *va2 = S(3), *ddp = S(8),
+    *dpt = S(9), *mfx = S(10), *mfy = S(11), *delp_h = S(12);
+  uint8_t* fl = flags + (size_t)k * jm;
+  const Slab<T> U{u + off, jm, im}, V{v + off, jm, im};
+  const T* cose = M + kCose * jm;
+
+  // A-grid winds, zero on the pole rows
+  auto ua = [&](int j, int i) {
+    return (j == 0 || j == jm - 1) ? T(0) : T(0.5) * (U(j, i) + U(j + 1, i));
+  };
+  auto va = [&](int j, int i) {
+    return (j == 0 || j == jm - 1) ? T(0) : T(0.5) * (V(j, i) + V(j, i + 1));
+  };
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+    const int j = idx / im, i = idx - j * im;
+    const T uc = T(0.5) * (ua(j, i) + ua(j, i - 1));
+    const T vc = j == 0 ? T(0) : T(0.5) * (va(j, i) + va(j - 1, i));
+    uc0[off + idx] = uc;
+    vc0[off + idx] = vc;
+    crx[idx] = (j == 0 || j == jm - 1) ? T(0) : uc * T(dt5) / M[kDxp * jm + j];
+    const T cy = j == 0 ? T(0) : vc * T(dt5) / M[kDy * jm + j];
+    cry[idx] = cy;
+    yfx[idx] = cy * cose[j];
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+    const int j = idx / im;
+    va2[idx] = T(0.5) * (cry[idx] + (j == jm - 1 ? T(0) : cry[idx + im]));
+  }
+  ffsl_flags(crx, jm, im, fl);
+  __syncthreads();
+  transport_level(delp + off, pt + off, crx, cry, yfx, va2, fl,
+                  M + kCosp * jm, M + kAcosp * jm, rcap, 1, 1, band, K, jm,
+                  im, ddp, dpt, mfx, mfy, S(4), S(5), S(6), S(7));
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+    const T d = delp[off + idx], p = pt[off + idx];
+    const T dh = tmax(d + ddp[idx], T(0.05) * d);
+    const T ph = (p * d + dpt[idx]) / dh;
+    delp_h[idx] = dh;
+    pt_h[off + idx] = tmax(ph, T(0.1) * p);
+  }
+}
+
+// ------------------------------------------------------------ K2
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+k2_level_kernel(const T* __restrict__ pt_h, const T* __restrict__ pkz_h,
+                const T* __restrict__ uc0, const T* __restrict__ vc0,
+                const T* __restrict__ M, const T* __restrict__ fcm,
+                const T* __restrict__ fsm, const T* __restrict__ gcm,
+                const T* __restrict__ gsm, const T* __restrict__ rspc,
+                const T* __restrict__ rspe, double dt, double dt5, Consts cs,
+                int filter, int jm, int im, int nf, T* __restrict__ uc_out,
+                T* __restrict__ crx_out, T* __restrict__ cry_out,
+                T* __restrict__ scratch, T* __restrict__ spec) {
+  const int k = blockIdx.x, km = gridDim.x;
+  const int n = jm * im;
+  const size_t off = (size_t)k * n;
+  auto S = [&](int s) { return scratch + ((size_t)s * km + k) * n; };
+  const T* phi = S(0);
+  T *en = S(1), *duc = S(2), *dvc = S(3);
+  T* sp = spec + (size_t)k * 4 * jm * nf;
+  const T cp = T(cs.cpair);
+  const Slab<T> P{pt_h + off, jm, im}, Z{pkz_h + off, jm, im},
+      U{uc0 + off, jm, im}, V{vc0 + off, jm, im};
+
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x)
+    en[idx] = phi[idx] + cp * pt_h[off + idx] * pkz_h[off + idx];
+  __syncthreads();
+  const Slab<T> E{en, jm, im};
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+    const int j = idx / im, i = idx - j * im;
+    const T dxp = M[kDxp * jm + j], dy = M[kDy * jm + j];
+    T pgf_u = T(0), pgf_v = T(0);
+    if (j != 0 && j != jm - 1) {
+      const T dx_en = (E(j, i) - E(j, i - 1)) / dxp;
+      const T dx_th = (P(j, i) - P(j, i - 1)) / dxp;
+      const T pi_u = T(0.5) * (Z(j, i) + Z(j, i - 1));
+      pgf_u = -(dx_en - cp * pi_u * dx_th);
+    }
+    if (j != 0) {
+      const T dy_en = (E(j, i) - E(j - 1, i)) / dy;
+      const T dy_th = (P(j, i) - P(j - 1, i)) / dy;
+      const T pi_v = T(0.5) * (Z(j, i) + Z(j - 1, i));
+      pgf_v = -(dy_en - cp * pi_v * dy_th);
+    }
+    // vc at uc points and uc at vc points
+    auto vcc = [&](int jj, int ii) {
+      return T(0.5) * (V(jj, ii) + (jj == jm - 1 ? T(0) : V(jj + 1, ii)));
+    };
+    const T vcu = T(0.5) * (vcc(j, i) + vcc(j, i - 1));
+    const T ucv = j == 0 ? T(0) : T(0.5) * (U(j, i) + U(j - 1, i));
+    duc[idx] = T(dt5) * (M[kF0 * jm + j] * vcu + pgf_u);
+    dvc[idx] = T(dt5) * (-M[kFc * jm + j] * ucv + pgf_v);
+  }
+  __syncthreads();
+  if (filter) {
+    dft_forward(duc, fcm, fsm, rspc, jm, im, nf, sp, sp + jm * nf);
+    dft_forward(dvc, fcm, fsm, rspe, jm, im, nf, sp + 2 * jm * nf,
+                sp + 3 * jm * nf);
+    __syncthreads();
+  }
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+    const int j = idx / im, i = idx - j * im;
+    T du = duc[idx], dv = dvc[idx];
+    if (filter) {
+      du = dft_inverse(sp, sp + jm * nf, gcm, gsm, j, i, im, nf);
+      dv = dft_inverse(sp + 2 * jm * nf, sp + 3 * jm * nf, gcm, gsm, j, i,
+                       im, nf);
+    }
+    const T uc = uc0[off + idx] + du;
+    const T vc = vc0[off + idx] + dv;
+    uc_out[off + idx] = uc;
+    crx_out[off + idx] =
+        (j == 0 || j == jm - 1) ? T(0) : uc * T(dt) / M[kDxp * jm + j];
+    cry_out[off + idx] = j == 0 ? T(0) : vc * T(dt) / M[kDy * jm + j];
+  }
+}
+
+// ------------------------------------------------------------ K3
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+k3_level_kernel(const T* __restrict__ delp, const T* __restrict__ pt,
+                const T* __restrict__ crx, const T* __restrict__ cry,
+                const T* __restrict__ M, double rcap, int iord, int jord,
+                int band, int K, int jm, int im, T* __restrict__ delp_new,
+                T* __restrict__ pt_new, T* __restrict__ mfx,
+                T* __restrict__ mfy, T* __restrict__ scratch,
+                uint8_t* __restrict__ flags) {
+  const int k = blockIdx.x, km = gridDim.x;
+  const int n = jm * im;
+  const size_t off = (size_t)k * n;
+  auto S = [&](int s) { return scratch + ((size_t)s * km + k) * n; };
+  T *yfx = S(0), *va = S(1), *ddp = S(6), *dpt = S(7);
+  uint8_t* fl = flags + (size_t)k * jm;
+  const T *cx = crx + off, *cy = cry + off;
+  const T* cose = M + kCose * jm;
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+    const int j = idx / im;
+    yfx[idx] = cy[idx] * cose[j];
+    va[idx] = T(0.5) * (cy[idx] + (j == jm - 1 ? T(0) : cy[idx + im]));
+  }
+  ffsl_flags(cx, jm, im, fl);
+  __syncthreads();
+  transport_level(delp + off, pt + off, cx, cy, yfx, va, fl, M + kCosp * jm,
+                  M + kAcosp * jm, rcap, iord, jord, band, K, jm, im, ddp,
+                  dpt, mfx + off, mfy + off, S(2), S(3), S(4), S(5));
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+    const T d = delp[off + idx];
+    const T dn = tmax(d + ddp[idx], T(0.05) * d);
+    delp_new[off + idx] = dn;
+    pt_new[off + idx] = (pt[off + idx] * d + dpt[idx]) / dn;
+  }
+}
+
+// ------------------------------------------------------------ K4
+
+enum KeMethod { kKeCentered = 0, kKeAvgSq = 1, kKeUpwind = 2 };
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+k4_level_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                const T* __restrict__ pt_new, const T* __restrict__ pkz,
+                const T* __restrict__ crx, const T* __restrict__ cry,
+                const T* __restrict__ ucin, const T* __restrict__ M,
+                const T* __restrict__ nu2, const T* __restrict__ fcm,
+                const T* __restrict__ fsm, const T* __restrict__ gcm,
+                const T* __restrict__ gsm, const T* __restrict__ rspc,
+                const T* __restrict__ rspe, double dt, double dtdel2,
+                double rcirc, Consts cs, int iord, int jord, int ke_method,
+                int div2_on, int del4_on, int filter, int band, int K,
+                int jm, int im, int nf, T* __restrict__ u_new,
+                T* __restrict__ v_new, T* __restrict__ scratch,
+                T* __restrict__ spec, uint8_t* __restrict__ flags) {
+  const int k = blockIdx.x, km = gridDim.x;
+  const int n = jm * im;
+  const size_t off = (size_t)k * n;
+  auto S = [&](int s) { return scratch + ((size_t)s * km + k) * n; };
+  const T* phi = S(0);
+  T *zeta = S(1), *en = S(2), *udt = S(3), *vedt = S(4), *div = S(5),
+    *enc = S(6), *thc = S(7), *pic = S(8), *damp = S(9), *du_s = S(10),
+    *dv_s = S(11);
+  T* sp = spec + (size_t)k * 4 * jm * nf;
+  uint8_t* fl = flags + (size_t)k * jm;
+  __shared__ T caps[2];
+  const T cp = T(cs.cpair), tdt = T(dt), tdl = T(cs.dl), tdp = T(cs.dp),
+          tre = T(cs.rearth);
+  const T* cose = M + kCose * jm;
+  const Slab<T> U{u + off, jm, im}, V{v + off, jm, im};
+  const Slab<T> PT{pt_new + off, jm, im}, PK{pkz + off, jm, im};
+  const T *cx = crx + off, *cy = cry + off;
+
+  // polar-cap means of the circulation, in double
+  auto cap_sum = [&](int j) {
+    double s = 0.0;
+    for (int i = 0; i < im; ++i)
+      s = s + (double)(U(j, i) * cose[j] * tdl * tre);
+    return s;
+  };
+  if (threadIdx.x == 0) caps[0] = (T)(-cap_sum(1) * rcirc);
+  if (second_lane()) caps[1] = (T)(cap_sum(jm - 1) * rcirc);
+  ffsl_flags(cx, jm, im, fl);
+  __syncthreads();
+
+  auto a_of_v = [&](int j, int i) { return T(0.5) * (V(j, i) + V(j, i + 1)); };
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+    const int j = idx / im, i = idx - j * im;
+    const bool interior = j != 0 && j != jm - 1;
+    const T uu = U(j, i), vv = V(j, i);
+    const T u_n = j == jm - 1 ? T(0) : U(j + 1, i);
+    const T v_e = V(j, i + 1);
+    // absolute vorticity
+    T z;
+    if (j == 0) {
+      z = caps[0];
+    } else if (j == jm - 1) {
+      z = caps[1];
+    } else {
+      const T circ = (uu * cose[j] - u_n * M[kCosen * jm + j]) * tdl * tre +
+                     (v_e - vv) * tdp * tre;
+      z = circ / M[kArea * jm + j];
+    }
+    zeta[idx] = z + M[kF0 * jm + j];
+    // kinetic energy
+    const T ua = interior ? T(0.5) * (uu + u_n) : T(0);
+    const T va = interior ? T(0.5) * (vv + v_e) : T(0);
+    T ke;
+    if (ke_method == kKeUpwind) {
+      const T u_sel = va >= T(0) ? uu : u_n;
+      const T v_sel = ua >= T(0) ? vv : v_e;
+      ke = interior ? T(0.5) * (u_sel * u_sel + v_sel * v_sel)
+                    : T(0.5) * (ua * ua + va * va);
+    } else if (ke_method == kKeAvgSq) {
+      const T ke_u = interior ? T(0.5) * (uu * uu + u_n * u_n) : T(0);
+      const T ke_v = interior ? T(0.5) * (vv * vv + v_e * v_e) : T(0);
+      ke = T(0.5) * (ke_u + ke_v);
+    } else {
+      ke = T(0.5) * (ua * ua + va * va);
+    }
+    en[idx] = ke + phi[idx] + cp * PT(j, i) * PK(j, i);
+    udt[idx] = ucin[off + idx] * tdt;
+    // v at the u points (through the corners) times dt
+    auto vc4 = [&](int ii) { return corner<T>(a_of_v, j, ii); };
+    vedt[idx] = T(0.5) * (vc4(i) + vc4(i + 1)) * tdt;
+    // divergence at the SW corner from the old winds
+    if (interior) {
+      const T vt = vv * M[kCosp * jm + j];
+      const T vt_s = V(j - 1, i) * M[kCosp * jm + j - 1];
+      div[idx] = (uu - U(j, i - 1)) / M[kDxe * jm + j] +
+                 (vt - vt_s) / M[kDye * jm + j];
+    } else {
+      div[idx] = T(0);
+    }
+  }
+  __syncthreads();
+
+  const Slab<T> EN{en, jm, im}, DIV{div, jm, im};
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+    const int j = idx / im, i = idx - j * im;
+    enc[idx] = corner<T>(EN, j, i);
+    thc[idx] = corner<T>(PT, j, i);
+    pic[idx] = corner<T>(PK, j, i);
+    T d = T(0);
+    if (div2_on) d = d + nu2[(size_t)k * jm + j] * div[idx];
+    if (del4_on) {
+      T lap = T(0);
+      if (j != 0 && j != jm - 1) {
+        const T dd = div[idx];
+        lap = (DIV(j, i + 1) - T(2) * dd + DIV(j, i - 1)) * M[kRdx2 * jm + j] +
+              (DIV(j + 1, i) - T(2) * dd + DIV(j - 1, i)) * M[kRdy2 * jm + j];
+      }
+      d = d - M[kC4 * jm + j] * lap;
+    }
+    damp[idx] = d;
+  }
+  __syncthreads();
+
+  const Slab<T> ENC{enc, jm, im}, THC{thc, jm, im}, PIC{pic, jm, im},
+      DAMP{damp, jm, im};
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+    const int j = idx / im, i = idx - j * im;
+    const bool interior = j != 0 && j != jm - 1;
+    const T dxe = M[kDxe * jm + j], dy = M[kDy * jm + j];
+    const T fy_z = ytp_point(zeta, cy, vedt, j, i, jm, im, jord);
+    const T fx_z = xtp_point(zeta + j * im, cx + j * im, udt + j * im, i, im,
+                             M[kCosp * jm + j], ffsl_row(fl, j, jm, band),
+                             iord, 1, K);
+    T du = T(0), dv = T(0);
+    if (j != 0) {
+      const T dx_en = (ENC(j, i + 1) - ENC(j, i)) / dxe;
+      const T dx_th = (THC(j, i + 1) - THC(j, i)) / dxe;
+      const T pi_u = T(0.5) * (PIC(j, i) + PIC(j, i + 1));
+      du = fy_z - tdt * (dx_en - cp * pi_u * dx_th);
+    }
+    if (interior) {
+      const T dy_en = (ENC(j + 1, i) - ENC(j, i)) / dy;
+      const T dy_th = (THC(j + 1, i) - THC(j, i)) / dy;
+      const T pi_v = T(0.5) * (PIC(j + 1, i) + PIC(j, i));
+      dv = -fx_z - tdt * (dy_en - cp * pi_v * dy_th);
+    }
+    du = du + tdt * ((DAMP(j, i + 1) - DAMP(j, i)) / dxe);
+    dv = dv + tdt * (interior ? (DAMP(j + 1, i) - DAMP(j, i)) / dy : T(0));
+    if (dtdel2 > 0.0) {
+      const T rdx2 = M[kRdx2 * jm + j], rdy2 = M[kRdy2 * jm + j];
+      auto lap = [&](const Slab<T>& A) {
+        const T a = A(j, i);
+        const T d2x = (A(j, i + 1) - T(2) * a + A(j, i - 1)) * rdx2;
+        const T d2y = interior
+            ? (A(j + 1, i) - T(2) * a + A(j - 1, i)) * rdy2 : T(0);
+        return d2x + d2y;
+      };
+      du = du + T(dtdel2) * lap(U);
+      dv = dv + T(dtdel2) * lap(V);
+    }
+    if (filter) {
+      du_s[idx] = du;
+      dv_s[idx] = dv;
+    } else {
+      u_new[off + idx] = U(j, i) + du;
+      v_new[off + idx] = V(j, i) + dv;
+    }
+  }
+  if (!filter) return;
+  __syncthreads();
+  dft_forward(du_s, fcm, fsm, rspe, jm, im, nf, sp, sp + jm * nf);
+  dft_forward(dv_s, fcm, fsm, rspc, jm, im, nf, sp + 2 * jm * nf,
+              sp + 3 * jm * nf);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+    const int j = idx / im, i = idx - j * im;
+    u_new[off + idx] =
+        U(j, i) + dft_inverse(sp, sp + jm * nf, gcm, gsm, j, i, im, nf);
+    v_new[off + idx] = V(j, i) + dft_inverse(sp + 2 * jm * nf,
+                                             sp + 3 * jm * nf, gcm, gsm, j,
+                                             i, im, nf);
+  }
+}
+
+// ------------------------------------------------------------ launches
+
+int col_blocks(int n) { return (n + kColThreads - 1) / kColThreads; }
+
+template <typename T>
+int launch_k1(const T* u, const T* v, const T* pt, const T* delp, const T* M,
+              double dt5, double rcap, double ptop, double pk0, double pl0,
+              Consts cs, int band, int K, int km, int jm, int im, T* pt_h,
+              T* uc0, T* vc0, T* pkz_h, T* dgz_h, T* scratch,
+              uint8_t* flags, void* stream) {
+  const int n = jm * im;
+  k1_level_kernel<T><<<km, kThreads, 0, (cudaStream_t)stream>>>(
+      u, v, pt, delp, M, dt5, rcap, band, K, jm, im, pt_h, uc0, vc0, scratch,
+      flags);
+  const int nb = col_blocks(n);
+  down_thermo_kernel<T><<<nb, kColThreads, 0, (cudaStream_t)stream>>>(
+      scratch + (size_t)12 * km * n, pt_h, ptop, pk0, pl0, cs, km, n, pkz_h,
+      dgz_h);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_k2(const T* pt_h, const T* pkz_h, const T* dgz_h, const T* uc0,
+              const T* vc0, const T* phis, const T* M, const T* fcm,
+              const T* fsm, const T* gcm, const T* gsm, const T* rspc,
+              const T* rspe, double dt, double dt5, Consts cs, int filter,
+              int km, int jm, int im, T* uc, T* crx, T* cry, T* scratch,
+              T* spec, void* stream) {
+  const int n = jm * im, nf = im / 2 + 1;
+  const int nb = col_blocks(n);
+  up_geopotential_kernel<T><<<nb, kColThreads, 0, (cudaStream_t)stream>>>(
+      dgz_h, phis, km, n, scratch);
+  k2_level_kernel<T><<<km, kThreads, 0, (cudaStream_t)stream>>>(
+      pt_h, pkz_h, uc0, vc0, M, fcm, fsm, gcm, gsm, rspc, rspe, dt, dt5, cs,
+      filter, jm, im, nf, uc, crx, cry, scratch, spec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_k3(const T* delp, const T* pt, const T* crx, const T* cry,
+              const T* M, double rcap, double ptop, double pk0, double pl0,
+              Consts cs, int iord, int jord, int band, int K, int km, int jm,
+              int im, T* delp_new, T* pt_new, T* mfx, T* mfy, T* pkz, T* dgz,
+              T* scratch, uint8_t* flags, void* stream) {
+  const int n = jm * im;
+  k3_level_kernel<T><<<km, kThreads, 0, (cudaStream_t)stream>>>(
+      delp, pt, crx, cry, M, rcap, iord, jord, band, K, jm, im, delp_new,
+      pt_new, mfx, mfy, scratch, flags);
+  const int nb = col_blocks(n);
+  down_thermo_kernel<T><<<nb, kColThreads, 0, (cudaStream_t)stream>>>(
+      delp_new, pt_new, ptop, pk0, pl0, cs, km, n, pkz, dgz);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_k4(const T* u, const T* v, const T* pt_new, const T* pkz,
+              const T* dgz, const T* phis, const T* crx, const T* cry,
+              const T* uc, const T* M, const T* nu2, const T* fcm,
+              const T* fsm, const T* gcm, const T* gsm, const T* rspc,
+              const T* rspe, double dt, double dtdel2, double rcirc,
+              Consts cs, int iord, int jord, int ke_method, int div2_on,
+              int del4_on, int filter, int band, int K, int km, int jm,
+              int im, T* u_new, T* v_new, T* scratch, T* spec,
+              uint8_t* flags, void* stream) {
+  const int n = jm * im, nf = im / 2 + 1;
+  const int nb = col_blocks(n);
+  up_geopotential_kernel<T><<<nb, kColThreads, 0, (cudaStream_t)stream>>>(
+      dgz, phis, km, n, scratch);
+  k4_level_kernel<T><<<km, kThreads, 0, (cudaStream_t)stream>>>(
+      u, v, pt_new, pkz, crx, cry, uc, M, nu2, fcm, fsm, gcm, gsm, rspc,
+      rspe, dt, dtdel2, rcirc, cs, iord, jord, ke_method, div2_on, del4_on,
+      filter, band, K, jm, im, nf, u_new, v_new, scratch, spec, flags);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#define CAM_CD_FUSED_ENTRY(SUF, T)                                            \
+  extern "C" int cam_cd_k1_##SUF(                                             \
+      const T* u, const T* v, const T* pt, const T* delp, const T* M,         \
+      double dt5, double rcap, double ptop, double pk0, double pl0,           \
+      double cappa, double cpair, int band, int K, int km, int jm, int im,    \
+      T* pt_h, T* uc0, T* vc0, T* pkz_h, T* dgz_h, T* scratch,                \
+      uint8_t* flags, void* stream) {                                         \
+    const Consts cs{cappa, cpair, 0.0, 0.0, 0.0};                             \
+    return launch_k1<T>(u, v, pt, delp, M, dt5, rcap, ptop, pk0, pl0, cs,     \
+                        band, K, km, jm, im, pt_h, uc0, vc0, pkz_h, dgz_h,    \
+                        scratch, flags, stream);                              \
+  }                                                                           \
+  extern "C" int cam_cd_k2_##SUF(                                             \
+      const T* pt_h, const T* pkz_h, const T* dgz_h, const T* uc0,            \
+      const T* vc0, const T* phis, const T* M, const T* fcm, const T* fsm,    \
+      const T* gcm, const T* gsm, const T* rspc, const T* rspe, double dt,    \
+      double dt5, double cpair, int filter, int km, int jm, int im, T* uc,    \
+      T* crx, T* cry, T* scratch, T* spec, void* stream) {                    \
+    const Consts cs{0.0, cpair, 0.0, 0.0, 0.0};                               \
+    return launch_k2<T>(pt_h, pkz_h, dgz_h, uc0, vc0, phis, M, fcm, fsm, gcm, \
+                        gsm, rspc, rspe, dt, dt5, cs, filter, km, jm, im, uc, \
+                        crx, cry, scratch, spec, stream);                     \
+  }                                                                           \
+  extern "C" int cam_cd_k3_##SUF(                                             \
+      const T* delp, const T* pt, const T* crx, const T* cry, const T* M,     \
+      double rcap, double ptop, double pk0, double pl0, double cappa,         \
+      double cpair, int iord, int jord, int band, int K, int km, int jm,      \
+      int im, T* delp_new, T* pt_new, T* mfx, T* mfy, T* pkz, T* dgz,         \
+      T* scratch, uint8_t* flags, void* stream) {                             \
+    const Consts cs{cappa, cpair, 0.0, 0.0, 0.0};                             \
+    return launch_k3<T>(delp, pt, crx, cry, M, rcap, ptop, pk0, pl0, cs,      \
+                        iord, jord, band, K, km, jm, im, delp_new, pt_new,    \
+                        mfx, mfy, pkz, dgz, scratch, flags, stream);          \
+  }                                                                           \
+  extern "C" int cam_cd_k4_##SUF(                                             \
+      const T* u, const T* v, const T* pt_new, const T* pkz, const T* dgz,    \
+      const T* phis, const T* crx, const T* cry, const T* uc, const T* M,     \
+      const T* nu2, const T* fcm, const T* fsm, const T* gcm, const T* gsm,   \
+      const T* rspc, const T* rspe, double dt, double dtdel2, double rcirc,   \
+      double cpair, double rearth, double dl, double dp, int iord, int jord,  \
+      int ke_method, int div2_on, int del4_on, int filter, int band, int K,   \
+      int km, int jm, int im, T* u_new, T* v_new, T* scratch, T* spec,        \
+      uint8_t* flags, void* stream) {                                         \
+    const Consts cs{0.0, cpair, rearth, dl, dp};                              \
+    return launch_k4<T>(u, v, pt_new, pkz, dgz, phis, crx, cry, uc, M, nu2,   \
+                        fcm, fsm, gcm, gsm, rspc, rspe, dt, dtdel2, rcirc,    \
+                        cs, iord, jord, ke_method, div2_on, del4_on, filter,  \
+                        band, K, km, jm, im, u_new, v_new, scratch, spec,     \
+                        flags, stream);                                       \
+  }
+
+CAM_CD_FUSED_ENTRY(f32, float)
+CAM_CD_FUSED_ENTRY(f64, double)

@@ -35,15 +35,6 @@ using namespace tpc;
 
 constexpr int kThreads = 512;
 
-__device__ __forceinline__ bool ffsl_row(const uint8_t* ffsl, int j, int jm,
-                                         int band) {
-  // band < 0: every row may take the FFSL branch; else only `band` rows at
-  // each pole (ffsl_band in ops/tp_core.py)
-  if (!ffsl[j]) return false;
-  if (band < 0 || 2 * band >= jm) return true;
-  return j < band || j >= jm - band;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 transport_kernel(const T* __restrict__ delp, const T* __restrict__ pt,
@@ -63,53 +54,12 @@ transport_kernel(const T* __restrict__ delp, const T* __restrict__ pt,
   const uint8_t* fl = ffsl + (size_t)k * jm;
   T *o_ddp = ddp + off, *o_dpt = dpt + off, *o_mfx = mfx + off,
     *o_mfy = mfy + off;
-  T* s0 = scratch + ((size_t)0 * km + k) * n;   // adx(delp), then fy(pt)
-  T* s1 = scratch + ((size_t)1 * km + k) * n;   // ady(delp), then fx(pt)
-  T* s2 = scratch + ((size_t)2 * km + k) * n;   // adx(pt)
-  T* s3 = scratch + ((size_t)3 * km + k) * n;   // ady(pt)
-  __shared__ T caps[2];
-
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int j = idx / im, i = idx - j * im;
-    const bool f = ffsl_row(fl, j, jm, band);
-    s0[idx] = adx_point(dl, cx, j, i, jm, im, cosp[j], f, K);
-    s1[idx] = ady_point(dl, v, j, i, jm, im);
-    s2[idx] = adx_point(p, cx, j, i, jm, im, cosp[j], f, K);
-    s3[idx] = ady_point(p, v, j, i, jm, im);
-  }
-  __syncthreads();
-  // tp2c: mass fluxes of delp (id = 0: the Courant number is the flux)
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int j = idx / im, i = idx - j * im;
-    const bool f = ffsl_row(fl, j, jm, band);
-    o_mfy[idx] = ytp_point(s0, cy, yf, j, i, jm, im, jord);
-    o_mfx[idx] = xtp_point(s1 + j * im, cx + j * im, cx + j * im, i, im,
-                           cosp[j], f, iord, 0, K);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) caps[0] = (T)(-row_sum(o_mfy + im, im) * rcap);
-  if (threadIdx.x == 32)
-    caps[1] = (T)(row_sum(o_mfy + (jm - 1) * im, im) * rcap);
-  __syncthreads();
-  // ddp, and tp2d of pt with the mass fluxes just computed (id = 1)
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int j = idx / im, i = idx - j * im;
-    const bool f = ffsl_row(fl, j, jm, band);
-    o_ddp[idx] = div_point(o_mfx, o_mfy, j, i, jm, im, acosp[j], caps[0],
-                           caps[1]);
-    s0[idx] = ytp_point(s2, cy, o_mfy, j, i, jm, im, jord);
-    s1[idx] = xtp_point(s3 + j * im, cx + j * im, o_mfx + j * im, i, im,
-                        cosp[j], f, iord, 1, K);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) caps[0] = (T)(-row_sum(s0 + im, im) * rcap);
-  if (threadIdx.x == 32)
-    caps[1] = (T)(row_sum(s0 + (jm - 1) * im, im) * rcap);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int j = idx / im, i = idx - j * im;
-    o_dpt[idx] = div_point(s1, s0, j, i, jm, im, acosp[j], caps[0], caps[1]);
-  }
+  transport_level(dl, p, cx, cy, yf, v, fl, cosp, acosp, rcap, iord, jord,
+                  band, K, jm, im, o_ddp, o_dpt, o_mfx, o_mfy,
+                  scratch + ((size_t)0 * km + k) * n,
+                  scratch + ((size_t)1 * km + k) * n,
+                  scratch + ((size_t)2 * km + k) * n,
+                  scratch + ((size_t)3 * km + k) * n);
 }
 
 template <typename T>
@@ -173,8 +123,7 @@ tracer_kernel(const T* __restrict__ q, const T* __restrict__ crx,
   }
   __syncthreads();
   if (threadIdx.x == 0) caps[0] = (T)(-row_sum(s2 + im, im) * rcap);
-  if (threadIdx.x == 32)
-    caps[1] = (T)(row_sum(s2 + (jm - 1) * im, im) * rcap);
+  if (second_lane()) caps[1] = (T)(row_sum(s2 + (jm - 1) * im, im) * rcap);
   __syncthreads();
   T* out = dqm + (size_t)b * n;
   for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {

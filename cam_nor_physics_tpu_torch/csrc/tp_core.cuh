@@ -16,6 +16,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace tpc {
 
@@ -268,6 +269,78 @@ __device__ double row_sum(const T* r, int im) {
   double s = 0.0;
   for (int i = 0; i < im; ++i) s = s + (double)r[i];
   return s;
+}
+
+// whether row j takes the FFSL branch: its flag, and with band >= 0 only
+// `band` rows at each pole (ffsl_band in ops/tp_core.py)
+__device__ __forceinline__ bool ffsl_row(const uint8_t* ffsl, int j, int jm,
+                                         int band) {
+  if (!ffsl[j]) return false;
+  if (band < 0 || 2 * band >= jm) return true;
+  return j < band || j >= jm - band;
+}
+
+// the thread that takes the second of two single-thread jobs: another warp
+// where the block has one, else thread 0
+__device__ __forceinline__ bool second_lane() {
+  return threadIdx.x == (blockDim.x > 32 ? 32u : 0u);
+}
+
+// tp2c of h plus the mass-consistent tp2d of q (id = 1 with the mass fluxes
+// just computed) on ONE level, by one whole thread block in phases
+// separated by __syncthreads(). h, q, cx, cy, yf, va are the level's
+// (jm, im) slabs, fl its per-row FFSL flags, s0..s3 four scratch slabs.
+// Writes dh and dq (flux divergences, polar caps closed) and the mass
+// fluxes mfx, mfy (transport3d_ref in ops/stencil_kernels.py).
+template <typename T>
+__device__ void transport_level(const T* h, const T* q, const T* cx,
+                                const T* cy, const T* yf, const T* va,
+                                const uint8_t* fl, const T* cosp,
+                                const T* acosp, double rcap, int iord,
+                                int jord, int band, int K, int jm, int im,
+                                T* dh, T* dq, T* mfx, T* mfy, T* s0, T* s1,
+                                T* s2, T* s3) {
+  __shared__ T caps[2];
+  const int n = jm * im;
+  // s0 adx(h), then fy(q); s1 ady(h), then fx(q); s2 adx(q); s3 ady(q)
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+    const int j = idx / im, i = idx - j * im;
+    const bool f = ffsl_row(fl, j, jm, band);
+    s0[idx] = adx_point(h, cx, j, i, jm, im, cosp[j], f, K);
+    s1[idx] = ady_point(h, va, j, i, jm, im);
+    s2[idx] = adx_point(q, cx, j, i, jm, im, cosp[j], f, K);
+    s3[idx] = ady_point(q, va, j, i, jm, im);
+  }
+  __syncthreads();
+  // tp2c: mass fluxes of h (id = 0: the Courant number is the flux)
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+    const int j = idx / im, i = idx - j * im;
+    const bool f = ffsl_row(fl, j, jm, band);
+    mfy[idx] = ytp_point(s0, cy, yf, j, i, jm, im, jord);
+    mfx[idx] = xtp_point(s1 + j * im, cx + j * im, cx + j * im, i, im,
+                         cosp[j], f, iord, 0, K);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) caps[0] = (T)(-row_sum(mfy + im, im) * rcap);
+  if (second_lane()) caps[1] = (T)(row_sum(mfy + (jm - 1) * im, im) * rcap);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+    const int j = idx / im, i = idx - j * im;
+    const bool f = ffsl_row(fl, j, jm, band);
+    dh[idx] = div_point(mfx, mfy, j, i, jm, im, acosp[j], caps[0], caps[1]);
+    s0[idx] = ytp_point(s2, cy, mfy, j, i, jm, im, jord);
+    s1[idx] = xtp_point(s3 + j * im, cx + j * im, mfx + j * im, i, im,
+                        cosp[j], f, iord, 1, K);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) caps[0] = (T)(-row_sum(s0 + im, im) * rcap);
+  if (second_lane()) caps[1] = (T)(row_sum(s0 + (jm - 1) * im, im) * rcap);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+    const int j = idx / im, i = idx - j * im;
+    dq[idx] = div_point(s1, s0, j, i, jm, im, acosp[j], caps[0], caps[1]);
+  }
+  __syncthreads();
 }
 
 }  // namespace tpc

@@ -3,9 +3,11 @@
 `build_step` is the twin of `__graft_entry__._build`/`entry` in the JAX
 package: one FV large step `dyn_run` (nsplit=4 small steps, one tracer
 cycle, one remap, dt=1800 s) followed by `hs_forcing`. On a CUDA device
-the step runs the port's four dycore CUDA kernels (transport3d and
-vort_flux3d in every small step, tracer_div3d in trac2d, te_map_remap in
-te_map).
+the step runs the port's CUDA kernels: with the default
+filter_impl="fft" every small step is the fused K1-K4 (ops.cd_fused_kernels,
+two launches each); with filter_impl="matmul" it is the unfused step with
+transport3d and vort_flux3d. tracer_div3d runs in trac2d and te_map_remap
+in te_map on both paths.
 
     step, state, grid, coord, phis = build_step(144, 96, 26)
     for _ in range(4):
@@ -42,15 +44,16 @@ DT = 1800.0
 
 def build_step(im: int = 144, jm: int = 96, km: int = 26,
                dtype=torch.float32, device="cuda",
-               filter_impl: str = "matmul"):
+               filter_impl: str = "fft"):
     """Returns (step, state0, grid, coord, phis) for the HS large step at
     im x jm x km, FVConfig(nsplit=4, nspltrac=1), dt = 1800 s. The initial
     state is hs_initial_state with np.random.default_rng(0) noise, as in
-    the JAX package's `_build`.
+    the JAX package's `_build`; filter_impl defaults to its "fft", the
+    fused small step.
 
     Raises where `device` is CUDA and no card is present. For float32 on a
-    card, TF32 matmuls must be off (the polar filter's circulant matmul
-    feeds the wind update; PyTorch's default keeps them off)."""
+    card, TF32 matmuls must be off (the "matmul" polar filter's circulant
+    matmul feeds the wind update; PyTorch's default keeps them off)."""
     dev = resolve_device(device)
     if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("build_step: torch.backends.cuda.matmul."

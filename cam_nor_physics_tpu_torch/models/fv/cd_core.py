@@ -8,10 +8,13 @@ vector-invariant wind update with del2/del4 divergence damping, del2
 velocity damping and the polar filter. Fields are (km, jm, im) tensors, k=0
 the model top.
 
-The transport and vorticity fluxes go through `ops.stencil_kernels`, which
-launches the CUDA kernels for CUDA tensors. The JAX package's fused
-four-kernel path (cd_pallas.py, K1-K4) is not ported: on the card both
-polar-filter implementations run this unfused step.
+`cd_step` runs the fused four-kernel step (cd_fused.py, K1-K4 of
+ops.cd_fused_kernels) when its flags allow it: the c_sw half step with the
+DFT-form polar filter (filter_impl "fft" or "dft"), as the JAX package's
+cd_step does on one chip. Otherwise it runs the unfused step below, whose
+transport and vorticity fluxes go through `ops.stencil_kernels`
+(transport3d, vort_flux3d); filter_impl="matmul" always takes it. Either
+way CUDA tensors launch the CUDA kernels.
 """
 
 from __future__ import annotations
@@ -141,14 +144,30 @@ def cd_step(state: DynState, grid: FVGrid, ptop: float, phis, dt: float,
             c_sw_pgf: bool = False, filter_dm: bool = False,
             filter_csw_dm: bool = False, mesh=None,
             return_debug: bool = False, div2_on: bool = True,
-            div4_coef_nd: float = 0.0, div_taper=None):
+            div4_coef_nd: float = 0.0, div_taper=None, fused: bool = True):
     """One small Lagrangian step. Returns (new_state, diagnostics dict with
-    cx, cy, mfx, mfy, pe, pk, pkz, peln, wz)."""
+    cx, cy, mfx, mfy, pe, pk, pkz, peln, wz).
+
+    With `fused` (the JAX package's use_pallas) and no filter_dm or
+    filter_csw_dm, flags that `cd_fused.use_fused_cd` accepts take the
+    fused K1-K4 step; fused=False keeps the unfused formulation. Whether
+    the CUDA kernels or their plain versions run is decided by the
+    tensors' device, not here."""
     if mesh is not None:
         raise NotImplementedError("cd_step: mesh (multi-device sharding) is "
                                   "not ported")
     if return_debug:
         raise NotImplementedError("cd_step: return_debug is not ported")
+    if fused and not filter_dm and not filter_csw_dm:
+        # imported here: cd_fused builds on this module's helpers
+        from .cd_fused import cd_step_fused, use_fused_cd
+        if use_fused_cd(grid, dyn_filter, c_sw_pgf, ke_method, filter_impl,
+                        return_debug):
+            return cd_step_fused(state, grid, ptop, phis, dt, iord, jord,
+                                 div2_coef_nd, dyn_filter, ke_method,
+                                 del2_velocity, div2_on=div2_on,
+                                 div4_coef_nd=div4_coef_nd,
+                                 div_taper=div_taper)
     u, v, pt, delp = state.u, state.v, state.pt, state.delp
     km, jm, im = delp.shape
     band5 = tp.ffsl_band(jm, grid.dl, 0.5 * dt)

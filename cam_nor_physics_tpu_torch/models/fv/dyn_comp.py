@@ -9,8 +9,10 @@ PyTorch twin of `cam_nor_physics_tpu.models.fv.dyn_comp`:
         trac2d: large-step tracer transport with the accumulated fluxes
       te_map: conservative vertical remap back to the hybrid coordinate
 
-The subcycles are Python loops; tracer_div3d and te_map_remap launch their
-CUDA kernels for CUDA tensors. Not ported (they raise NotImplementedError):
+The subcycles are Python loops. Each small step is cd_step: the fused
+K1-K4 for filter_impl "fft"/"dft" with the default c_sw half step, the
+unfused step (transport3d, vort_flux3d) for "matmul". tracer_div3d and
+te_map_remap launch their CUDA kernels for CUDA tensors. Not ported (they raise NotImplementedError):
 the angular-momentum fixer and correction, the am_diag payload, WACCM-X
 high-altitude composition, and multi-device meshes.
 """

@@ -51,6 +51,12 @@ class FVGrid:
     pft_edge: torch.Tensor     # (jm, im//2+1) damping factors, edges
     lats: torch.Tensor         # (jm,) cell-center latitudes (rad)
     lons: torch.Tensor         # (im,) cell-center longitudes (rad)
+    # real-DFT factors of the fused cd_step's in-kernel polar filter
+    # (cd_fused.py): forward (im, nf) and inverse (nf, im), nf = im//2+1
+    dft_fc: torch.Tensor
+    dft_fs: torch.Tensor
+    dft_gc: torch.Tensor
+    dft_gs: torch.Tensor
     rdy: float = 0.0
     _circ: dict = field(default_factory=dict, repr=False, compare=False)
 
@@ -148,6 +154,15 @@ def make_grid(im: int, jm: int, km: int, dtype=torch.float64,
     pftc = _pft_coefficients(im, cosp, ycrit, pole_rows_exempt=True)
     pfte = _pft_coefficients(im, cose, ycrit, pole_rows_exempt=False)
 
+    # real-DFT factor matrices for the fused-cd in-kernel polar filter
+    mm = np.arange(im // 2 + 1, dtype=np.float64)
+    ang = 2.0 * math.pi * np.outer(np.arange(im, dtype=np.float64), mm) / im
+    wgt = np.where((mm == 0) | (mm == im // 2), 1.0, 2.0)
+    dft_fc = np.cos(ang)
+    dft_fs = np.sin(ang)
+    dft_gc = (wgt[:, None] * np.cos(ang).T) / im
+    dft_gs = (wgt[:, None] * np.sin(ang).T) / im
+
     device = resolve_device(device)
 
     def dev(a):
@@ -162,6 +177,8 @@ def make_grid(im: int, jm: int, km: int, dtype=torch.float64,
                   ycrit_deg=ycrit, pft_center=dev(pftc), pft_edge=dev(pfte),
                   lats=dev(np.linspace(-0.5 * math.pi, 0.5 * math.pi, jm)),
                   lons=dev(-math.pi + dl * np.arange(im)),
+                  dft_fc=dev(dft_fc), dft_fs=dev(dft_fs),
+                  dft_gc=dev(dft_gc), dft_gs=dev(dft_gs),
                   rdy=1.0 / (ae * dp))
 
 

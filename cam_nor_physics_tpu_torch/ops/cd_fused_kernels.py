@@ -1,0 +1,245 @@
+"""The fused small step's four kernels K1-K4: CUDA launches and dispatch.
+
+Twin of the `pallas_call`s of `cam_nor_physics_tpu.models.fv.cd_pallas`.
+`k1`...`k4` dispatch on the device of their tensors: CUDA tensors launch
+the hand-written Hopper kernels of csrc/cd_fused_kernels.cu, CPU tensors
+take the plain versions `k1_ref`...`k4_ref` of models/fv/cd_fused.py.
+There is no fallback between the two: a kernel that does not build or
+launch raises. `_check` validates the inputs on either device.
+
+Each K is LAUNCHES_PER_CALL CUDA launches (a level kernel and a column
+pass that carries pressure or geopotential over k) and adds that many to
+`<wrapper>.launches`. The transport kernels take iord/jord 1 and 4, the
+orders the dycore runs.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..models.fv.cd_fused import (KE_METHODS, METRIC_ROWS, k1_ref, k2_ref,
+                                  k3_ref, k4_ref)
+from ..utils import constants as c
+from . import cuda_build
+from . import tp_core as tp
+from .stencil_kernels import KERNEL_ORDERS
+
+LAUNCHES_PER_CALL = 2
+
+# scratch slabs of each level kernel (csrc/cd_fused_kernels.cu)
+_SCRATCH = {"k1": 13, "k2": 4, "k3": 8, "k4": 12}
+
+
+def _check(name, slabs, others=(), iord=1, jord=1, ke_method="centered"):
+    """Validate what a kernel takes: one device, float32 or float64,
+    contiguous; `slabs` (km, jm, im) with im even, `others` (arg, tensor,
+    kind) with kind "plane" (jm, im), "metrics" (len(METRIC_ROWS), jm),
+    "levels" (km, jm), "fwd" (im, nf), "inv" (nf, im) or "resp" (jm, nf),
+    nf = im//2+1; the transport orders in KERNEL_ORDERS; a known KE form.
+    Raises on anything else, for CPU tensors too."""
+    if iord not in KERNEL_ORDERS or jord not in KERNEL_ORDERS:
+        raise ValueError(f"{name}: the CUDA kernel supports iord/jord in "
+                         f"{KERNEL_ORDERS}, got iord={iord} jord={jord}")
+    if ke_method not in KE_METHODS:
+        raise ValueError(f"{name}: ke_method must be one of {KE_METHODS}, "
+                         f"got {ke_method!r}")
+    ref = slabs[0][1]
+    if ref.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: float32 or float64 expected, got "
+                        f"{ref.dtype}")
+    if ref.dim() != 3 or ref.shape[-1] % 2 or ref.shape[-2] < 3:
+        raise ValueError(f"{name}: (km, jm, im) slabs with im even and "
+                         f"jm >= 3 expected, got {tuple(ref.shape)}")
+    km, jm, im = ref.shape
+    nf = im // 2 + 1
+    shapes = {"slab": (km, jm, im), "plane": (jm, im),
+              "metrics": (len(METRIC_ROWS), jm), "levels": (km, jm),
+              "fwd": (im, nf), "inv": (nf, im), "resp": (jm, nf)}
+    for arg, t, kind in [(a, t, "slab") for a, t in slabs] + list(others):
+        if t.device != ref.device:
+            raise ValueError(f"{name}: {arg} on {t.device}, expected "
+                             f"{ref.device}")
+        if t.dtype != ref.dtype:
+            raise TypeError(f"{name}: {arg} is {t.dtype}, expected "
+                            f"{ref.dtype}")
+        if tuple(t.shape) != shapes[kind]:
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
+                             f"expected {shapes[kind]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _dft_args(dft):
+    return [(n, t, k) for n, t, k in zip(
+        ("fc", "fs", "gc", "gs", "resp_center", "resp_edge"), dft,
+        ("fwd", "fwd", "inv", "inv", "resp", "resp"))]
+
+
+def _fn(stem, dtype):
+    lib = cuda_build.library("cd_fused_kernels")
+    return getattr(lib, f"{stem}_{'f32' if dtype == torch.float32 else 'f64'}")
+
+
+def _launch(name, fn, *args):
+    rc = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args])
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
+                           f"cudaError {rc}")
+
+
+def _scratch(name, ref, nf=None):
+    """The level kernel's scratch slabs, per-level row flags and, with
+    `nf`, the DFT spectra (km, 4, jm, nf)."""
+    km, jm, im = ref.shape
+    out = [torch.empty((_SCRATCH[name], km, jm, im), dtype=ref.dtype,
+                       device=ref.device),
+           torch.empty((km, jm), dtype=torch.uint8, device=ref.device)]
+    if nf is not None:
+        out.append(torch.empty((km, 4, jm, nf), dtype=ref.dtype,
+                               device=ref.device))
+    return out
+
+
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _carry_start(ptop: float):
+    """ptop, ptop^κ and ln ptop in float64: the pressure carry's start."""
+    return float(ptop), float(ptop) ** c.CAPPA, math.log(ptop)
+
+
+def _band(band):
+    return -1 if band is None else band
+
+
+def k1(u, v, pt, delp, metrics, dt5: float, rcap: float, ptop: float,
+       band: int | None):
+    """K1, the c_sw half step and the downward pressure pass: (km, jm, im)
+    winds, pt and delp, the metric rows; returns (pt_h, uc0, vc0, pkz_h,
+    dgz_h)."""
+    _check("k1", [("u", u), ("v", v), ("pt", pt), ("delp", delp)],
+           [("metrics", metrics, "metrics")])
+    if not delp.is_cuda:
+        return k1_ref(u, v, pt, delp, metrics, dt5, rcap, ptop, band)
+    out = _run_k1(_fn("cam_cd_k1", delp.dtype), _stream(delp), u, v, pt,
+                  delp, metrics, dt5, rcap, ptop, band)
+    k1.launches += LAUNCHES_PER_CALL
+    return out
+
+
+def k2(pt_h, pkz_h, dgz_h, uc0, vc0, phis, metrics, dft, dt: float,
+       dt5: float, dyn_filter: bool):
+    """K2, the upward geopotential pass, the C-grid PGF and Coriolis kick,
+    the polar filter and the D-grid Courants; `dft` = (fc, fs, gc, gs,
+    resp_center, resp_edge). Returns (uc, crx, cry)."""
+    _check("k2", [("pt_h", pt_h), ("pkz_h", pkz_h), ("dgz_h", dgz_h),
+                  ("uc0", uc0), ("vc0", vc0)],
+           [("phis", phis, "plane"), ("metrics", metrics, "metrics")] +
+           _dft_args(dft))
+    if not pt_h.is_cuda:
+        return k2_ref(pt_h, pkz_h, dgz_h, uc0, vc0, phis, metrics, dft, dt,
+                      dt5, dyn_filter)
+    out = _run_k2(_fn("cam_cd_k2", pt_h.dtype), _stream(pt_h), pt_h, pkz_h,
+                  dgz_h, uc0, vc0, phis, metrics, dft, dt, dt5, dyn_filter)
+    k2.launches += LAUNCHES_PER_CALL
+    return out
+
+
+def k3(delp, pt, crx, cry, metrics, iord: int, jord: int, rcap: float,
+       ptop: float, band: int | None):
+    """K3, the D-grid transport, the floors and the downward pressure
+    pass. Returns (delp', pt', mfx, mfy, pkz, dgz)."""
+    _check("k3", [("delp", delp), ("pt", pt), ("crx", crx), ("cry", cry)],
+           [("metrics", metrics, "metrics")], iord, jord)
+    if not delp.is_cuda:
+        return k3_ref(delp, pt, crx, cry, metrics, iord, jord, rcap, ptop,
+                      band)
+    out = _run_k3(_fn("cam_cd_k3", delp.dtype), _stream(delp), delp, pt,
+                  crx, cry, metrics, iord, jord, rcap, ptop, band)
+    k3.launches += LAUNCHES_PER_CALL
+    return out
+
+
+def k4(u, v, pt_new, pkz, dgz, phis, crx, cry, uc, metrics, nu2_rows, dft,
+       dt: float, dl: float, dp: float, iord: int, jord: int,
+       ke_method: str, div2_on: bool, nu4: float, del2_velocity: float,
+       dyn_filter: bool, rcirc: float, band: int | None):
+    """K4, the upward pass to phi_m and the vector-invariant wind update
+    with divergence and velocity damping and the polar filter; `nu2_rows`
+    (km, jm) the per-level del2 coefficient. Returns (u', v')."""
+    _check("k4", [("u", u), ("v", v), ("pt_new", pt_new), ("pkz", pkz),
+                  ("dgz", dgz), ("crx", crx), ("cry", cry), ("uc", uc)],
+           [("phis", phis, "plane"), ("metrics", metrics, "metrics"),
+            ("nu2_rows", nu2_rows, "levels")] + _dft_args(dft),
+           iord, jord, ke_method)
+    args = (u, v, pt_new, pkz, dgz, phis, crx, cry, uc, metrics, nu2_rows,
+            dft, dt, dl, dp, iord, jord, ke_method, div2_on, nu4,
+            del2_velocity, dyn_filter, rcirc, band)
+    if not u.is_cuda:
+        return k4_ref(*args)
+    out = _run_k4(_fn("cam_cd_k4", u.dtype), _stream(u), *args)
+    k4.launches += LAUNCHES_PER_CALL
+    return out
+
+
+# The launches: allocate a K's outputs and scratch and call `fn`, its C
+# entry in csrc/cd_fused_kernels.cu, on `stream` (the CPU test of the
+# source calls them with a host build of it).
+
+def _run_k1(fn, stream, u, v, pt, delp, metrics, dt5, rcap, ptop, band):
+    km, jm, im = delp.shape
+    outs = [torch.empty_like(delp) for _ in range(5)]
+    scratch, flags = _scratch("k1", delp)
+    _launch("k1", fn, u, v, pt, delp, metrics, float(dt5), float(rcap),
+            *_carry_start(ptop), c.CAPPA, c.CPAIR, _band(band),
+            tp.max_cfl_int(im), km, jm, im, *outs, scratch, flags, stream)
+    return tuple(outs)
+
+
+def _run_k2(fn, stream, pt_h, pkz_h, dgz_h, uc0, vc0, phis, metrics, dft,
+            dt, dt5, dyn_filter):
+    km, jm, im = pt_h.shape
+    outs = [torch.empty_like(pt_h) for _ in range(3)]
+    scratch, _, spec = _scratch("k2", pt_h, im // 2 + 1)
+    _launch("k2", fn, pt_h, pkz_h, dgz_h, uc0, vc0, phis, metrics, *dft,
+            float(dt), float(dt5), c.CPAIR, int(bool(dyn_filter)), km, jm,
+            im, *outs, scratch, spec, stream)
+    return tuple(outs)
+
+
+def _run_k3(fn, stream, delp, pt, crx, cry, metrics, iord, jord, rcap, ptop,
+            band):
+    km, jm, im = delp.shape
+    outs = [torch.empty_like(delp) for _ in range(6)]
+    scratch, flags = _scratch("k3", delp)
+    _launch("k3", fn, delp, pt, crx, cry, metrics, float(rcap),
+            *_carry_start(ptop), c.CAPPA, c.CPAIR, iord, jord, _band(band),
+            tp.max_cfl_int(im), km, jm, im, *outs, scratch, flags, stream)
+    return tuple(outs)
+
+
+def _run_k4(fn, stream, u, v, pt_new, pkz, dgz, phis, crx, cry, uc, metrics,
+            nu2_rows, dft, dt, dl, dp, iord, jord, ke_method, div2_on, nu4,
+            del2_velocity, dyn_filter, rcirc, band):
+    km, jm, im = u.shape
+    outs = [torch.empty_like(u) for _ in range(2)]
+    scratch, flags, spec = _scratch("k4", u, im // 2 + 1)
+    # dt·ν as the plain version's Python product
+    dtdel2 = dt * del2_velocity if del2_velocity > 0.0 else 0.0
+    _launch("k4", fn, u, v, pt_new, pkz, dgz, phis, crx, cry, uc, metrics,
+            nu2_rows, *dft, float(dt), float(dtdel2), float(rcirc), c.CPAIR,
+            c.REARTH, float(dl), float(dp), iord, jord,
+            KE_METHODS.index(ke_method), int(bool(div2_on)), int(nu4 > 0.0),
+            int(bool(dyn_filter)), _band(band), tp.max_cfl_int(im), km, jm,
+            im, *outs, scratch, spec, flags, stream)
+    return tuple(outs)
+
+
+k1.launches = 0
+k2.launches = 0
+k3.launches = 0
+k4.launches = 0

@@ -28,6 +28,7 @@ SOURCES = {
     "stencil_kernels": ("stencil_kernels.cu", "tp_core.cuh"),
     "remap_kernels": ("remap_kernels.cu",),
     "zm_tail_kernels": ("zm_tail_kernels.cu",),
+    "cd_fused_kernels": ("cd_fused_kernels.cu", "tp_core.cuh"),
 }
 
 # --fmad=false: no multiply-add contraction, so the kernels round like
@@ -52,6 +53,12 @@ SIGNATURES = {
     ),
     "zm_tail_kernels": (
         ("cam_zm_tail", [_P] * 19 + [_I] * 4 + [_D] * 5 + [_P] * 4),
+    ),
+    "cd_fused_kernels": (
+        ("cam_cd_k1", [_P] * 5 + [_D] * 7 + [_I] * 5 + [_P] * 8),
+        ("cam_cd_k2", [_P] * 13 + [_D] * 3 + [_I] * 4 + [_P] * 6),
+        ("cam_cd_k3", [_P] * 5 + [_D] * 6 + [_I] * 7 + [_P] * 9),
+        ("cam_cd_k4", [_P] * 17 + [_D] * 7 + [_I] * 11 + [_P] * 6),
     ),
 }
 

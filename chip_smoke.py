@@ -6,21 +6,31 @@
 Drives cam_nor_physics_tpu_torch only (never the JAX package):
 
 1. names the card (torch and nvidia-smi: name, power limit);
-2. builds the four CUDA kernels from csrc/ (one nvcc per source, together);
+2. builds the five CUDA libraries from csrc/ (one nvcc per source,
+   together);
 3. holds each kernel against its plain PyTorch version on the card, at the
-   f19 (144x96x26) shapes and on inputs captured from a real Held-Suarez
-   step (the Courants and fluxes of cd_step, the pe sets of te_map), plus a
-   stress case that forces the FFSL branch near the poles; float32 within
-   1e-5 and float64 within 1e-12 of each output's max magnitude;
-4. runs the slice: build_step(144, 96, 26, float32, "cuda",
-   filter_impl="matmul") for 4 large steps (2 model hours) with the launch
-   counts set to 0 just before and read just after; checks finite fields,
+   f19 (144x96x26) shapes and on inputs captured from real Held-Suarez
+   steps: the unfused step's Courants and fluxes (filter_impl="matmul"),
+   the fused step's K1-K4 inputs (filter_impl="fft"), the pe sets of
+   te_map; plus stress cases that force the FFSL branch near the poles
+   (transport3d, vort_flux3d, tracer_div3d, K1, K3, K4) and K2/K4 with the
+   polar filter off, K4 with the avg_sq KE and del4 damping; float32
+   within 1e-5 and float64 within 1e-12 of each output's max magnitude;
+4. runs both HS paths, build_step(144, 96, 26, float32, "cuda",
+   filter_impl=...) for 4 large steps (2 model hours) each, with the
+   launch counts set to 0 just before and read just after: the unfused
+   "matmul" step launches transport3d and vort_flux3d, the fused "fft"
+   step (the default, the JAX package's) K1-K4, 2 launches per call and
+   4 calls per step, and no transport3d or vort_flux3d; both launch
+   tracer_div3d and te_map_remap once a step. Each path: finite fields,
    global dry-mass drift <= 1e-5, and agreement with the same 4 steps run
    through the plain versions on the card: ps, pt, u, v and q each within
    1e-3 of the field's max, or within twice the spread that one float32
    ulp of pt makes in the plain run over those steps where that is larger
-   (float64: within 1e-9);
-5. times each kernel and its plain version (CUDA events) and the step;
+   (float64: within 1e-9). Then one float64 small step of the fused path
+   against the unfused formulation (cd_step fused=False) from the same
+   state, within 1e-7 of each field's max (tests/test_cd_pallas.py);
+5. times each kernel and its plain version (CUDA events) and both steps;
 6. holds the fused ZM tail kernel (zm_tail) against its plain version
    (zm_tail_ref) at f19's 13,824 columns x 26 levels, on the inputs the
    port's own zm_convr gives it on entry.varied_zm_inputs (bench.py's
@@ -40,8 +50,9 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
    (host clock, synchronised, mean of 3 after 1 warm-up) and zm_convr's
    share of it (timed inside 3 more calls),
    and the main path's grid points per second,
-   144*96*26 / (HS large step + ZM step), as bench.py's headline;
-9. runs the HS large step and the ZM step once more each under
+   144*96*26 / (fused HS large step + ZM step), as bench.py's headline
+   (the unfused step's time printed beside it);
+9. runs each HS large step and the ZM step once more under
    torch.profiler and prints the device kernels each launched,
    the device's busy time (the kernels' summed durations: one stream, so
    they do not overlap) and its share of the wall time, and the kernels
@@ -55,6 +66,7 @@ checkout of the repo, or when any phase fails.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -75,6 +87,7 @@ DRIFT_TOL = 1e-5
 PLAIN_TOL = 1e-3          # float32, ROADMAP.md R2 ...
 PLAIN_SPREAD = 2.0        # ... or this many times the one-ulp spread (R2b)
 PLAIN_TOL_F64 = 1e-9      # float64: roundoff amplified through 16 small steps
+FUSED_TOL = 1e-7          # float64 fused vs unfused cd_step (R2)
 
 NCOL = IM * JM                     # ZM columns: f19's 13,824
 ZM_DT = 1800.0
@@ -97,7 +110,16 @@ KERNELS = (
      "cam_nor_physics_tpu/ops/remap_pallas.py:115"),
     ("zm_tail", "cam_nor_physics_tpu_torch/csrc/zm_tail_kernels.cu",
      "cam_nor_physics_tpu/models/physics/zm_tail_pallas.py:206"),
+    ("k1", "cam_nor_physics_tpu_torch/csrc/cd_fused_kernels.cu",
+     "cam_nor_physics_tpu/models/fv/cd_pallas.py:224"),
+    ("k2", "cam_nor_physics_tpu_torch/csrc/cd_fused_kernels.cu",
+     "cam_nor_physics_tpu/models/fv/cd_pallas.py:265"),
+    ("k3", "cam_nor_physics_tpu_torch/csrc/cd_fused_kernels.cu",
+     "cam_nor_physics_tpu/models/fv/cd_pallas.py:312"),
+    ("k4", "cam_nor_physics_tpu_torch/csrc/cd_fused_kernels.cu",
+     "cam_nor_physics_tpu/models/fv/cd_pallas.py:345"),
 )
+FUSED = ("k1", "k2", "k3", "k4")
 
 # estimated operations per grid point of the stencil formulas (tp_core.cuh):
 # an x-flux (xtp) and a y-flux (ytp) at order 1 and 4, the inner advective
@@ -105,6 +127,15 @@ KERNELS = (
 OPS_X = {1: 3, 4: 70}
 OPS_Y = {1: 2, 4: 80}
 OPS_ADX, OPS_ADY, OPS_DIV = 2 * OPS_X[1] + 6, 5, 5
+# ... and per grid point of the fused kernels' other formulas
+# (csrc/cd_fused_kernels.cu, a power or logarithm counted as one): K1's
+# C-grid winds, Courants and floors, K2's PGF and kicks, K3's fluxes and
+# floors, K4's vorticity, KE, corners, fluxes of order 4, PGF and damping;
+# the downward pass 9 and the upward pass 3 per point
+OPS_FUSED = {"k1": 26 + 9, "k2": 3 + 45, "k3": 9 + 9,
+             "k4": 3 + 120 + OPS_Y[4] + OPS_X[4]}
+OPS_DEL4 = 12             # K4's del4 Laplacian of the divergence
+OPS_DEL2 = 20             # K4's del2 Laplacians of u and v
 
 
 def log(msg: str) -> None:
@@ -123,20 +154,28 @@ def card_label() -> str:
 class Smoke:
     def __init__(self, torch, card: str):
         import cam_nor_physics_tpu_torch.models.fv.cd_core as cd_core
+        import cam_nor_physics_tpu_torch.models.fv.cd_fused as cd_fused
         import cam_nor_physics_tpu_torch.models.fv.dyn_comp as dyn_comp
-        from cam_nor_physics_tpu_torch.ops import (remap_kernels,
+        from cam_nor_physics_tpu_torch.ops import (cd_fused_kernels,
+                                                   remap_kernels,
                                                    stencil_kernels, tp_core)
         self.torch = torch
         self.card = card
         self.tp = tp_core
-        # where the main path looks each kernel's wrapper up
+        self.cd_fused = cd_fused
+        self.dyn_comp, self.ck = dyn_comp, cd_fused_kernels
+        # where the main path looks each kernel's wrapper up (cd_step_fused
+        # calls K1-K4 as attributes of their module)
         self.sites = {"transport3d": (cd_core, stencil_kernels),
                       "vort_flux3d": (cd_core, stencil_kernels),
                       "tracer_div3d": (dyn_comp, stencil_kernels),
                       "te_map_remap": (dyn_comp, remap_kernels)}
+        self.sites.update({k: (cd_fused_kernels, cd_fused_kernels)
+                           for k in FUSED})
+        self.kernels = {n: getattr(m, n) for n, (_, m) in self.sites.items()}
 
     def kernel(self, name):
-        return getattr(self.sites[name][1], name)
+        return self.kernels[name]
 
     def plain(self, name):
         return getattr(self.sites[name][1], name + "_ref")
@@ -176,10 +215,12 @@ class Smoke:
 
     def main_path_inputs(self, calls):
         """(label, name, args, kwargs) of each distinct kernel configuration
-        the main path runs: transport3d at iord 1 (C half step) and 4
+        the HS paths run: transport3d at iord 1 (C half step) and 4
         (D step), the last call of each."""
         out = []
         for name, lst in calls.items():
+            if not lst:
+                raise RuntimeError(f"{name}: no call captured")
             if name == "transport3d":
                 for order in (1, 4):
                     a, kw = [c for c in lst if c[0][10] == order][-1]
@@ -191,21 +232,62 @@ class Smoke:
 
     def stressed(self, name, a, kw):
         """The same call with |crx| raised by 1.5 in rows 1-3 and
-        jm-4..jm-2 so the FFSL branch (integer-Courant sums) runs there."""
+        jm-4..jm-2 so the FFSL branch (integer-Courant sums) runs there
+        (K1, whose Courants come from the winds: u raised by 150 m/s
+        there). Returns (args, kwargs, FFSL rows)."""
         torch = self.torch
         a = list(a)
-        crx = a[2] if name == "transport3d" else a[1]
         rows = list(range(1, 4)) + list(range(JM - 4, JM - 1))
-        c2 = crx.clone()
-        c2[:, rows] = c2[:, rows] + torch.where(c2[:, rows] >= 0, 1.5, -1.5)
-        ffsl = torch.amax(torch.abs(c2), dim=-1) > 1.0
-        if name == "transport3d":
-            a[2], a[6] = c2, ffsl
-        elif name == "vort_flux3d":
-            a[1], a[5] = c2, ffsl
-        else:
-            a[1], a[6] = c2, ffsl
+
+        def raised(x, by):
+            x = x.clone()
+            x[:, rows] = x[:, rows] + torch.where(x[:, rows] >= 0, by, -by)
+            return x
+
+        if name == "k1":
+            a[0] = raised(a[0], 150.0)
+            c0 = self.fused_courant(a)
+            return tuple(a), kw, int(self.ffsl_rows(c0, a[-1]).sum())
+        at = {"transport3d": (2, 6), "vort_flux3d": (1, 5),
+              "tracer_div3d": (1, 6), "k3": (2, None), "k4": (6, None)}
+        ic, iflag = at[name]
+        a[ic] = raised(a[ic], 1.5)
+        ffsl = torch.amax(torch.abs(a[ic]), dim=-1) > 1.0
+        if iflag is not None:
+            a[iflag] = ffsl
         return tuple(a), kw, int(ffsl.sum())
+
+    def fused_courant(self, a):
+        """K1's C-grid x-Courant from its arguments (u, v, ..., metrics,
+        dt5, ...), through the plain version's own helper."""
+        return self.cd_fused.c_grid_courants(a[0], a[1], a[4], a[5])[2]
+
+    def ffsl_rows(self, crx, band):
+        """Rows that take the FFSL branch: a |Courant| above 1 within the
+        polar band."""
+        torch = self.torch
+        ffsl = torch.amax(torch.abs(crx), dim=-1) > 1.0
+        rows = torch.arange(crx.shape[-2], device=crx.device)
+        if band is not None and 2 * band < crx.shape[-2]:
+            ffsl = ffsl & ((rows < band) | (rows >= crx.shape[-2] - band))
+        return ffsl
+
+    def variants(self, name, a, kw, grid):
+        """K2 and K4 with the polar filter off; K4 with the avg_sq KE and
+        del4 divergence damping (div4_coef_nd = 0.02) as well."""
+        a = list(a)
+        if name == "k2":
+            a[10] = False
+            return [("k2[filter off]", tuple(a))]
+        if name != "k4":
+            return []
+        dt = a[12]
+        nu4 = 0.02 / dt
+        a[9] = self.cd_fused._metric_rows(grid.cosp, grid.acosp, grid.cose,
+                                          grid.f0, grid.fc, grid.dl, grid.dp,
+                                          nu4)
+        a[17], a[19], a[21] = "avg_sq", nu4, False
+        return [("k4[avg_sq,del4,filter off]", tuple(a))]
 
     def cast(self, a, kw, dtype):
         torch = self.torch
@@ -213,8 +295,8 @@ class Smoke:
         def f(x):
             if isinstance(x, torch.Tensor) and x.is_floating_point():
                 return x.to(dtype).contiguous()
-            if isinstance(x, list):
-                return [f(y) for y in x]
+            if isinstance(x, (list, tuple)):
+                return type(x)(f(y) for y in x)
             return x
         return tuple(f(x) for x in a), {k: f(v) for k, v in kw.items()}
 
@@ -280,6 +362,113 @@ class Smoke:
             times.append(time.perf_counter() - t0)
         return state, times
 
+    def hs_path(self, impl, step, state0, grid, coord, phis, expect):
+        """Phase 4 for one HS path: NSTEPS large steps through the kernels
+        with the launch counts set to 0 just before and read just after
+        (each must equal `expect`), finite fields, the dry-mass drift, and
+        the per-field gate against the same steps through the plain
+        versions, in float32 and float64."""
+        torch = self.torch
+        for name in self.sites:
+            self.kernel(name).launches = 0
+        state, step_s = self.run_steps(step, state0, grid, coord, phis)
+        torch.cuda.synchronize()
+        launches = {n: self.kernel(n).launches for n in self.sites}
+        log(f"main path ({impl}): {NSTEPS} HS large steps at {IM}x{JM}x{KM} "
+            f"float32, launches {launches} [{self.card}]")
+        if launches != expect:
+            raise RuntimeError(f"{impl} path launched {launches}, expected "
+                               f"{expect}")
+        for f in ("u", "v", "pt", "delp", "q"):
+            if not bool(torch.isfinite(getattr(state, f)).all()):
+                raise RuntimeError(f"{impl}: non-finite {f} after {NSTEPS} "
+                                   f"steps")
+        m0, m1 = self.dry_mass(grid, state0), self.dry_mass(grid, state)
+        drift = abs(m1 - m0) / m0
+        log(f"{impl}: dry-mass drift over {NSTEPS} steps: {drift:.3e} "
+            f"(tol {DRIFT_TOL:.0e})")
+        if drift > DRIFT_TOL:
+            raise RuntimeError(f"{impl}: dry-mass drift {drift:.3e} > "
+                               f"{DRIFT_TOL}")
+        with self.routed(self.plain):
+            ref, ref_s = self.run_steps(step, state0, grid, coord, phis)
+            # how far float32 roundoff alone carries in 4 steps: the plain
+            # run again from pt changed by one ulp
+            nudged = state0.replace(pt=state0.pt * (1.0 + 2.0 ** -23))
+            ref_n, _ = self.run_steps(step, nudged, grid, coord, phis)
+        ulp = self.parity(ref_n, ref, coord)
+        log(f"{impl}: plain run vs plain run from pt nudged by one float32 "
+            "ulp: " + ", ".join(f"{k} {v:.3e}" for k, v in ulp.items()))
+        parity = self.parity(state, ref, coord)
+        ptol = {f: max(PLAIN_TOL, PLAIN_SPREAD * ulp[f]) for f in parity}
+        log(f"{impl}: kernels vs plain versions after the same steps (rel. "
+            "to max): " + ", ".join(f"{k} {v:.3e} (tol {ptol[k]:.2e})"
+                                    for k, v in parity.items()))
+        bad = {f: e for f, e in parity.items() if e > ptol[f]}
+        if bad:
+            raise RuntimeError(f"{impl}: slice disagrees with its plain run: "
+                               f"{bad}")
+        # the same comparison in float64
+        from cam_nor_physics_tpu_torch.entry import build_step
+        step64, s64, grid64, coord64, phis64 = build_step(
+            IM, JM, KM, torch.float64, DEVICE, filter_impl=impl)
+        s64 = s64.replace(q=state0.q.double())
+        k64, _ = self.run_steps(step64, s64, grid64, coord64, phis64)
+        with self.routed(self.plain):
+            r64, _ = self.run_steps(step64, s64, grid64, coord64, phis64)
+        parity64 = self.parity(k64, r64, coord64)
+        log(f"{impl}: float64: kernels vs plain versions after the same "
+            "steps: " + ", ".join(f"{k} {v:.3e}" for k, v in parity64.items())
+            + f" (tol {PLAIN_TOL_F64:.0e})")
+        if max(parity64.values()) > PLAIN_TOL_F64:
+            raise RuntimeError(f"{impl}: float64 slice disagrees with its "
+                               f"plain run: {parity64}")
+        steady = sum(step_s[1:]) / (len(step_s) - 1)
+        log(f"{impl}: step time [{self.card}]: kernels "
+            + ", ".join(f"{1e3 * t:.2f}" for t in step_s)
+            + f" ms (mean of steps 2-{NSTEPS}: {1e3 * steady:.2f} ms); plain "
+            + ", ".join(f"{1e3 * t:.2f}" for t in ref_s) + " ms")
+        return {"launches": launches, "steady": steady,
+                "f64_state": (k64, grid64, coord64, phis64)}
+
+    def fused_vs_unfused(self, f64):
+        """One float64 small step from the fused path's state after its
+        steps, as dyn_run calls cd_step, through the fused K1-K4 and
+        through the unfused formulation (fused=False): each field within
+        FUSED_TOL of its max."""
+        torch = self.torch
+        state, grid, coord, phis = f64
+        from cam_nor_physics_tpu_torch.utils.config import FVConfig
+        seen = []
+        orig = self.dyn_comp.cd_step
+
+        def rec(*a, **kw):
+            seen.append((a, kw))
+            return orig(*a, **kw)
+
+        self.dyn_comp.cd_step = rec
+        try:
+            self.dyn_comp.dyn_run(state, grid, coord, phis,
+                                  FVConfig(nsplit=4, nspltrac=1), 1800.0,
+                                  filter_impl="fft")
+        finally:
+            self.dyn_comp.cd_step = orig
+        a, kw = seen[0]
+        new, d = orig(*a, **kw)
+        ref, rd = orig(*a, **kw, fused=False)
+        torch.cuda.synchronize()
+        err = {f: float((getattr(new, f) - getattr(ref, f)).abs().max()
+                        / getattr(ref, f).abs().max())
+               for f in ("u", "v", "pt", "delp")}
+        err.update({f: float((d[f] - rd[f]).abs().max() / rd[f].abs().max())
+                    for f in ("cx", "cy", "mfx", "mfy", "pe", "pkz", "wz")})
+        worst = max(err, key=err.get)
+        log("float64 small step, fused vs unfused cd_step: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+            + f" (tol {FUSED_TOL:.0e})")
+        if err[worst] > FUSED_TOL:
+            raise RuntimeError(f"fused and unfused cd_step disagree: {err}")
+
     # ------------------------------------------------------------ phase 5
     def time_call(self, fn, a, kw, reps):
         torch = self.torch
@@ -325,6 +514,8 @@ class Smoke:
             ops = ncol * nf * (km * 40 + (km_t + 1) * 11
                                + (km + km_t + 1) + km)
             return nbytes, ops
+        if name in FUSED:
+            return nbytes, self.fused_ops(name, a)
         band = kw.get("band")
         if name == "transport3d":
             crx, ffsl, iord, jord = a[2], a[6], a[10], a[11]
@@ -342,6 +533,50 @@ class Smoke:
                                + OPS_DIV)
             ops += 3 * q.shape[0] * self.ffsl_sums(crx, ffsl, band)
         return nbytes, ops
+
+    def filter_ops(self, name, a):
+        """Operations of K2's or K4's polar filter (0 with the filter off),
+        as (what the function needs, what the kernel does). The function
+        needs an rfft and an irfft, 5 im log2(im) together, and 2 nf
+        products with the response on each level row whose response is not
+        1 everywhere (the rows equatorward of the filter's edge need no
+        work). The kernel takes the dense real-DFT sums on every row: 16 jm
+        nf im a level (forward and inverse sums of two fields, a product
+        and an addition a term)."""
+        flag, dft = {"k2": (10, 7), "k4": (21, 11)}[name]
+        if not a[flag]:
+            return 0, 0
+        km, jm, im = a[0].shape
+        nf = im // 2 + 1
+        # K2 filters its x-kick on center rows and y-kick on edge rows, K4
+        # the other way round: each response table serves one field
+        rows = sum(int((resp != 1.0).any(dim=-1).sum())
+                   for resp in a[dft][4:])
+        need = km * rows * (5.0 * im * math.log2(im) + 2 * nf)
+        return need, km * 16 * jm * nf * im
+
+    def fused_ops(self, name, a):
+        """Operations one K call needs: the per-point counts, the transport
+        of K1 (order 1) and K3 (order 4) with this call's FFSL sums, and the
+        polar filter of K2 and K4 at an FFT's cost on the rows it changes
+        (`filter_ops`)."""
+        km, jm, im = a[0].shape
+        pts = km * jm * im
+        ops = pts * OPS_FUSED[name]
+        if name in ("k1", "k3"):
+            order = 1 if name == "k1" else a[5]
+            ops += pts * (2 * (OPS_ADX + OPS_ADY) + 2 * (OPS_Y[order] +
+                          OPS_X[order]) + 2 * OPS_DIV)
+            crx = self.fused_courant(a) if name == "k1" else a[2]
+            ffsl = self.ffsl_rows(crx, a[-1])
+            ops += 6 * self.ffsl_sums(crx, ffsl, a[-1])
+        if name in ("k2", "k4"):
+            ops += self.filter_ops(name, a)[0]
+        if name == "k4":
+            ops += pts * ((OPS_DEL4 if a[19] > 0.0 else 0) +
+                          (OPS_DEL2 if a[20] > 0.0 else 0))
+            ops += self.ffsl_sums(a[6], self.ffsl_rows(a[6], a[-1]), a[-1])
+        return ops
 
 
 class ZMSmoke:
@@ -620,16 +855,23 @@ def run(torch) -> dict:
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
 
-    # ---- phase 3: each kernel against its plain version
-    step, state0, grid, coord, phis = build_step(
-        IM, JM, KM, torch.float32, DEVICE, filter_impl="matmul")
-    # a positive tracer, so trac2d and te_map move real tracer mass
+    # ---- phase 3: each kernel against its plain version, on the inputs
+    # of the unfused (matmul) and the fused (fft) HS step
     rng = np.random.default_rng(1)
-    tracer = torch.as_tensor(
-        1e-3 * (1.0 + 0.5 * rng.uniform(size=tuple(state0.q.shape))),
-        dtype=torch.float32, device=DEVICE)
-    state0 = state0.replace(q=tracer)
-    calls = sm.capture_inputs(step, state0, grid, coord, phis)
+    paths = {}
+    for impl in ("matmul", "fft"):
+        step, state0, grid, coord, phis = build_step(
+            IM, JM, KM, torch.float32, DEVICE, filter_impl=impl)
+        # a positive tracer, so trac2d and te_map move real tracer mass
+        if impl == "matmul":
+            tracer = torch.as_tensor(
+                1e-3 * (1.0 + 0.5 * rng.uniform(size=tuple(state0.q.shape))),
+                dtype=torch.float32, device=DEVICE)
+        paths[impl] = (step, state0.replace(q=tracer), grid, coord, phis)
+    calls = sm.capture_inputs(*paths["matmul"])
+    calls_fft = sm.capture_inputs(*paths["fft"])
+    for name in FUSED:
+        calls[name] = calls_fft[name]
     cases = sm.main_path_inputs(calls)
     max_err = {}
     for label, name, a, kw in cases:
@@ -637,67 +879,30 @@ def run(torch) -> dict:
             err = sm.compare(label, name, a, kw, dt)
             if dt == "float32":
                 max_err[name] = max(max_err.get(name, 0.0), err)
-        if name != "te_map_remap":
+        if name not in ("te_map_remap", "k2"):
             sa, skw, nrows = sm.stressed(name, a, kw)
             for dt in ("float32", "float64"):
                 sm.compare(f"{label}+ffsl({nrows} rows)", name, sa, skw, dt)
+        for vlabel, va in sm.variants(name, a, kw, paths["fft"][2]):
+            for dt in ("float32", "float64"):
+                sm.compare(vlabel, name, va, kw, dt)
 
-    # ---- phase 4: the slice through the kernels, counted
-    for name in sm.sites:
-        sm.kernel(name).launches = 0
-    state, step_s = sm.run_steps(step, state0, grid, coord, phis)
-    torch.cuda.synchronize()
-    launches = {n: sm.kernel(n).launches for n in sm.sites}
-    log(f"main path: {NSTEPS} HS large steps at {IM}x{JM}x{KM} float32, "
-        f"launches {launches} [{card}]")
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        raise RuntimeError(f"kernels not launched on the main path: {missing}")
-    for f in ("u", "v", "pt", "delp", "q"):
-        if not bool(torch.isfinite(getattr(state, f)).all()):
-            raise RuntimeError(f"non-finite {f} after {NSTEPS} steps")
-    m0, m1 = sm.dry_mass(grid, state0), sm.dry_mass(grid, state)
-    drift = abs(m1 - m0) / m0
-    log(f"dry-mass drift over {NSTEPS} steps: {drift:.3e} "
-        f"(tol {DRIFT_TOL:.0e})")
-    if drift > DRIFT_TOL:
-        raise RuntimeError(f"dry-mass drift {drift:.3e} > {DRIFT_TOL}")
-    with sm.routed(sm.plain):
-        ref, ref_s = sm.run_steps(step, state0, grid, coord, phis)
-        # how far float32 roundoff alone carries in 4 steps: the plain run
-        # again from pt changed by one ulp
-        nudged = state0.replace(pt=state0.pt * (1.0 + 2.0 ** -23))
-        ref_n, _ = sm.run_steps(step, nudged, grid, coord, phis)
-    ulp = sm.parity(ref_n, ref, coord)
-    log("plain run vs plain run from pt nudged by one float32 ulp: "
-        + ", ".join(f"{k} {v:.3e}" for k, v in ulp.items()))
-    parity = sm.parity(state, ref, coord)
-    ptol = {f: max(PLAIN_TOL, PLAIN_SPREAD * ulp[f]) for f in parity}
-    log("kernels vs plain versions after the same steps (rel. to max): "
-        + ", ".join(f"{k} {v:.3e} (tol {ptol[k]:.2e})"
-                    for k, v in parity.items()))
-    bad = {f: e for f, e in parity.items() if e > ptol[f]}
-    if bad:
-        raise RuntimeError(f"slice disagrees with its plain run: {bad}")
-    # the same comparison in float64
-    step64, s64, grid64, coord64, phis64 = build_step(
-        IM, JM, KM, torch.float64, DEVICE, filter_impl="matmul")
-    s64 = s64.replace(q=tracer.double())
-    k64, _ = sm.run_steps(step64, s64, grid64, coord64, phis64)
-    with sm.routed(sm.plain):
-        r64, _ = sm.run_steps(step64, s64, grid64, coord64, phis64)
-    parity64 = sm.parity(k64, r64, coord64)
-    log("float64: kernels vs plain versions after the same steps: "
-        + ", ".join(f"{k} {v:.3e}" for k, v in parity64.items())
-        + f" (tol {PLAIN_TOL_F64:.0e})")
-    if max(parity64.values()) > PLAIN_TOL_F64:
-        raise RuntimeError(f"float64 slice disagrees with its plain run: "
-                           f"{parity64}")
-    steady = sum(step_s[1:]) / (len(step_s) - 1)
-    log(f"step time [{card}]: kernels " + ", ".join(f"{1e3 * t:.2f}"
-                                                   for t in step_s)
-        + f" ms (mean of steps 2-{NSTEPS}: {1e3 * steady:.2f} ms); plain "
-        + ", ".join(f"{1e3 * t:.2f}" for t in ref_s) + " ms")
+    # ---- phase 4: both HS paths through the kernels, counted
+    expect = {
+        "matmul": {"transport3d": 8 * NSTEPS, "vort_flux3d": 4 * NSTEPS,
+                   "tracer_div3d": NSTEPS, "te_map_remap": NSTEPS,
+                   **{k: 0 for k in FUSED}},
+        "fft": {"transport3d": 0, "vort_flux3d": 0, "tracer_div3d": NSTEPS,
+                "te_map_remap": NSTEPS,
+                **{k: 4 * sm.ck.LAUNCHES_PER_CALL * NSTEPS for k in FUSED}},
+    }
+    runs = {impl: sm.hs_path(impl, *paths[impl], expect[impl])
+            for impl in ("matmul", "fft")}
+    sm.fused_vs_unfused(runs["fft"]["f64_state"])
+    launches = {**{n: runs["matmul"]["launches"][n]
+                   for n in ("transport3d", "vort_flux3d")},
+                **{n: runs["fft"]["launches"][n]
+                   for n in ("tracer_div3d", "te_map_remap") + FUSED}}
 
     # ---- phase 5: per-kernel times at the main path's shapes
     rows = []
@@ -709,20 +914,29 @@ def run(torch) -> dict:
         t_ops = ops / PEAK_F32_OPS * 1e3
         bound = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        own = ""
+        if name in ("k2", "k4"):
+            # the kernel's dense DFT sums: its own work, not the bound
+            need, dense = sm.filter_ops(name, a)
+            own = f"; the kernel's own work {ops - need + dense:.3e} ops"
         log(f"time {label:<18} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
             f"bound {bound:.5f} ms by {bound_by} ({nbytes} B, {ops:.3e} "
-            f"ops)  [{card}]")
+            f"ops{own})  [{card}]")
         rows.append((label, name, ms, plain_ms, bound, bound_by))
+    steady = runs["fft"]["steady"]
     # ---- phases 6-8: the ZM step and its tail kernel
     zm = run_zm(torch, sm, card)
-    log(f"main path [{card}]: HS large step {1e3 * steady:.2f} ms + ZM step "
-        f"{1e3 * zm['zm_s']:.2f} ms -> "
+    log(f"main path [{card}]: HS large step (fused, fft) {1e3 * steady:.2f} "
+        f"ms + ZM step {1e3 * zm['zm_s']:.2f} ms -> "
         f"{IM * JM * KM / (steady + zm['zm_s']):.6e} grid points/s "
-        f"({IM}x{JM}x{KM})")
+        f"({IM}x{JM}x{KM}); the unfused (matmul) HS step "
+        f"{1e3 * runs['matmul']['steady']:.2f} ms")
 
     # ---- phase 9: where the main path's time goes
-    profile_call(torch, f"HS large step {IM}x{JM}x{KM}",
-                 lambda: step(state0, grid, coord, phis), card)
+    for impl, what in (("fft", "fused"), ("matmul", "unfused")):
+        step, state0, grid, coord, phis = paths[impl]
+        profile_call(torch, f"HS large step ({what}, {impl}) {IM}x{JM}x{KM}",
+                     lambda: step(state0, grid, coord, phis), card)
     profile_call(torch, f"ZM step {NCOL}x{KM}", zm["step"], card)
 
     kernels = []
@@ -733,7 +947,8 @@ def run(torch) -> dict:
                             "library_ms": None})
             continue
         # transport3d runs at two orders, launched equally often per
-        # step: its numbers are the mean of the two per-launch values
+        # step: its numbers are the mean of the two per-launch values; a K
+        # is timed per call (LAUNCHES_PER_CALL launches)
         mine = [r for r in rows if r[1] == name]
         mean = lambda i: sum(r[i] for r in mine) / len(mine)  # noqa: E731
         kernels.append({

@@ -74,12 +74,12 @@ def test_polar_filters_match_jax(impl):
 
 
 def _spun_up_state():
-    """A Held-Suarez state three small steps (dt=450 s) from rest, made by
-    the port, as numpy arrays."""
+    """A Held-Suarez state three unfused small steps (dt=450 s) from rest,
+    made by the port, as numpy arrays."""
     _, st, tg, tc, phis = build_step(IM, JM, KM, torch.float64, "cpu")
     for _ in range(3):
         st, _ = tcd.cd_step(st, tg, tc.ptop, phis, 450.0, c_sw_pgf=True,
-                            del2_velocity=6e5)
+                            del2_velocity=6e5, fused=False)
     return convert.dynstate_to_numpy(st), tg, tc, phis
 
 
@@ -116,8 +116,10 @@ def test_cd_step_matches_jax(filter_impl, flags):
     taper = np.linspace(0.06, 0.01, KM)
     kw = dict(c_sw_pgf=True, del2_velocity=6e5, filter_impl=filter_impl,
               div_taper=taper, **flags)
+    # the unfused formulation, JAX's use_pallas=False (the fused step has
+    # its own tests, test_torch_cd_fused.py)
     new, diag = tcd.cd_step(convert.dynstate_from_numpy(fields, "cpu"), tg,
-                            tc.ptop, phis, 450.0, **kw)
+                            tc.ptop, phis, 450.0, fused=False, **kw)
     ref, rdiag = jcd.cd_step(_jax_state(fields), jg, tc.ptop,
                              jnp.zeros((JM, IM)), 450.0, use_pallas=False,
                              **kw)

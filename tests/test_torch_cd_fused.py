@@ -1,0 +1,390 @@
+"""The port's fused small step (models/fv/cd_fused.py, ops/cd_fused_kernels.py)
+against the JAX package's cd_pallas, float64 on the CPU at 36x24x6.
+
+- The DFT factor tables equal JAX make_grid's (1e-14), and the plain DFT
+  polar filter equals JAX's rfft polar_filter (1e-12).
+- cd_step through the fused path (on CPU tensors: k1_ref ... k4_ref)
+  against JAX cd_step_fused(interpret=True) for four flag sets, every
+  state field and diagnostic within 1e-10 of its max. The two evaluate the
+  same formulas; log and pow come from other math libraries (about an
+  ulp), which the pressure-gradient cancellation amplifies (measured
+  margin in ROADMAP.md Queue 3). JAX's interpreted kernels run in a fresh
+  interpreter (conftest.run_test_in_subprocess).
+- The same step against JAX's unfused cd_step(use_pallas=False) within
+  rtol 1e-7, the tolerance of tests/test_cd_pallas.py: the carry and the
+  cumsum associate the pressure sum differently.
+- Dry mass is conserved; the wrappers' checks refuse what the kernels
+  cannot take; the default HS step runs the fused path.
+- csrc/cd_fused_kernels.cu built as host C++ (stub CUDA qualifiers, each
+  launch a loop over blocks of one thread) against the plain versions:
+  float64 within 1e-12 and float32 within 1e-5 of each output's max.
+- On a card (marked `cuda`), each kernel against its plain version.
+"""
+
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from cam_nor_physics_tpu_torch import convert
+from cam_nor_physics_tpu_torch.entry import build_step
+from cam_nor_physics_tpu_torch.models.fv import cd_core as tcd
+from cam_nor_physics_tpu_torch.models.fv import cd_fused as tcf
+from cam_nor_physics_tpu_torch.models.fv import grid as tgrid
+from cam_nor_physics_tpu_torch.ops import cd_fused_kernels as ck
+from cam_nor_physics_tpu_torch.ops import cuda_build
+from conftest import run_test_in_subprocess
+from torch_port_util import assert_close, npy, t64
+
+pytest_plugins = ("torch_port_plugin",)
+
+torch.set_num_threads(1)
+
+IM, JM, KM = 36, 24, 6
+DT = 450.0
+TOL_JAX = 1e-10
+TOL_UNFUSED = 1e-7
+STATE = ("u", "v", "pt", "delp")
+DIAGS = ("cx", "cy", "mfx", "mfy", "pe", "pkz", "wz")
+TAPER = np.linspace(0.06, 0.01, KM)
+
+# cd_step flags of the four cases: the default HS step (polar filter on,
+# centered KE, del2 velocity damping, the sponge taper), the filter off,
+# the avg_sq KE with del4 divergence damping, the upwind KE
+BASE = dict(c_sw_pgf=True, dyn_filter=True, ke_method="centered",
+            del2_velocity=6e5, div4_coef_nd=0.0, taper=True)
+FLAG_SETS = {
+    "filter_centered": BASE,
+    "filter_off": dict(BASE, dyn_filter=False),
+    "avg_sq_div4": dict(BASE, ke_method="avg_sq", div4_coef_nd=0.02),
+    "upwind": dict(BASE, ke_method="upwind"),
+}
+
+
+def _spun_up():
+    """A Held-Suarez state three unfused small steps from rest, made by the
+    port (as tests/test_cd_pallas.py spins up JAX's)."""
+    _, st, grid, coord, phis = build_step(IM, JM, KM, torch.float64, "cpu")
+    for _ in range(3):
+        st, _ = tcd.cd_step(st, grid, coord.ptop, phis, DT, c_sw_pgf=True,
+                            del2_velocity=6e5, fused=False)
+    return st, grid, coord, phis
+
+
+def _port_kw(flags):
+    kw = {k: v for k, v in flags.items() if k != "taper"}
+    return dict(kw, div_taper=TAPER if flags["taper"] else None)
+
+
+def _port_step(st, grid, coord, phis, flags, **extra):
+    return tcd.cd_step(st, grid, coord.ptop, phis, DT, **_port_kw(flags),
+                       **extra)
+
+
+def test_dft_tables_match_jax():
+    from cam_nor_physics_tpu.models.fv import grid as jgrid
+    for im, jm in ((IM, JM), (144, 96)):
+        jg = jgrid.make_grid(im, jm, KM)
+        tg = tgrid.make_grid(im, jm, KM, device="cpu")
+        for f in ("dft_fc", "dft_fs", "dft_gc", "dft_gs"):
+            assert getattr(tg, f).shape == getattr(jg, f).shape, f
+            assert_close(getattr(tg, f), np.asarray(getattr(jg, f)), 1e-14, f)
+
+
+@pytest.mark.parametrize("rows", ["center", "edge"])
+def test_dft_filter_matches_jax_polar_filter(rows):
+    from cam_nor_physics_tpu.models.fv import grid as jgrid
+    jg = jgrid.make_grid(IM, JM, KM)
+    tg = tgrid.make_grid(IM, JM, KM, device="cpu")
+    resp = "pft_center" if rows == "center" else "pft_edge"
+    x = np.random.default_rng(3).standard_normal((KM, JM, IM))
+    got = tcf._dft_filter(t64(x), tg.dft_fc, tg.dft_fs, tg.dft_gc,
+                          tg.dft_gs, getattr(tg, resp))
+    assert_close(got, jgrid.polar_filter(x, getattr(jg, resp)), 1e-12)
+
+
+def _jax_fused(fields, flags):
+    """JAX cd_step_fused(interpret=True) on the state `fields`."""
+    import jax
+    import jax.numpy as jnp
+
+    from cam_nor_physics_tpu.models.fv import cd_core as jcd
+    from cam_nor_physics_tpu.models.fv.cd_pallas import cd_step_fused
+    from cam_nor_physics_tpu.models.fv.grid import make_grid
+    from cam_nor_physics_tpu.models.fv.vertical import hybrid_coefficients
+
+    grid = make_grid(IM, JM, KM)
+    ptop = hybrid_coefficients(KM).ptop
+    phis = jnp.zeros((JM, IM))
+    taper = jnp.asarray(TAPER) if flags["taper"] else None
+
+    @jax.jit
+    def step(st):
+        return cd_step_fused(st, grid, ptop, phis, DT, 4, 4, 0.08,
+                             flags["dyn_filter"], flags["ke_method"],
+                             flags["del2_velocity"], interpret=True,
+                             div2_on=True,
+                             div4_coef_nd=flags["div4_coef_nd"],
+                             div_taper=taper)
+
+    new, diag = step(jcd.DynState(**{f: jnp.asarray(a)
+                                     for f, a in fields.items()}))
+    return ({f: np.asarray(getattr(new, f)) for f in STATE},
+            {f: np.asarray(diag[f]) for f in DIAGS})
+
+
+def test_fused_cd_step_matches_jax_fused(request):
+    """The port's cd_step (fused, plain versions on the CPU) against JAX
+    cd_step_fused in interpret mode, four flag sets, 1e-10 of each
+    field's max. The errors relative to each field's max are printed
+    (seen with CAM_SUBPROC_TEST=1 pytest -s on this test)."""
+    if run_test_in_subprocess(request, timeout=600):
+        return
+    st, grid, coord, phis = _spun_up()
+    fields = convert.dynstate_to_numpy(st)
+    for name, flags in FLAG_SETS.items():
+        new, diag = _port_step(st, grid, coord, phis, flags)
+        want_state, want_diag = _jax_fused(fields, flags)
+        got = {f: npy(getattr(new, f)) for f in STATE}
+        got.update({f: npy(diag[f]) for f in DIAGS})
+        want = dict(want_state, **want_diag)
+        for f in STATE + DIAGS:
+            assert_close(got[f], want[f], TOL_JAX, f"{name} {f}")
+        rel = {f: np.abs(got[f] - want[f]).max() / np.abs(want[f]).max()
+               for f in STATE + DIAGS}
+        print(name, {f: f"{e:.1e}" for f, e in rel.items()})
+
+
+@pytest.mark.parametrize("case", ["filter_centered", "filter_off"])
+def test_fused_cd_step_matches_jax_unfused(case):
+    """The fused step against JAX's unfused cd_step (use_pallas=False):
+    rtol 1e-7 (tests/test_cd_pallas.py:48-58)."""
+    import jax.numpy as jnp
+
+    from cam_nor_physics_tpu.models.fv import cd_core as jcd
+    from cam_nor_physics_tpu.models.fv import grid as jgrid
+
+    flags = FLAG_SETS[case]
+    st, grid, coord, phis = _spun_up()
+    fields = convert.dynstate_to_numpy(st)
+    new, diag = _port_step(st, grid, coord, phis, flags)
+    ref, rdiag = jcd.cd_step(
+        jcd.DynState(**{f: jnp.asarray(a) for f, a in fields.items()}),
+        jgrid.make_grid(IM, JM, KM), coord.ptop, jnp.zeros((JM, IM)), DT,
+        use_pallas=False, **_port_kw(flags))
+    for f in STATE:
+        assert_close(getattr(new, f), getattr(ref, f), TOL_UNFUSED, f)
+    for f in DIAGS:
+        assert_close(diag[f], rdiag[f], TOL_UNFUSED, f)
+
+
+def test_fused_step_agrees_with_unfused_step_and_keeps_mass():
+    """The port's fused and unfused steps from one state: within rtol 1e-7
+    of each other, and neither changes the global dry mass beyond 1e-13
+    (the cap closure of tp2c keeps it; no floor fires)."""
+    st, grid, coord, phis = _spun_up()
+    w = grid.cosp.clone()
+    w[0] = w[-1] = grid.acap / grid.im
+    m0 = float((st.delp * w[:, None]).sum())
+    for flags in FLAG_SETS.values():
+        new, _ = _port_step(st, grid, coord, phis, flags)
+        ref, _ = _port_step(st, grid, coord, phis, flags, fused=False)
+        for f in STATE:
+            assert_close(getattr(new, f), getattr(ref, f), TOL_UNFUSED, f)
+        assert abs(float((new.delp * w[:, None]).sum()) - m0) / m0 < 1e-13
+        assert bool((new.delp > 0.05 * st.delp).all())
+
+
+def test_cd_step_dispatch(monkeypatch):
+    """cd_step takes the fused path for the fft/dft filter with the c_sw
+    half step; matmul, filter_dm/filter_csw_dm, fused=False and the
+    Coriolis-only half step stay unfused; build_step's default HS step
+    runs it nsplit = 4 times per large step."""
+    calls = []
+    real = tcf.cd_step_fused
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tcf, "cd_step_fused", spy)
+    st, grid, coord, phis = _spun_up()
+    for kw, fused in ((dict(filter_impl="fft"), True),
+                      (dict(filter_impl="dft"), True),
+                      (dict(filter_impl="matmul"), False),
+                      (dict(filter_impl="fft", filter_dm=True), False),
+                      (dict(filter_impl="fft", filter_csw_dm=True), False),
+                      (dict(filter_impl="fft", fused=False), False),
+                      (dict(filter_impl="fft", c_sw_pgf=False), False)):
+        calls.clear()
+        tcd.cd_step(st, grid, coord.ptop, phis, DT,
+                    **dict(dict(c_sw_pgf=True), **kw))
+        assert bool(calls) == fused, kw
+    step, st, grid, coord, phis = build_step(12, 8, 2, torch.float64, "cpu")
+    calls.clear()
+    step(st, grid, coord, phis)
+    assert len(calls) == 4
+
+
+def _k_calls(flags):
+    """The inputs of K1-K4 in one fused step from the spun-up state, as
+    cd_step_fused passes them, with their plain outputs."""
+    st, grid, coord, phis = _spun_up()
+    rec = {}
+    real = {n: getattr(ck, n) for n in ("k1", "k2", "k3", "k4")}
+
+    def recorder(name):
+        def call(*a):
+            rec[name] = a
+            return real[name](*a)
+        return call
+
+    mp = pytest.MonkeyPatch()
+    for n in real:
+        mp.setattr(ck, n, recorder(n))
+    try:
+        _port_step(st, grid, coord, phis, flags)
+    finally:
+        mp.undo()
+    return rec
+
+
+def test_wrappers_refuse_what_the_kernels_cannot_take():
+    rec = _k_calls(BASE)
+    a = list(rec["k1"])
+    with pytest.raises(TypeError, match="float32 or float64"):
+        ck.k1(*[x.half() if isinstance(x, torch.Tensor) else x for x in a])
+    with pytest.raises(TypeError, match="expected torch.float64"):
+        ck.k1(a[0], a[1].float(), *a[2:])
+    with pytest.raises(ValueError, match="shape"):
+        ck.k1(*a[:4], a[4][:, :-1], *a[5:])
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.k1(a[0].transpose(1, 2).contiguous().transpose(1, 2), *a[1:])
+    with pytest.raises(ValueError, match="im even"):
+        ck.k1(*[x[..., :-1] for x in a[:4]], *a[4:])
+    b = list(rec["k3"])
+    with pytest.raises(ValueError, match="iord/jord"):
+        ck.k3(*b[:5], 2, 4, *b[7:])
+    c = list(rec["k4"])
+    with pytest.raises(ValueError, match="ke_method"):
+        ck.k4(*c[:17], "vector", *c[18:])
+    with pytest.raises(ValueError, match="shape"):
+        ck.k4(*c[:10], c[10][:-1], *c[11:])
+    d = list(rec["k2"])
+    with pytest.raises(ValueError, match="shape"):
+        ck.k2(*d[:7], (d[7][0][:-1],) + tuple(d[7][1:]), *d[8:])
+
+
+# csrc/cd_fused_kernels.cu as host C++: stub CUDA qualifiers, each launch a
+# loop over its blocks with one thread a block.
+_HOST_STUBS = """
+#pragma once
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+using std::pow; using std::log; using std::fabs; using std::trunc;
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __restrict__
+#define __shared__ static
+inline void __syncthreads() {}
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0 };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+struct HostDim { unsigned x = 0, y = 0, z = 0; };
+static HostDim blockIdx, threadIdx, blockDim{1, 1, 1}, gridDim{1, 1, 1};
+"""
+
+_LAUNCH = re.compile(r"(\w+<T>)<<<(.*?), .*?>>>\((.*?)\);", re.S)
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    import ctypes
+    import shutil
+    import subprocess
+
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    tmp = tmp_path_factory.mktemp("cd_fused_host")
+    src = (cuda_build.CSRC / "cd_fused_kernels.cu").read_text()
+    src, n = _LAUNCH.subn(
+        r"{ gridDim.x = \2; for (unsigned b_ = 0; b_ < gridDim.x; ++b_) "
+        r"{ blockIdx.x = b_; \1(\3); } }", src)
+    assert n == 8, n
+    (tmp / "cuda_runtime.h").write_text(_HOST_STUBS)
+    (tmp / "tp_core.cuh").write_text(
+        (cuda_build.CSRC / "tp_core.cuh").read_text())
+    (tmp / "cd_fused.cpp").write_text(src)
+    lib = tmp / "libcd_fused_host.so"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC",
+                    "-shared", "-I", str(tmp), "-o", str(lib),
+                    str(tmp / "cd_fused.cpp")], check=True, timeout=300)
+    dll = ctypes.CDLL(str(lib))
+    for stem, argtypes in cuda_build.SIGNATURES["cd_fused_kernels"]:
+        for suf in ("f32", "f64"):
+            fn = getattr(dll, f"{stem}_{suf}")
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return dll
+
+
+def _host_run(dll, name, args, dtype):
+    """The host build of kernel `name` (k1...k4) on the recorded wrapper
+    arguments `args` cast to `dtype`, marshalled by the wrapper's own
+    launch function."""
+    suf = "f32" if dtype == torch.float32 else "f64"
+    run = getattr(ck, f"_run_{name}")
+    return run(getattr(dll, f"cam_cd_{name}_{suf}"), None,
+               *[_cast(x, dtype) for x in args])
+
+
+def _cast(x, dtype, device="cpu"):
+    if isinstance(x, torch.Tensor):
+        return x.to(device, dtype)
+    if isinstance(x, tuple):
+        return tuple(_cast(y, dtype, device) for y in x)
+    return x
+
+
+@pytest.mark.parametrize("name", ["k1", "k2", "k3", "k4"])
+def test_cuda_source_arithmetic_on_the_host(name, host_lib):
+    """Each K of csrc/cd_fused_kernels.cu, built for the host, against its
+    plain version on the inputs of a fused step (K4 also with the filter
+    off, avg_sq KE and del4 damping): float64 within 1e-12, float32
+    within 1e-5 of each output's max (glibc's powf/logf are not
+    PyTorch's, so float32 is not bitwise here)."""
+    for flags in (BASE, FLAG_SETS["avg_sq_div4"] | dict(dyn_filter=False)):
+        rec = _k_calls(flags)
+        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            args = [_cast(x, dtype) for x in rec[name]]
+            want = getattr(tcf, f"{name}_ref")(*args)
+            got = _host_run(host_lib, name, rec[name], dtype)
+            for i, (g, w) in enumerate(zip(got, want)):
+                assert torch.isfinite(g).all(), (name, i)
+                assert_close(g, w, tol, f"{name} {dtype} output {i}")
+        if name != "k4":
+            break
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["k1", "k2", "k3", "k4"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+def test_cuda_kernel_matches_plain_version(name, dtype, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: "
+                    "pytest -m cuda tests/test_torch_*.py)")
+    rec = _k_calls(BASE)
+    args = [_cast(x, dtype, "cuda") for x in rec[name]]
+    fn = getattr(ck, name)
+    n0 = fn.launches
+    got = fn(*args)
+    want = getattr(tcf, f"{name}_ref")(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + ck.LAUNCHES_PER_CALL
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert_close(g.cpu(), w.cpu(), tol, f"{name} output {i}")
