@@ -44,12 +44,13 @@ DT = 1800.0
 
 def build_step(im: int = 144, jm: int = 96, km: int = 26,
                dtype=torch.float32, device="cuda",
-               filter_impl: str = "fft"):
+               filter_impl: str = "fft", cfg: FVConfig | None = None):
     """Returns (step, state0, grid, coord, phis) for the HS large step at
-    im x jm x km, FVConfig(nsplit=4, nspltrac=1), dt = 1800 s. The initial
+    im x jm x km, dt = 1800 s, with `cfg` (default FVConfig(nsplit=4,
+    nspltrac=1), the JAX package's `_build`; bench.py and the port's bench
+    pass FVConfig(), whose auto splits differ beyond f19). The initial
     state is hs_initial_state with np.random.default_rng(0) noise, as in
-    the JAX package's `_build`; filter_impl defaults to its "fft", the
-    fused small step.
+    `_build`; filter_impl defaults to its "fft", the fused small step.
 
     Raises where `device` is CUDA and no card is present. For float32 on a
     card, TF32 matmuls must be off (the "matmul" polar filter's circulant
@@ -62,7 +63,8 @@ def build_step(im: int = 144, jm: int = 96, km: int = 26,
     grid = make_grid(im, jm, km, dtype=dtype, device=dev)
     coord = hybrid_coefficients(km, dtype=dtype, device=dev)
     phis = torch.zeros((jm, im), dtype=dtype, device=dev)
-    cfg = FVConfig(nsplit=4, nspltrac=1)
+    if cfg is None:
+        cfg = FVConfig(nsplit=4, nspltrac=1)
 
     def step(state, grid, coord, phis):
         state = dyn_run(state, grid, coord, phis, cfg, DT,

@@ -51,7 +51,8 @@ def trac2d(q, dp0, cx, cy, mfx, mfy, grid: FVGrid, iord: int, jord: int,
     q_new = (q * dp0[None] + dqm) / dp_new[None]
     if fill:
         qk, _ = fillz(q_new.movedim(1, -1), dp_new.movedim(0, -1)[None])
-        q_new = qk.movedim(-1, 1)
+        # contiguous: the next tracer cycle's tracer_div3d takes it as is
+        q_new = qk.movedim(-1, 1).contiguous()
     return q_new, dp_new
 
 

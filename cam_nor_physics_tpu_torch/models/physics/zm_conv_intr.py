@@ -127,14 +127,18 @@ def zm_conv_tend(cfg: ZMConfig, registry: ConstituentRegistry,
                   and ix_org not in tr_idx)
     cld = pbuf.get("CLD")
     if fused_tail:
+        # the tracers gathered and scattered by stacking slices, not by a
+        # list index (which copies the index from the host: no CUDA graph)
         ev, mt, dq_sub = zm_tail(
             cfg, state1.t, state1.q[:, :, 0].contiguous(), state1.pmid,
             state1.pdel, state1.u, state1.v,
-            state1.q[:, :, tr_idx].contiguous(), cld, out.mu, out.md,
-            out.du, out.eu, out.ed, out.dp, out.jt, out.maxg, out.rprd,
-            out.prec, landfrac, ztodt)
-        dq_tran = torch.zeros((ncol, pver, pcnst), dtype=dtype, device=dev)
-        dq_tran[:, :, tr_idx] = dq_sub
+            torch.stack([state1.q[:, :, m] for m in tr_idx], -1), cld,
+            out.mu, out.md, out.du, out.eu, out.ed, out.dp, out.jt,
+            out.maxg, out.rprd, out.prec, landfrac, ztodt)
+        zero = torch.zeros((ncol, pver), dtype=dtype, device=dev)
+        dq_tran = torch.stack([dq_sub[:, :, tr_idx.index(m)]
+                               if m in tr_idx else zero
+                               for m in range(pcnst)], -1)
     else:
         ev = zm_conv_evap(cfg, state1.t, state1.pmid, state1.pdel,
                           state1.q[:, :, 0], landfrac, out.rprd, cld, ztodt,

@@ -29,6 +29,7 @@ SOURCES = {
     "remap_kernels": ("remap_kernels.cu",),
     "zm_tail_kernels": ("zm_tail_kernels.cu",),
     "cd_fused_kernels": ("cd_fused_kernels.cu", "tp_core.cuh"),
+    "probe_kernels": ("probe_kernels.cu",),
 }
 
 # --fmad=false: no multiply-add contraction, so the kernels round like
@@ -59,6 +60,9 @@ SIGNATURES = {
         ("cam_cd_k2", [_P] * 13 + [_D] * 3 + [_I] * 4 + [_P] * 6),
         ("cam_cd_k3", [_P] * 5 + [_D] * 6 + [_I] * 7 + [_P] * 9),
         ("cam_cd_k4", [_P] * 17 + [_D] * 7 + [_I] * 11 + [_P] * 6),
+    ),
+    "probe_kernels": (
+        ("cam_probe", [_P] * 2 + [_I] + [_P]),
     ),
 }
 

@@ -40,11 +40,16 @@ def _rolly(a, shift: int, axis: int = -2):
 def wset_row(a, row: int, value, axis: int = -2):
     """Copy of `a` with index `row` along `axis` set to `value`, which must
     broadcast against the selected row (a scalar, an (im,) vector, or a
-    tensor of the row's shape)."""
+    tensor of the row's shape).
+
+    A scalar is written with `fill_`, which takes it as a kernel argument:
+    no host-to-device copy, so the step can be captured in a CUDA graph."""
     out = a.clone()
-    out.select(axis, row % a.shape[axis]).copy_(
-        torch.as_tensor(value, dtype=a.dtype, device=a.device)
-        .expand_as(out.select(axis, 0)))
+    dst = out.select(axis, row % a.shape[axis])
+    if isinstance(value, torch.Tensor):
+        dst.copy_(value.expand_as(dst))
+    else:
+        dst.fill_(value)
     return out
 
 

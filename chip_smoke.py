@@ -6,8 +6,9 @@
 Drives cam_nor_physics_tpu_torch only (never the JAX package):
 
 1. names the card (torch and nvidia-smi: name, power limit);
-2. builds the five CUDA libraries from csrc/ (one nvcc per source,
-   together);
+2. builds the six CUDA libraries from csrc/ (one nvcc per source,
+   together), and holds the probe kernel (the bench's health check) on
+   one seeded (8, 128) float32 block to exactly 2 x its input;
 3. holds each kernel against its plain PyTorch version on the card, at the
    f19 (144x96x26) shapes and on inputs captured from real Held-Suarez
    steps: the unfused step's Courants and fluxes (filter_impl="matmul"),
@@ -57,7 +58,26 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
    the device's busy time (the kernels' summed durations: one stream, so
    they do not overlap) and its share of the wall time, and the kernels
    that took the most device time;
-10. prints the kernels JSON line, then {"ok": true, "device": {...}} last.
+10. captures the bench's CUDA graphs at f19, K = 8 chained steps a
+    replay, of the HS large step (FVConfig(), after the bench's 3 spin-up
+    steps) and of the ZM step (build_zm_step, bench.py's sounding): the
+    launches counted at capture must be 8 times one eager step's and a
+    replay must count none; replays 1 and 2 must be bitwise equal to eager
+    steps 1-8 and 9-16 from the same state (the ZM state and its pbuf);
+11. runs the bench's HS step at f09 (288x192x26) and f05 (576x384x32)
+    with FVConfig()'s auto splits, (8, 2, 1) and (16, 4, 1): 3 steps
+    through the kernels with exact launch counts, finite fields and
+    dry-mass drift <= 1e-5; then one call each of K1-K4, tracer_div3d and
+    te_map_remap, on the inputs of the next step, against its plain
+    version (float32 gate of item 3) and timed beside its bound, with K2's
+    and K4's share of the step;
+12. runs the port's bench (cam_nor_physics_tpu_torch.bench.run) at f19
+    once, with the launch counts set to 0 just before and read just
+    after: the probe exactly once, every kernel of the fused path at
+    least once; prints its JSON line;
+13. prints the kernels JSON line (ten kernels), the card's name and power
+    limit, then {"ok": true, "device": {...}} last. Every phase prints its
+    wall time.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
 checkout of the repo, or when any phase fails.
@@ -67,7 +87,6 @@ from __future__ import annotations
 
 import json
 import math
-import subprocess
 import sys
 import time
 from collections import defaultdict
@@ -118,8 +137,14 @@ KERNELS = (
      "cam_nor_physics_tpu/models/fv/cd_pallas.py:312"),
     ("k4", "cam_nor_physics_tpu_torch/csrc/cd_fused_kernels.cu",
      "cam_nor_physics_tpu/models/fv/cd_pallas.py:345"),
+    ("probe", "cam_nor_physics_tpu_torch/csrc/probe_kernels.cu",
+     "bench.py:133"),
 )
 FUSED = ("k1", "k2", "k3", "k4")
+GRAPH_K = 8                # steps per CUDA-graph replay, as the bench's chunk
+BEYOND = ("f09", "f05")    # the bench's grids beyond f19
+# repetitions of each kernel (and of its plain version) timed there
+BEYOND_REPS = {"f09": (20, 3), "f05": (10, 2)}
 
 # estimated operations per grid point of the stencil formulas (tp_core.cuh):
 # an x-flux (xtp) and a y-flux (ytp) at order 1 and 4, the inner advective
@@ -142,13 +167,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_label() -> str:
-    """`name, power.limit` of the card from nvidia-smi."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
-    return out[0].strip()
+@contextmanager
+def phase(name: str):
+    """Logs the wall time of the block."""
+    t0 = time.perf_counter()
+    yield
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s wall")
 
 
 class Smoke:
@@ -173,6 +197,18 @@ class Smoke:
         self.sites.update({k: (cd_fused_kernels, cd_fused_kernels)
                            for k in FUSED})
         self.kernels = {n: getattr(m, n) for n, (_, m) in self.sites.items()}
+        from cam_nor_physics_tpu_torch.ops import (probe_kernels,
+                                                   zm_tail_kernels)
+        # every kernel wrapper with a launch count
+        self.counted = dict(self.kernels, zm_tail=zm_tail_kernels.zm_tail,
+                            probe=probe_kernels.probe)
+
+    def zero_counts(self):
+        for fn in self.counted.values():
+            fn.launches = 0
+
+    def counts(self) -> dict:
+        return {n: fn.launches for n, fn in self.counted.items()}
 
     def kernel(self, name):
         return self.kernels[name]
@@ -491,7 +527,8 @@ class Smoke:
         rows = torch.arange(crx.shape[-2], device=crx.device)
         if band is not None and 2 * band < crx.shape[-2]:
             ffsl = ffsl & ((rows < band) | (rows >= crx.shape[-2] - band))
-        iu = torch.trunc(crx).abs().clamp(max=self.tp.max_cfl_int(IM))
+        iu = torch.trunc(crx).abs().clamp(
+            max=self.tp.max_cfl_int(crx.shape[-1]))
         return float((iu * ffsl[..., None]).sum())
 
     def work(self, name, a, kw):
@@ -577,6 +614,223 @@ class Smoke:
                           (OPS_DEL2 if a[20] > 0.0 else 0))
             ops += self.ffsl_sums(a[6], self.ffsl_rows(a[6], a[-1]), a[-1])
         return ops
+
+    def bound(self, nbytes, ops):
+        """(bound ms, "bytes" or "operations") of a call that moves nbytes
+        and does ops."""
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_F32_OPS * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+    def time_row(self, label, name, a, kw, reps, plain_reps):
+        """Times one kernel call and its plain version (CUDA events) and
+        logs them beside the call's bound; returns (ms, plain ms, bound
+        ms, bound_by)."""
+        ms = self.time_call(self.kernel(name), a, kw, reps)
+        plain_ms = self.time_call(self.plain(name), a, kw, plain_reps)
+        nbytes, ops = self.work(name, a, kw)
+        bound, bound_by = self.bound(nbytes, ops)
+        own = ""
+        if name in ("k2", "k4"):
+            # the kernel's dense DFT sums: its own work, not the bound
+            need, dense = self.filter_ops(name, a)
+            own = f"; the kernel's own work {ops - need + dense:.3e} ops"
+        log(f"time {label:<18} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+            f"bound {bound:.5f} ms by {bound_by} ({nbytes} B, {ops:.3e} "
+            f"ops{own})  [{self.card}]")
+        return ms, plain_ms, bound, bound_by
+
+    # ------------------------------------------------------ the probe
+    def run_probe(self) -> dict:
+        """The probe kernel on one seeded (8, 128) float32 block (the
+        bench's) and the same block in float64: exactly 2 x its input and
+        bitwise its plain version; its float32 time (CUDA events) beside
+        its plain version's, the library call's (one torch.mul) and its
+        bound (the block read once and written once; one multiply an
+        element). The kernel's time goes through the ctypes launch, the
+        plain and library times through PyTorch's own."""
+        torch = self.torch
+        from cam_nor_physics_tpu_torch.bench import bitwise_equal
+        from cam_nor_physics_tpu_torch.ops import probe_kernels as pk
+        x = torch.as_tensor(np.random.default_rng(2).standard_normal(
+            pk.SHAPE), dtype=torch.float32, device=DEVICE)
+        for xd in (x, x.double()):
+            got = pk.probe(xd)
+            want = pk.probe_ref(xd)
+            twice = (x.double() * 2.0).to(xd.dtype)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            ok = bitwise_equal(got, want) and bitwise_equal(got, twice)
+            log(f"check probe (8, 128) {xd.dtype}: max_abs_err={e:.3e} "
+                f"exact 2x: {ok}")
+            if not ok:
+                raise RuntimeError(f"probe kernel ({xd.dtype}): output is "
+                                   f"not exactly 2 x its input")
+            if xd.dtype == torch.float32:
+                err = e
+        ms = self.time_call(pk.probe, (x,), {}, 200)
+        plain_ms = self.time_call(pk.probe_ref, (x,), {}, 200)
+        library_ms = self.time_call(torch.mul, (x, 2.0), {}, 200)
+        nbytes = 2 * x.numel() * x.element_size()
+        bound, bound_by = self.bound(nbytes, x.numel())
+        log(f"time probe              kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  library (torch.mul) {library_ms:.4f} ms  "
+            f"bound {bound:.3e} ms by {bound_by} ({nbytes} B, "
+            f"{x.numel()} ops)  [{self.card}]")
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": library_ms}
+
+    # ------------------------------------------------- the CUDA graphs
+    def graph_check(self, label, step, carry, k: int = GRAPH_K):
+        """One step's CUDA graph through the bench's `chain_graph`, which
+        captures k chained steps and holds the first replay bitwise to k
+        eager steps from the same carry. On top of that: the launches it
+        counts (the capture and the k eager steps) equal 2k times one
+        eager step's, so the capture counted k steps and the replay none;
+        replays 2 and 3 are bitwise equal to eager steps k+1..2k and
+        2k+1..3k. Prints the per step time of each shape (host clock,
+        synchronised)."""
+        torch = self.torch
+        from cam_nor_physics_tpu_torch.bench import (bitwise_equal,
+                                                     chain_graph, clone_tree)
+        self.zero_counts()
+        step(*carry)                   # one eager step, also the warm-up
+        torch.cuda.synchronize()
+        eager = self.counts()
+        self.zero_counts()
+        t0 = time.perf_counter()
+        g = chain_graph(step, carry, k)
+        check_s = time.perf_counter() - t0
+        counted = self.counts()
+        captured = {n: c - k * eager[n] for n, c in counted.items()}
+        want = {n: k * c for n, c in eager.items()}
+        log(f"graph {label}: {k} steps captured, replayed once and held "
+            f"bitwise to {k} eager steps in {check_s:.2f} s; launches "
+            f"counted at capture {captured}, one eager step {eager}")
+        if captured != want or not any(eager.values()):
+            raise RuntimeError(f"graph {label}: capture counted {captured}, "
+                               f"expected {k} x one eager step = {want}")
+        cur, same, replay_s, eager_s = clone_tree(g.static), [], [], []
+        for _ in range(2):
+            self.zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g.replay()
+            torch.cuda.synchronize()
+            replay_s.append(time.perf_counter() - t0)
+            if any(self.counts().values()):
+                raise RuntimeError(f"graph {label}: a replay counted "
+                                   f"launches {self.counts()}")
+            t0 = time.perf_counter()
+            for _ in range(k):
+                cur = step(*cur)
+            torch.cuda.synchronize()
+            eager_s.append(time.perf_counter() - t0)
+            same.append(bitwise_equal(g.static, cur))
+        log(f"graph {label}: replay 1 == eager steps 1-{k} bitwise: True "
+            f"(chain_graph); replay 2 == eager steps {k + 1}-{2 * k}: "
+            f"{same[0]}; replay 3 == eager steps {2 * k + 1}-{3 * k}: "
+            f"{same[1]}")
+        log(f"graph {label} per step [{self.card}]: replay "
+            + ", ".join(f"{1e3 * t / k:.3f}" for t in replay_s)
+            + " ms; eager " + ", ".join(f"{1e3 * t / k:.3f}" for t in eager_s)
+            + " ms (replays 2-3; eager steps in blocks of "
+            f"{k}, synchronised at each block's end)")
+        if not all(same):
+            raise RuntimeError(f"graph {label}: replays differ from eager "
+                               f"steps")
+
+    # ---------------------------------------------- f09 and f05
+    def run_grid(self, gname: str) -> dict:
+        """The bench's HS step at grid `gname` with FVConfig()'s splits:
+        SPINUP large steps through the kernels from the bench's initial
+        state, with exact launch counts, finite fields and the dry-mass
+        drift over them; then one more step with each kernel's last call
+        recorded, and on those inputs K1-K4, tracer_div3d and
+        te_map_remap against their plain versions (float32 gate) and
+        timed beside their bounds."""
+        torch = self.torch
+        from cam_nor_physics_tpu_torch.bench import GRIDS, SPINUP
+        from cam_nor_physics_tpu_torch.entry import DT, build_step
+        from cam_nor_physics_tpu_torch.utils.config import FVConfig
+        im, jm, km, _ = GRIDS[gname]
+        cfg = FVConfig()
+        ns, nstrac, nv = cfg.resolved_splits(DT, im, jm)
+        n2 = (nstrac + nv - 1) // nv
+        calls = (ns + n2 * nv - 1) // (n2 * nv) * n2 * nv
+        step, state0, grid, coord, phis = build_step(
+            im, jm, km, torch.float32, DEVICE, filter_impl="fft", cfg=cfg)
+        expect = {"transport3d": 0, "vort_flux3d": 0,
+                  "tracer_div3d": n2 * nv * SPINUP,
+                  "te_map_remap": nv * SPINUP,
+                  **{k: self.ck.LAUNCHES_PER_CALL * calls * SPINUP
+                     for k in FUSED}}
+        for name in self.sites:
+            self.kernel(name).launches = 0
+        state, step_s = state0, []
+        for _ in range(SPINUP):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = step(state, grid, coord, phis)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        launches = {n: self.kernel(n).launches for n in self.sites}
+        log(f"{gname}: {SPINUP} HS large steps at {im}x{jm}x{km} float32, "
+            f"splits (nsplit, nspltrac, nspltvrm) = {(ns, nstrac, nv)}: "
+            f"{calls} small steps and {n2 * nv} trac2d a step; launches "
+            f"{launches}; step times "
+            + ", ".join(f"{1e3 * t:.2f}" for t in step_s) + f" ms "
+            f"[{self.card}]")
+        if launches != expect:
+            raise RuntimeError(f"{gname}: launched {launches}, expected "
+                               f"{expect}")
+        for f in ("u", "v", "pt", "delp", "q"):
+            if not bool(torch.isfinite(getattr(state, f)).all()):
+                raise RuntimeError(f"{gname}: non-finite {f}")
+        m0, m1 = self.dry_mass(grid, state0), self.dry_mass(grid, state)
+        drift = abs(m1 - m0) / m0
+        log(f"{gname}: dry-mass drift over the {SPINUP} spin-up steps: "
+            f"{drift:.3e} (tol {DRIFT_TOL:.0e})")
+        if drift > DRIFT_TOL:
+            raise RuntimeError(f"{gname}: dry-mass drift {drift:.3e} > "
+                               f"{DRIFT_TOL}")
+
+        last = {}
+
+        def rec(name):
+            kern = self.kernel(name)
+
+            def f(*a, **kw):
+                last[name] = (a, kw)
+                return kern(*a, **kw)
+            # K1-K4 add their launches to their module's name for them,
+            # which points here while routed
+            f.launches = 0
+            return f
+
+        with self.routed(rec):
+            step(state, grid, coord, phis)
+        torch.cuda.synchronize()
+        reps, plain_reps = BEYOND_REPS[gname]
+        times = {}
+        for name in FUSED + ("tracer_div3d", "te_map_remap"):
+            a, kw = last[name]
+            self.compare(f"{name}@{gname}", name, a, kw, "float32")
+            times[name] = self.time_row(f"{name}@{gname}", name, a, kw,
+                                        reps, plain_reps)[0]
+        steady = sum(step_s[1:]) / (len(step_s) - 1)
+        per_step = {n: times[n] * (calls if n in FUSED else
+                                   n2 * nv if n == "tracer_div3d" else nv)
+                    for n in times}
+        log(f"{gname}: kernel time a step (calls x kernel ms): "
+            + ", ".join(f"{n} {t:.2f}" for n, t in per_step.items())
+            + f" ms; K2 + K4 {per_step['k2'] + per_step['k4']:.2f} ms = "
+            f"{100.0 * (per_step['k2'] + per_step['k4']) / (1e3 * steady):.1f}"
+            f"% of the HS step ({1e3 * steady:.2f} ms, mean of spin-up steps "
+            f"2-{SPINUP}) [{self.card}]")
+        return {"drift": drift, "steady": steady}
 
 
 class ZMSmoke:
@@ -777,10 +1031,7 @@ def run_zm(torch, sm: Smoke, card: str) -> dict:
     ms = sm.time_call(zm.tk.zm_tail, a, kw, 50)
     plain_ms = sm.time_call(zm.tk.zm_tail_ref, a, kw, 5)
     nbytes, ops = zm.work(a, kw)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS * 1e3
-    bound = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    bound, bound_by = sm.bound(nbytes, ops)
     log(f"time zm_tail            kernel {ms:.4f} ms  plain {plain_ms:.4f} "
         f"ms  bound {bound:.5f} ms by {bound_by} ({nbytes} B, {ops:.3e} "
         f"ops)  [{card}]")
@@ -832,8 +1083,11 @@ def profile_call(torch, label, fn, card, top=6):
 
 
 def run(torch) -> dict:
-    from cam_nor_physics_tpu_torch.entry import build_step
+    from cam_nor_physics_tpu_torch import bench
+    from cam_nor_physics_tpu_torch.bench import card_label
+    from cam_nor_physics_tpu_torch.entry import build_step, build_zm_step
     from cam_nor_physics_tpu_torch.ops import cuda_build
+    from cam_nor_physics_tpu_torch.utils.config import FVConfig
 
     # ---- phase 1: the card
     card = card_label()
@@ -843,108 +1097,145 @@ def run(torch) -> dict:
     log(card)
     sm = Smoke(torch, card)
 
-    # ---- phase 2: build
-    t0 = time.perf_counter()
-    times = cuda_build.build()
-    log(f"build: {time.perf_counter() - t0:.1f} s wall "
-        + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
-    for name in cuda_build.SOURCES:
-        logf = cuda_build.BUILD / f"{name}.log"
-        if logf.exists():
-            for line in logf.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas {name}: {line.strip()}")
+    # ---- phase 2: build, and the probe
+    with phase("2 build"):
+        t0 = time.perf_counter()
+        times = cuda_build.build()
+        log(f"build: {time.perf_counter() - t0:.1f} s wall "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
+        for name in cuda_build.SOURCES:
+            logf = cuda_build.BUILD / f"{name}.log"
+            if logf.exists():
+                for line in logf.read_text().splitlines():
+                    if "registers" in line or "spill" in line:
+                        log(f"  ptxas {name}: {line.strip()}")
+        probe_row = sm.run_probe()
 
     # ---- phase 3: each kernel against its plain version, on the inputs
     # of the unfused (matmul) and the fused (fft) HS step
-    rng = np.random.default_rng(1)
-    paths = {}
-    for impl in ("matmul", "fft"):
-        step, state0, grid, coord, phis = build_step(
-            IM, JM, KM, torch.float32, DEVICE, filter_impl=impl)
-        # a positive tracer, so trac2d and te_map move real tracer mass
-        if impl == "matmul":
-            tracer = torch.as_tensor(
-                1e-3 * (1.0 + 0.5 * rng.uniform(size=tuple(state0.q.shape))),
-                dtype=torch.float32, device=DEVICE)
-        paths[impl] = (step, state0.replace(q=tracer), grid, coord, phis)
-    calls = sm.capture_inputs(*paths["matmul"])
-    calls_fft = sm.capture_inputs(*paths["fft"])
-    for name in FUSED:
-        calls[name] = calls_fft[name]
-    cases = sm.main_path_inputs(calls)
-    max_err = {}
-    for label, name, a, kw in cases:
-        for dt in ("float32", "float64"):
-            err = sm.compare(label, name, a, kw, dt)
-            if dt == "float32":
-                max_err[name] = max(max_err.get(name, 0.0), err)
-        if name not in ("te_map_remap", "k2"):
-            sa, skw, nrows = sm.stressed(name, a, kw)
+    with phase("3 kernels vs plain versions at f19"):
+        rng = np.random.default_rng(1)
+        paths = {}
+        for impl in ("matmul", "fft"):
+            step, state0, grid, coord, phis = build_step(
+                IM, JM, KM, torch.float32, DEVICE, filter_impl=impl)
+            # a positive tracer, so trac2d and te_map move real tracer mass
+            if impl == "matmul":
+                tracer = torch.as_tensor(
+                    1e-3 * (1.0 + 0.5 * rng.uniform(
+                        size=tuple(state0.q.shape))),
+                    dtype=torch.float32, device=DEVICE)
+            paths[impl] = (step, state0.replace(q=tracer), grid, coord, phis)
+        calls = sm.capture_inputs(*paths["matmul"])
+        calls_fft = sm.capture_inputs(*paths["fft"])
+        for name in FUSED:
+            calls[name] = calls_fft[name]
+        cases = sm.main_path_inputs(calls)
+        max_err = {}
+        for label, name, a, kw in cases:
             for dt in ("float32", "float64"):
-                sm.compare(f"{label}+ffsl({nrows} rows)", name, sa, skw, dt)
-        for vlabel, va in sm.variants(name, a, kw, paths["fft"][2]):
-            for dt in ("float32", "float64"):
-                sm.compare(vlabel, name, va, kw, dt)
+                err = sm.compare(label, name, a, kw, dt)
+                if dt == "float32":
+                    max_err[name] = max(max_err.get(name, 0.0), err)
+            if name not in ("te_map_remap", "k2"):
+                sa, skw, nrows = sm.stressed(name, a, kw)
+                for dt in ("float32", "float64"):
+                    sm.compare(f"{label}+ffsl({nrows} rows)", name, sa, skw,
+                               dt)
+            for vlabel, va in sm.variants(name, a, kw, paths["fft"][2]):
+                for dt in ("float32", "float64"):
+                    sm.compare(vlabel, name, va, kw, dt)
 
     # ---- phase 4: both HS paths through the kernels, counted
-    expect = {
-        "matmul": {"transport3d": 8 * NSTEPS, "vort_flux3d": 4 * NSTEPS,
-                   "tracer_div3d": NSTEPS, "te_map_remap": NSTEPS,
-                   **{k: 0 for k in FUSED}},
-        "fft": {"transport3d": 0, "vort_flux3d": 0, "tracer_div3d": NSTEPS,
-                "te_map_remap": NSTEPS,
-                **{k: 4 * sm.ck.LAUNCHES_PER_CALL * NSTEPS for k in FUSED}},
-    }
-    runs = {impl: sm.hs_path(impl, *paths[impl], expect[impl])
-            for impl in ("matmul", "fft")}
-    sm.fused_vs_unfused(runs["fft"]["f64_state"])
-    launches = {**{n: runs["matmul"]["launches"][n]
-                   for n in ("transport3d", "vort_flux3d")},
-                **{n: runs["fft"]["launches"][n]
-                   for n in ("tracer_div3d", "te_map_remap") + FUSED}}
+    with phase("4 HS paths at f19"):
+        expect = {
+            "matmul": {"transport3d": 8 * NSTEPS, "vort_flux3d": 4 * NSTEPS,
+                       "tracer_div3d": NSTEPS, "te_map_remap": NSTEPS,
+                       **{k: 0 for k in FUSED}},
+            "fft": {"transport3d": 0, "vort_flux3d": 0,
+                    "tracer_div3d": NSTEPS, "te_map_remap": NSTEPS,
+                    **{k: 4 * sm.ck.LAUNCHES_PER_CALL * NSTEPS
+                       for k in FUSED}},
+        }
+        runs = {impl: sm.hs_path(impl, *paths[impl], expect[impl])
+                for impl in ("matmul", "fft")}
+        sm.fused_vs_unfused(runs["fft"]["f64_state"])
+        launches = {**{n: runs["matmul"]["launches"][n]
+                       for n in ("transport3d", "vort_flux3d")},
+                    **{n: runs["fft"]["launches"][n]
+                       for n in ("tracer_div3d", "te_map_remap") + FUSED}}
 
     # ---- phase 5: per-kernel times at the main path's shapes
-    rows = []
-    for label, name, a, kw in cases:
-        ms = sm.time_call(sm.kernel(name), a, kw, 50)
-        plain_ms = sm.time_call(sm.plain(name), a, kw, 5)
-        nbytes, ops = sm.work(name, a, kw)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_F32_OPS * 1e3
-        bound = max(t_bytes, t_ops)
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        own = ""
-        if name in ("k2", "k4"):
-            # the kernel's dense DFT sums: its own work, not the bound
-            need, dense = sm.filter_ops(name, a)
-            own = f"; the kernel's own work {ops - need + dense:.3e} ops"
-        log(f"time {label:<18} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-            f"bound {bound:.5f} ms by {bound_by} ({nbytes} B, {ops:.3e} "
-            f"ops{own})  [{card}]")
-        rows.append((label, name, ms, plain_ms, bound, bound_by))
-    steady = runs["fft"]["steady"]
+    with phase("5 kernel times at f19"):
+        rows = []
+        for label, name, a, kw in cases:
+            rows.append((label, name,
+                         *sm.time_row(label, name, a, kw, 50, 5)))
+        steady = runs["fft"]["steady"]
     # ---- phases 6-8: the ZM step and its tail kernel
-    zm = run_zm(torch, sm, card)
-    log(f"main path [{card}]: HS large step (fused, fft) {1e3 * steady:.2f} "
-        f"ms + ZM step {1e3 * zm['zm_s']:.2f} ms -> "
-        f"{IM * JM * KM / (steady + zm['zm_s']):.6e} grid points/s "
-        f"({IM}x{JM}x{KM}); the unfused (matmul) HS step "
-        f"{1e3 * runs['matmul']['steady']:.2f} ms")
+    with phase("6-8 ZM step at f19"):
+        zm = run_zm(torch, sm, card)
+        log(f"main path [{card}]: HS large step (fused, fft) "
+            f"{1e3 * steady:.2f} ms + ZM step {1e3 * zm['zm_s']:.2f} ms -> "
+            f"{IM * JM * KM / (steady + zm['zm_s']):.6e} grid points/s "
+            f"({IM}x{JM}x{KM}); the unfused (matmul) HS step "
+            f"{1e3 * runs['matmul']['steady']:.2f} ms")
 
     # ---- phase 9: where the main path's time goes
-    for impl, what in (("fft", "fused"), ("matmul", "unfused")):
-        step, state0, grid, coord, phis = paths[impl]
-        profile_call(torch, f"HS large step ({what}, {impl}) {IM}x{JM}x{KM}",
-                     lambda: step(state0, grid, coord, phis), card)
-    profile_call(torch, f"ZM step {NCOL}x{KM}", zm["step"], card)
+    with phase("9 profiles at f19"):
+        for impl, what in (("fft", "fused"), ("matmul", "unfused")):
+            step, state0, grid, coord, phis = paths[impl]
+            profile_call(torch,
+                         f"HS large step ({what}, {impl}) {IM}x{JM}x{KM}",
+                         lambda: step(state0, grid, coord, phis), card)
+        profile_call(torch, f"ZM step {NCOL}x{KM}", zm["step"], card)
+    del paths, calls, calls_fft, cases, runs, zm["step"]
+
+    # ---- phase 10: the bench's CUDA graphs at f19, replays against eager
+    # steps
+    with phase("10 CUDA graphs at f19"):
+        hs, state, grid, coord, phis = build_step(
+            IM, JM, KM, torch.float32, DEVICE, cfg=FVConfig())
+        hs_carry = (state,)
+        for _ in range(bench.SPINUP):
+            hs_carry = (hs(hs_carry[0], grid, coord, phis),)
+        sm.graph_check("HS", lambda s: (hs(s, grid, coord, phis),),
+                       hs_carry)
+        zstep, pstate, pbuf, _ = build_zm_step(NCOL, KM, torch.float32,
+                                               DEVICE)
+        sm.graph_check("ZM", zstep, (pstate, pbuf))
+        del hs_carry, pstate, pbuf
+        torch.cuda.empty_cache()
+
+    # ---- phase 11: the bench's HS step at f09 and f05, FVConfig()'s splits
+    for gname in BEYOND:
+        with phase(f"11 HS step at {gname}"):
+            sm.run_grid(gname)
+        torch.cuda.empty_cache()
+
+    # ---- phase 12: the port's bench at f19, its main path counted
+    with phase("12 the port's bench at f19"):
+        sm.zero_counts()
+        record = bench.run("f19", DEVICE)
+        torch.cuda.synchronize()
+        bench_launches = sm.counts()
+        print(json.dumps(record), flush=True)
+        log(f"bench at f19: launches {bench_launches}")
+        idle = [n for n in FUSED + ("tracer_div3d", "te_map_remap",
+                                    "zm_tail", "probe")
+                if bench_launches[n] == 0]
+        if idle or bench_launches["probe"] != 1:
+            raise RuntimeError(f"bench at f19: kernels not launched {idle}, "
+                               f"probe launched {bench_launches['probe']} "
+                               f"times (expected 1)")
 
     kernels = []
     for name, source, replaces in KERNELS:
-        if name == "zm_tail":
+        if name in ("zm_tail", "probe"):
+            row = (dict(zm["row"], library_ms=None) if name == "zm_tail"
+                   else dict(probe_row, launches=bench_launches["probe"]))
             kernels.append({"name": name, "route": "cuda", "source": source,
-                            "replaces": replaces, **zm["row"],
-                            "library_ms": None})
+                            "replaces": replaces, **row})
             continue
         # transport3d runs at two orders, launched equally often per
         # step: its numbers are the mean of the two per-launch values; a K
@@ -972,7 +1263,9 @@ def main() -> int:
               "is False", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    t0 = time.perf_counter()
     record = run(torch)
+    log(f"chip_smoke.py: {time.perf_counter() - t0:.1f} s wall in all")
     print(json.dumps({"kernels": record["kernels"]}))
     print(record["card"])
     print(json.dumps({"ok": True, "device": {
