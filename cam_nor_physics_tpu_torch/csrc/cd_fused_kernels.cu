@@ -16,24 +16,29 @@
 //
 // Design. The TPU kernels run the levels as a sequential grid and carry
 // pe, pe^kappa, ln pe (K1, K3) or the interface geopotential (K2, K4) from
-// one level to the next in VMEM scratch. Here each K is two launches: a
-// level kernel, one thread block per level walking its (jm, im) slab in
-// phases separated by __syncthreads() (as the stencil kernels do, with the
-// transport phases shared through tp_core.cuh), and a column pass, one
-// thread per (j, i) looping over k with the carry in registers. K1 and K3
-// run the level kernel first and the downward pass over its thickness and
-// pt after it; K2 and K4 run the upward pass first, over the dgz of K1/K3,
-// and the level kernel on its layer geopotential. Intermediate slabs
-// (Courants, advective operators, energy, corner fields, damping, the
-// increments to filter) live in a scratch tensor the wrapper allocates;
-// each level's are a few hundred KB and are read back from L2.
+// one level to the next in VMEM scratch. Here the carry is a column pass,
+// one thread per (j, i) looping over k with the carry in registers. K1-K3
+// are two launches each: a level kernel, one thread block per level
+// walking its (jm, im) slab in phases separated by __syncthreads() (as the
+// stencil kernels do, with the transport phases shared through
+// tp_core.cuh), and the column pass. K1 and K3 run the level kernel first
+// and the downward pass over its thickness and pt after it; K2 and K4 run
+// the upward pass first, over the dgz of K1/K3. K4 then spreads its level
+// work over all SMs: three row kernels, one block per (row, level), whose
+// launch boundaries are the phase boundaries, and with the filter on the
+// two tiled DFT products of dft_filter.cuh over all km*jm level rows (6
+// launches a call; 4 with the filter off). Intermediate slabs (Courants,
+// advective operators, energy, corner fields, damping, the increments to
+// filter) live in a scratch tensor the wrapper allocates; each level's
+// are a few hundred KB and are read back from L2.
 //
 // The polar filter is the TPU kernel's two-sided real DFT, written out:
 // per level and row, nf = im/2+1 forward sums over i of a[i]*cos and
 // a[i]*sin, times the row's response, then per point the inverse sums
 // over m, each sum one product and one addition per term in index order.
-// K2 filters duc with the center response and dvc with the edge response;
-// K4 du with the edge response and dv with the center response.
+// K2 filters duc with the center response and dvc with the edge response
+// inside its level kernel (dft_forward, dft_inverse); K4 du with the edge
+// response and dv with the center response through dft_filter.cuh.
 //
 // Numerics. The plain versions are written in the order these kernels
 // evaluate; row factors come in one (kNumRows, jm) table from the wrapper
@@ -47,8 +52,10 @@
 // 10 slabs of 1.4 MB at f19 in float32, a few microseconds at 3.35 TB/s.
 // The DFT sums of K2 and K4 are 8 * jm * nf * im operations per level and
 // filtered field (about 16 MFLOP per level at f19), 0.4 GFLOP per call.
-// This first version is latency-bound: one block per level keeps km of
-// the 132 SMs busy in the level kernels.
+// K1-K3 are latency-bound: one block per level keeps km of the 132 SMs
+// busy in their level kernels. K4's row kernels run km*jm blocks, and its
+// DFT products are bound by the FP32 lanes (dft_filter.cuh).
+#include "dft_filter.cuh"
 #include "tp_core.cuh"
 
 #include <stdint.h>
@@ -344,67 +351,82 @@ k3_level_kernel(const T* __restrict__ delp, const T* __restrict__ pt,
 }
 
 // ------------------------------------------------------------ K4
+//
+// K4 runs over all SMs: after the upward pass, three row kernels, one
+// block of kRowThreads threads per (row, level), each a phase of the
+// TPU kernel's level program (the phase boundaries are launch
+// boundaries, the intermediates stay in the level scratch slabs), then,
+// with the filter on, the two tiled DFT products of dft_filter.cuh over
+// all level rows of du and dv.
 
 enum KeMethod { kKeCentered = 0, kKeAvgSq = 1, kKeUpwind = 2 };
 
+constexpr int kRowThreads = 64;    // K4's row kernels (a power of two)
+
+// phase 1: the row's FFSL flag, the polar-cap means (rows 0 and jm-1),
+// and at each point the absolute vorticity, the energy, the advecting
+// winds times dt and the corner divergence of the old winds
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-k4_level_kernel(const T* __restrict__ u, const T* __restrict__ v,
-                const T* __restrict__ pt_new, const T* __restrict__ pkz,
-                const T* __restrict__ crx, const T* __restrict__ cry,
-                const T* __restrict__ ucin, const T* __restrict__ M,
-                const T* __restrict__ nu2, const T* __restrict__ fcm,
-                const T* __restrict__ fsm, const T* __restrict__ gcm,
-                const T* __restrict__ gsm, const T* __restrict__ rspc,
-                const T* __restrict__ rspe, double dt, double dtdel2,
-                double rcirc, Consts cs, int iord, int jord, int ke_method,
-                int div2_on, int del4_on, int filter, int band, int K,
-                int jm, int im, int nf, T* __restrict__ u_new,
-                T* __restrict__ v_new, T* __restrict__ scratch,
-                T* __restrict__ spec, uint8_t* __restrict__ flags) {
-  const int k = blockIdx.x, km = gridDim.x;
+__global__ void __launch_bounds__(kRowThreads)
+k4_vort_kernel(const T* __restrict__ u, const T* __restrict__ v,
+               const T* __restrict__ pt_new, const T* __restrict__ pkz,
+               const T* __restrict__ crx, const T* __restrict__ ucin,
+               const T* __restrict__ M, double dt, double rcirc, Consts cs,
+               int ke_method, int jm, int im, T* __restrict__ scratch,
+               uint8_t* __restrict__ flags) {
+  const int j = blockIdx.x, k = blockIdx.y, km = gridDim.y;
   const int n = jm * im;
   const size_t off = (size_t)k * n;
   auto S = [&](int s) { return scratch + ((size_t)s * km + k) * n; };
   const T* phi = S(0);
-  T *zeta = S(1), *en = S(2), *udt = S(3), *vedt = S(4), *div = S(5),
-    *enc = S(6), *thc = S(7), *pic = S(8), *damp = S(9), *du_s = S(10),
-    *dv_s = S(11);
-  T* sp = spec + (size_t)k * 4 * jm * nf;
-  uint8_t* fl = flags + (size_t)k * jm;
-  __shared__ T caps[2];
+  T *zeta = S(1), *en = S(2), *udt = S(3), *vedt = S(4), *div = S(5);
+  __shared__ T cap;
+  __shared__ T red[kRowThreads];
   const T cp = T(cs.cpair), tdt = T(dt), tdl = T(cs.dl), tdp = T(cs.dp),
           tre = T(cs.rearth);
   const T* cose = M + kCose * jm;
   const Slab<T> U{u + off, jm, im}, V{v + off, jm, im};
   const Slab<T> PT{pt_new + off, jm, im}, PK{pkz + off, jm, im};
-  const T *cx = crx + off, *cy = cry + off;
+  const T* cx = crx + off + (size_t)j * im;
 
-  // polar-cap means of the circulation, in double
-  auto cap_sum = [&](int j) {
+  // the polar-cap mean of the circulation, in double over i in order (one
+  // thread: unrolled so that the loads run ahead of the dependent sum)
+  auto cap_sum = [&](int jj) {
+    const T* r = u + off + (size_t)jj * im;
+    const T cj = cose[jj];
     double s = 0.0;
-    for (int i = 0; i < im; ++i)
-      s = s + (double)(U(j, i) * cose[j] * tdl * tre);
+#pragma unroll 16
+    for (int i = 0; i < im; ++i) s = s + (double)(r[i] * cj * tdl * tre);
     return s;
   };
-  if (threadIdx.x == 0) caps[0] = (T)(-cap_sum(1) * rcirc);
-  if (second_lane()) caps[1] = (T)(cap_sum(jm - 1) * rcirc);
-  ffsl_flags(cx, jm, im, fl);
+  if (threadIdx.x == 0 && j == 0) cap = (T)(-cap_sum(1) * rcirc);
+  if (threadIdx.x == 0 && j == jm - 1) cap = (T)(cap_sum(jm - 1) * rcirc);
+  // the row's FFSL flag: some |crx| above 1 (a max: exact in any order)
+  T mx = T(0);
+  for (int i = threadIdx.x; i < im; i += blockDim.x)
+    mx = tmax(mx, (T)fabs(cx[i]));
+  red[threadIdx.x] = mx;
   __syncthreads();
+  for (int h = blockDim.x / 2; h > 0; h >>= 1) {
+    if ((int)threadIdx.x < h)
+      red[threadIdx.x] = tmax(red[threadIdx.x], red[threadIdx.x + h]);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) flags[(size_t)k * jm + j] = red[0] > T(1) ? 1 : 0;
 
-  auto a_of_v = [&](int j, int i) { return T(0.5) * (V(j, i) + V(j, i + 1)); };
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int j = idx / im, i = idx - j * im;
-    const bool interior = j != 0 && j != jm - 1;
+  auto a_of_v = [&](int jj, int ii) {
+    return T(0.5) * (V(jj, ii) + V(jj, ii + 1));
+  };
+  const bool interior = j != 0 && j != jm - 1;
+  for (int i = threadIdx.x; i < im; i += blockDim.x) {
+    const int idx = j * im + i;
     const T uu = U(j, i), vv = V(j, i);
     const T u_n = j == jm - 1 ? T(0) : U(j + 1, i);
     const T v_e = V(j, i + 1);
     // absolute vorticity
     T z;
-    if (j == 0) {
-      z = caps[0];
-    } else if (j == jm - 1) {
-      z = caps[1];
+    if (!interior) {
+      z = cap;
     } else {
       const T circ = (uu * cose[j] - u_n * M[kCosen * jm + j]) * tdl * tre +
                      (v_e - vv) * tdp * tre;
@@ -442,11 +464,25 @@ k4_level_kernel(const T* __restrict__ u, const T* __restrict__ v,
       div[idx] = T(0);
     }
   }
-  __syncthreads();
+}
 
+// phase 2: energy, pt and pkz at the corners, and the divergence damping
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+k4_corner_kernel(const T* __restrict__ pt_new, const T* __restrict__ pkz,
+                 const T* __restrict__ M, const T* __restrict__ nu2,
+                 int div2_on, int del4_on, int jm, int im,
+                 T* __restrict__ scratch) {
+  const int j = blockIdx.x, k = blockIdx.y, km = gridDim.y;
+  const int n = jm * im;
+  const size_t off = (size_t)k * n;
+  auto S = [&](int s) { return scratch + ((size_t)s * km + k) * n; };
+  const T *en = S(2), *div = S(5);
+  T *enc = S(6), *thc = S(7), *pic = S(8), *damp = S(9);
+  const Slab<T> PT{pt_new + off, jm, im}, PK{pkz + off, jm, im};
   const Slab<T> EN{en, jm, im}, DIV{div, jm, im};
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int j = idx / im, i = idx - j * im;
+  for (int i = threadIdx.x; i < im; i += blockDim.x) {
+    const int idx = j * im + i;
     enc[idx] = corner<T>(EN, j, i);
     thc[idx] = corner<T>(PT, j, i);
     pic[idx] = corner<T>(PK, j, i);
@@ -463,18 +499,39 @@ k4_level_kernel(const T* __restrict__ u, const T* __restrict__ v,
     }
     damp[idx] = d;
   }
-  __syncthreads();
+}
 
-  const Slab<T> ENC{enc, jm, im}, THC{thc, jm, im}, PIC{pic, jm, im},
-      DAMP{damp, jm, im};
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int j = idx / im, i = idx - j * im;
-    const bool interior = j != 0 && j != jm - 1;
-    const T dxe = M[kDxe * jm + j], dy = M[kDy * jm + j];
+// phase 3: the wind increments (vorticity fluxes, corner PGF, damping,
+// del2 velocity damping); the new winds, or with the filter on the
+// increments du, dv for the DFT products
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+k4_wind_kernel(const T* __restrict__ u, const T* __restrict__ v,
+               const T* __restrict__ crx, const T* __restrict__ cry,
+               const T* __restrict__ M, double dt, double dtdel2, Consts cs,
+               int iord, int jord, int filter, int band, int K, int jm,
+               int im, T* __restrict__ u_new, T* __restrict__ v_new,
+               T* __restrict__ scratch, const uint8_t* __restrict__ flags) {
+  const int j = blockIdx.x, k = blockIdx.y, km = gridDim.y;
+  const int n = jm * im;
+  const size_t off = (size_t)k * n;
+  auto S = [&](int s) { return scratch + ((size_t)s * km + k) * n; };
+  const T *zeta = S(1), *udt = S(3), *vedt = S(4);
+  T *du_s = S(10), *dv_s = S(11);
+  const uint8_t* fl = flags + (size_t)k * jm;
+  const T cp = T(cs.cpair), tdt = T(dt);
+  const Slab<T> U{u + off, jm, im}, V{v + off, jm, im};
+  const Slab<T> ENC{S(6), jm, im}, THC{S(7), jm, im}, PIC{S(8), jm, im},
+      DAMP{S(9), jm, im};
+  const T *cx = crx + off, *cy = cry + off;
+  const bool interior = j != 0 && j != jm - 1;
+  const T dxe = M[kDxe * jm + j], dy = M[kDy * jm + j];
+  const bool ffsl = ffsl_row(fl, j, jm, band);
+  for (int i = threadIdx.x; i < im; i += blockDim.x) {
+    const int idx = j * im + i;
     const T fy_z = ytp_point(zeta, cy, vedt, j, i, jm, im, jord);
     const T fx_z = xtp_point(zeta + j * im, cx + j * im, udt + j * im, i, im,
-                             M[kCosp * jm + j], ffsl_row(fl, j, jm, band),
-                             iord, 1, K);
+                             M[kCosp * jm + j], ffsl, iord, 1, K);
     T du = T(0), dv = T(0);
     if (j != 0) {
       const T dx_en = (ENC(j, i + 1) - ENC(j, i)) / dxe;
@@ -509,20 +566,6 @@ k4_level_kernel(const T* __restrict__ u, const T* __restrict__ v,
       u_new[off + idx] = U(j, i) + du;
       v_new[off + idx] = V(j, i) + dv;
     }
-  }
-  if (!filter) return;
-  __syncthreads();
-  dft_forward(du_s, fcm, fsm, rspe, jm, im, nf, sp, sp + jm * nf);
-  dft_forward(dv_s, fcm, fsm, rspc, jm, im, nf, sp + 2 * jm * nf,
-              sp + 3 * jm * nf);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int j = idx / im, i = idx - j * im;
-    u_new[off + idx] =
-        U(j, i) + dft_inverse(sp, sp + jm * nf, gcm, gsm, j, i, im, nf);
-    v_new[off + idx] = V(j, i) + dft_inverse(sp + 2 * jm * nf,
-                                             sp + 3 * jm * nf, gcm, gsm, j,
-                                             i, im, nf);
   }
 }
 
@@ -590,14 +633,30 @@ int launch_k4(const T* u, const T* v, const T* pt_new, const T* pkz,
               int del4_on, int filter, int band, int K, int km, int jm,
               int im, T* u_new, T* v_new, T* scratch, T* spec,
               uint8_t* flags, void* stream) {
-  const int n = jm * im, nf = im / 2 + 1;
-  const int nb = col_blocks(n);
-  up_geopotential_kernel<T><<<nb, kColThreads, 0, (cudaStream_t)stream>>>(
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int n = jm * im;
+  const dim3 rows(jm, km);
+  up_geopotential_kernel<T><<<col_blocks(n), kColThreads, 0, st>>>(
       dgz, phis, km, n, scratch);
-  k4_level_kernel<T><<<km, kThreads, 0, (cudaStream_t)stream>>>(
-      u, v, pt_new, pkz, crx, cry, uc, M, nu2, fcm, fsm, gcm, gsm, rspc,
-      rspe, dt, dtdel2, rcirc, cs, iord, jord, ke_method, div2_on, del4_on,
-      filter, band, K, jm, im, nf, u_new, v_new, scratch, spec, flags);
+  k4_vort_kernel<T><<<rows, kRowThreads, 0, st>>>(
+      u, v, pt_new, pkz, crx, uc, M, dt, rcirc, cs, ke_method, jm, im,
+      scratch, flags);
+  k4_corner_kernel<T><<<rows, kRowThreads, 0, st>>>(
+      pt_new, pkz, M, nu2, div2_on, del4_on, jm, im, scratch);
+  k4_wind_kernel<T><<<rows, kRowThreads, 0, st>>>(
+      u, v, crx, cry, M, dt, dtdel2, cs, iord, jord, filter, band, K, jm,
+      im, u_new, v_new, scratch, flags);
+  if (filter) {
+    // du (edge response) and dv (center response) of every level row
+    const int rows_all = km * jm;
+    const size_t ns = (size_t)rows_all * dftf::spectrum_stride(im / 2 + 1);
+    const T *du = scratch + (size_t)10 * km * n,
+            *dv = scratch + (size_t)11 * km * n;
+    dftf::launch_dft_filter<T>(
+        {du, rspe, spec, spec + ns}, {dv, rspc, spec + 2 * ns, spec + 3 * ns},
+        {spec, spec + ns, u, u_new}, {spec + 2 * ns, spec + 3 * ns, v, v_new},
+        fcm, fsm, gcm, gsm, rows_all, jm, im, st);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -7,10 +7,11 @@ take the plain versions `k1_ref`...`k4_ref` of models/fv/cd_fused.py.
 There is no fallback between the two: a kernel that does not build or
 launch raises. `_check` validates the inputs on either device.
 
-Each K is LAUNCHES_PER_CALL CUDA launches (a level kernel and a column
-pass that carries pressure or geopotential over k) and adds that many to
-`<wrapper>.launches`. The transport kernels take iord/jord 1 and 4, the
-orders the dycore runs.
+Each call adds its CUDA launches, `launches_per_call(name, dyn_filter)`,
+to `<wrapper>.launches`: K1-K3 a level kernel and a column pass that
+carries pressure or geopotential over k; K4 the upward pass, three row
+kernels and, with the polar filter on, its two DFT products. The
+transport kernels take iord/jord 1 and 4, the orders the dycore runs.
 """
 
 from __future__ import annotations
@@ -26,10 +27,17 @@ from . import cuda_build
 from . import tp_core as tp
 from .stencil_kernels import KERNEL_ORDERS
 
-LAUNCHES_PER_CALL = 2
+# CUDA launches a call of each K, (polar filter off, on): K4 adds the two
+# DFT products of csrc/dft_filter.cuh when it filters
+LAUNCHES_PER_CALL = {"k1": (2, 2), "k2": (2, 2), "k3": (2, 2), "k4": (4, 6)}
 
 # scratch slabs of each level kernel (csrc/cd_fused_kernels.cu)
 _SCRATCH = {"k1": 13, "k2": 4, "k3": 8, "k4": 12}
+
+
+def launches_per_call(name: str, dyn_filter: bool = True) -> int:
+    """The CUDA launches one call of K `name` makes."""
+    return LAUNCHES_PER_CALL[name][bool(dyn_filter)]
 
 
 def _check(name, slabs, others=(), iord=1, jord=1, ke_method="centered"):
@@ -90,16 +98,15 @@ def _launch(name, fn, *args):
                            f"cudaError {rc}")
 
 
-def _scratch(name, ref, nf=None):
-    """The level kernel's scratch slabs, per-level row flags and, with
-    `nf`, the DFT spectra (km, 4, jm, nf)."""
+def _scratch(name, ref, spec=None):
+    """The level kernels' scratch slabs, per-level row flags and, with
+    `spec`, the DFT spectra of that shape."""
     km, jm, im = ref.shape
     out = [torch.empty((_SCRATCH[name], km, jm, im), dtype=ref.dtype,
                        device=ref.device),
            torch.empty((km, jm), dtype=torch.uint8, device=ref.device)]
-    if nf is not None:
-        out.append(torch.empty((km, 4, jm, nf), dtype=ref.dtype,
-                               device=ref.device))
+    if spec is not None:
+        out.append(torch.empty(spec, dtype=ref.dtype, device=ref.device))
     return out
 
 
@@ -127,7 +134,7 @@ def k1(u, v, pt, delp, metrics, dt5: float, rcap: float, ptop: float,
         return k1_ref(u, v, pt, delp, metrics, dt5, rcap, ptop, band)
     out = _run_k1(_fn("cam_cd_k1", delp.dtype), _stream(delp), u, v, pt,
                   delp, metrics, dt5, rcap, ptop, band)
-    k1.launches += LAUNCHES_PER_CALL
+    k1.launches += launches_per_call("k1")
     return out
 
 
@@ -145,7 +152,7 @@ def k2(pt_h, pkz_h, dgz_h, uc0, vc0, phis, metrics, dft, dt: float,
                       dt5, dyn_filter)
     out = _run_k2(_fn("cam_cd_k2", pt_h.dtype), _stream(pt_h), pt_h, pkz_h,
                   dgz_h, uc0, vc0, phis, metrics, dft, dt, dt5, dyn_filter)
-    k2.launches += LAUNCHES_PER_CALL
+    k2.launches += launches_per_call("k2", dyn_filter)
     return out
 
 
@@ -160,7 +167,7 @@ def k3(delp, pt, crx, cry, metrics, iord: int, jord: int, rcap: float,
                       band)
     out = _run_k3(_fn("cam_cd_k3", delp.dtype), _stream(delp), delp, pt,
                   crx, cry, metrics, iord, jord, rcap, ptop, band)
-    k3.launches += LAUNCHES_PER_CALL
+    k3.launches += launches_per_call("k3")
     return out
 
 
@@ -182,7 +189,7 @@ def k4(u, v, pt_new, pkz, dgz, phis, crx, cry, uc, metrics, nu2_rows, dft,
     if not u.is_cuda:
         return k4_ref(*args)
     out = _run_k4(_fn("cam_cd_k4", u.dtype), _stream(u), *args)
-    k4.launches += LAUNCHES_PER_CALL
+    k4.launches += launches_per_call("k4", dyn_filter)
     return out
 
 
@@ -204,7 +211,7 @@ def _run_k2(fn, stream, pt_h, pkz_h, dgz_h, uc0, vc0, phis, metrics, dft,
             dt, dt5, dyn_filter):
     km, jm, im = pt_h.shape
     outs = [torch.empty_like(pt_h) for _ in range(3)]
-    scratch, _, spec = _scratch("k2", pt_h, im // 2 + 1)
+    scratch, _, spec = _scratch("k2", pt_h, (km, 4, jm, im // 2 + 1))
     _launch("k2", fn, pt_h, pkz_h, dgz_h, uc0, vc0, phis, metrics, *dft,
             float(dt), float(dt5), c.CPAIR, int(bool(dyn_filter)), km, jm,
             im, *outs, scratch, spec, stream)
@@ -227,7 +234,10 @@ def _run_k4(fn, stream, u, v, pt_new, pkz, dgz, phis, crx, cry, uc, metrics,
             del2_velocity, dyn_filter, rcirc, band):
     km, jm, im = u.shape
     outs = [torch.empty_like(u) for _ in range(2)]
-    scratch, flags, spec = _scratch("k4", u, im // 2 + 1)
+    # sr, si of du and of dv over all level rows, each row nf rounded up to
+    # whole 16-byte copies (dftf::spectrum_stride)
+    lds = (im // 2 + 1 + 3) // 4 * 4
+    scratch, flags, spec = _scratch("k4", u, (4, km * jm, lds))
     # dt·ν as the plain version's Python product
     dtdel2 = dt * del2_velocity if del2_velocity > 0.0 else 0.0
     _launch("k4", fn, u, v, pt_new, pkz, dgz, phis, crx, cry, uc, metrics,

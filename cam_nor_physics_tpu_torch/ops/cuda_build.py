@@ -28,7 +28,8 @@ SOURCES = {
     "stencil_kernels": ("stencil_kernels.cu", "tp_core.cuh"),
     "remap_kernels": ("remap_kernels.cu",),
     "zm_tail_kernels": ("zm_tail_kernels.cu",),
-    "cd_fused_kernels": ("cd_fused_kernels.cu", "tp_core.cuh"),
+    "cd_fused_kernels": ("cd_fused_kernels.cu", "dft_filter.cuh",
+                         "tp_core.cuh"),
     "probe_kernels": ("probe_kernels.cu",),
 }
 

@@ -25,7 +25,7 @@ def probe_ref(x):
 def _check(x):
     """The kernel takes one contiguous (8, 128) float32 or float64 block,
     on either device."""
-    if x.dtype not in (torch.float32, torch.float64):
+    if x.dtype not in _SUFFIX:
         raise TypeError(f"probe: float32 or float64 expected, got "
                         f"{x.dtype}")
     if tuple(x.shape) != SHAPE or not x.is_contiguous():
@@ -33,18 +33,31 @@ def _check(x):
                          f"{tuple(x.shape)}")
 
 
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_N = SHAPE[0] * SHAPE[1]
+_ENTRY = {}         # dtype -> its C entry point, resolved at the first call
+
+
+def _entry(dtype):
+    """The C entry point for `dtype` (the library is built at first use)."""
+    fn = _ENTRY[dtype] = getattr(cuda_build.library("probe_kernels"),
+                                 "cam_probe_" + _SUFFIX[dtype])
+    return fn
+
+
 def probe(x):
     """2 x of one (8, 128) block, through the CUDA kernel for a CUDA
-    tensor."""
-    _check(x)
+    tensor. A call costs three attribute tests, one allocation and one
+    ctypes call: the entry point is resolved at the first call, and the
+    stream is the raw handle (no Python stream object is built)."""
+    if x.dtype not in _SUFFIX or x.shape != SHAPE or not x.is_contiguous():
+        _check(x)
     if not x.is_cuda:
         return probe_ref(x)
+    fn = _ENTRY.get(x.dtype) or _entry(x.dtype)
     out = torch.empty_like(x)
-    lib = cuda_build.library("probe_kernels")
-    fn = getattr(lib, "cam_probe_" +
-                 ("f32" if x.dtype == torch.float32 else "f64"))
-    rc = fn(x.data_ptr(), out.data_ptr(), x.numel(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    rc = fn(x.data_ptr(), out.data_ptr(), _N,
+            torch._C._cuda_getCurrentRawStream(x.get_device()))
     if rc != 0:
         raise RuntimeError(f"probe: CUDA kernel launch failed with "
                            f"cudaError {rc}")

@@ -8,7 +8,11 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
 1. names the card (torch and nvidia-smi: name, power limit);
 2. builds the six CUDA libraries from csrc/ (one nvcc per source,
    together), and holds the probe kernel (the bench's health check) on
-   one seeded (8, 128) float32 block to exactly 2 x its input;
+   one seeded (8, 128) block to exactly 2 x its input (float32, float64);
+   times it, its plain version and torch.mul in turns (3 rounds of
+   library, kernel, plain, plain, kernel, library; 200 calls a turn; the
+   median of each one's turns), with each one's device time a call from
+   torch.profiler beside it;
 3. holds each kernel against its plain PyTorch version on the card, at the
    f19 (144x96x26) shapes and on inputs captured from real Held-Suarez
    steps: the unfused step's Courants and fluxes (filter_impl="matmul"),
@@ -21,8 +25,9 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
    filter_impl=...) for 4 large steps (2 model hours) each, with the
    launch counts set to 0 just before and read just after: the unfused
    "matmul" step launches transport3d and vort_flux3d, the fused "fft"
-   step (the default, the JAX package's) K1-K4, 2 launches per call and
-   4 calls per step, and no transport3d or vort_flux3d; both launch
+   step (the default, the JAX package's) K1-K4, 4 calls per step of
+   cd_fused_kernels.launches_per_call launches each (K1-K3 2, K4 6 with
+   the polar filter), and no transport3d or vort_flux3d; both launch
    tracer_div3d and te_map_remap once a step. Each path: finite fields,
    global dry-mass drift <= 1e-5, and agreement with the same 4 steps run
    through the plain versions on the card: ps, pt, u, v and q each within
@@ -32,6 +37,9 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
    against the unfused formulation (cd_step fused=False) from the same
    state, within 1e-7 of each field's max (tests/test_cd_pallas.py);
 5. times each kernel and its plain version (CUDA events) and both steps;
+   K4's device time split by kernel (torch.profiler): its upward pass and
+   row kernels against its two DFT products, and the products' rate on
+   their own work;
 6. holds the fused ZM tail kernel (zm_tail) against its plain version
    (zm_tail_ref) at f19's 13,824 columns x 26 levels, on the inputs the
    port's own zm_convr gives it on entry.varied_zm_inputs (bench.py's
@@ -70,7 +78,7 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
     dry-mass drift <= 1e-5; then one call each of K1-K4, tracer_div3d and
     te_map_remap, on the inputs of the next step, against its plain
     version (float32 gate of item 3) and timed beside its bound, with K2's
-    and K4's share of the step;
+    and K4's share of the step, and K4's split by kernel as in item 5;
 12. runs the port's bench (cam_nor_physics_tpu_torch.bench.run) at f19
     once, with the launch counts set to 0 just before and read just
     after: the probe exactly once, every kernel of the fused path at
@@ -141,6 +149,8 @@ KERNELS = (
      "bench.py:133"),
 )
 FUSED = ("k1", "k2", "k3", "k4")
+PROBE_CALLS = 200          # back-to-back probe calls a timing turn
+PROBE_ROUNDS = 3           # rounds of its six interleaved turns
 GRAPH_K = 8                # steps per CUDA-graph replay, as the bench's chunk
 BEYOND = ("f09", "f05")    # the bench's grids beyond f19
 # repetitions of each kernel (and of its plain version) timed there
@@ -623,6 +633,31 @@ class Smoke:
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                      else "operations")
 
+    def k4_split(self, label, a, kw, reps):
+        """K4's device time a call split by kernel (torch.profiler, each
+        kernel's mean over the launches it recorded): the upward pass and
+        row kernels against the two DFT products, and the products' rate
+        on their own work (16 km jm nf im operations, a multiply and an
+        add a term)."""
+        torch = self.torch
+        times, _ = kernel_times(torch, lambda: self.kernel("k4")(*a, **kw),
+                                reps)
+        km, jm, im = a[0].shape
+        mean_ms = {n: us / c / 1e3 for n, (c, us) in times.items()}
+        dft_ms = sum(t for n, t in mean_ms.items() if "dft_" in n)
+        level_ms = sum(t for n, t in mean_ms.items() if "dft_" not in n)
+        log(f"split {label:<18} device ms a call: level kernels "
+            f"{level_ms:.4f}, DFT products {dft_ms:.4f}  [{self.card}]")
+        for n, t in sorted(mean_ms.items(), key=lambda x: -x[1]):
+            log(f"    {t:9.4f} ms  ({times[n][0]} launches recorded in "
+                f"{reps} calls)  {n[:70]}")
+        if a[21]:
+            ops = 16 * km * jm * (im // 2 + 1) * im
+            log(f"    DFT products: {ops:.3e} ops in {dft_ms:.4f} ms = "
+                f"{ops / dft_ms / 1e9:.3f} TFLOP/s (a multiply and an add a "
+                f"term; FP32 lanes' ceiling without fused multiply-add "
+                f"{PEAK_F32_OPS / 2e12:.1f})")
+
     def time_row(self, label, name, a, kw, reps, plain_reps):
         """Times one kernel call and its plain version (CUDA events) and
         logs them beside the call's bound; returns (ms, plain ms, bound
@@ -645,11 +680,12 @@ class Smoke:
     def run_probe(self) -> dict:
         """The probe kernel on one seeded (8, 128) float32 block (the
         bench's) and the same block in float64: exactly 2 x its input and
-        bitwise its plain version; its float32 time (CUDA events) beside
-        its plain version's, the library call's (one torch.mul) and its
-        bound (the block read once and written once; one multiply an
-        element). The kernel's time goes through the ctypes launch, the
-        plain and library times through PyTorch's own."""
+        bitwise its plain version; its float32 time (CUDA events over
+        back-to-back calls, so mostly the host's launch path) beside its
+        plain version's and the library call's (one torch.mul), timed in
+        turns, and its bound (the block read once and written once; one
+        multiply an element); each one's device time a call from
+        torch.profiler splits host from device."""
         torch = self.torch
         from cam_nor_physics_tpu_torch.bench import bitwise_equal
         from cam_nor_physics_tpu_torch.ops import probe_kernels as pk
@@ -669,15 +705,37 @@ class Smoke:
                                    f"not exactly 2 x its input")
             if xd.dtype == torch.float32:
                 err = e
-        ms = self.time_call(pk.probe, (x,), {}, 200)
-        plain_ms = self.time_call(pk.probe_ref, (x,), {}, 200)
-        library_ms = self.time_call(torch.mul, (x, 2.0), {}, 200)
+        calls = {"library": (torch.mul, (x, 2.0)), "kernel": (pk.probe, (x,)),
+                 "plain": (pk.probe_ref, (x,))}
+        # in turns: PROBE_ROUNDS rounds of library, kernel, plain, plain,
+        # kernel, library (PROBE_CALLS back-to-back calls a turn, CUDA
+        # events); each one's time is the median of its turns
+        turns = defaultdict(list)
+        for _ in range(PROBE_ROUNDS):
+            for name in ("library", "kernel", "plain", "plain", "kernel",
+                         "library"):
+                fn, args = calls[name]
+                turns[name].append(self.time_call(fn, args, {},
+                                                  PROBE_CALLS))
+        ms, plain_ms, library_ms = (float(np.median(turns[n])) for n in
+                                    ("kernel", "plain", "library"))
+        # the device's share: each call's kernel duration by the profiler
+        dev = {n: device_us(torch, lambda f=f, a=a: f(*a), PROBE_CALLS)
+               for n, (f, a) in calls.items()}
         nbytes = 2 * x.numel() * x.element_size()
         bound, bound_by = self.bound(nbytes, x.numel())
         log(f"time probe              kernel {ms:.4f} ms  plain "
             f"{plain_ms:.4f} ms  library (torch.mul) {library_ms:.4f} ms  "
             f"bound {bound:.3e} ms by {bound_by} ({nbytes} B, "
             f"{x.numel()} ops)  [{self.card}]")
+        for n in ("kernel", "plain", "library"):
+            t = float(np.median(turns[n]))
+            log(f"    probe {n:<8} turns "
+                + ", ".join(f"{v:.4f}" for v in turns[n])
+                + f" ms a call; device {dev[n] / 1e3:.4f} ms a call, host "
+                f"and launch {t - dev[n] / 1e3:.4f} ms")
+        log(f"probe: kernel {'at or below' if ms <= library_ms else 'above'}"
+            f" torch.mul in the same run ({ms:.4f} vs {library_ms:.4f} ms)")
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": bound_by,
                 "library_ms": library_ms}
@@ -765,7 +823,7 @@ class Smoke:
         expect = {"transport3d": 0, "vort_flux3d": 0,
                   "tracer_div3d": n2 * nv * SPINUP,
                   "te_map_remap": nv * SPINUP,
-                  **{k: self.ck.LAUNCHES_PER_CALL * calls * SPINUP
+                  **{k: self.ck.launches_per_call(k) * calls * SPINUP
                      for k in FUSED}}
         for name in self.sites:
             self.kernel(name).launches = 0
@@ -820,6 +878,8 @@ class Smoke:
             self.compare(f"{name}@{gname}", name, a, kw, "float32")
             times[name] = self.time_row(f"{name}@{gname}", name, a, kw,
                                         reps, plain_reps)[0]
+            if name == "k4":
+                self.k4_split(f"k4@{gname}", a, kw, 3)
         steady = sum(step_s[1:]) / (len(step_s) - 1)
         per_step = {n: times[n] * (calls if n in FUSED else
                                    n2 * nv if n == "tracer_div3d" else nv)
@@ -1050,33 +1110,48 @@ def run_zm(torch, sm: Smoke, card: str) -> dict:
             "zm_s": tend_s, "step": lambda: zstep(*inputs)}
 
 
-def profile_call(torch, label, fn, card, top=6):
-    """Phase 9: one warm-up call of fn, then one under torch.profiler;
-    prints the wall time, the device kernels, the device's busy time and
-    share, and the `top` kernels by device time."""
+def kernel_times(torch, fn, reps=1):
+    """One warm-up call of fn, then `reps` calls under torch.profiler:
+    ({device kernel name: [launches recorded, µs]}, wall seconds)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        raise RuntimeError(f"{label}: the profiler recorded no device time")
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name][0] += 1
+            by_name[e.name][1] += e.time_range.elapsed_us()
+    if not by_name:
+        raise RuntimeError("the profiler recorded no device time")
+    return by_name, wall
+
+
+def device_us(torch, fn, reps):
+    """Device µs a call of fn, which launches one kernel: the mean
+    duration of the launches torch.profiler recorded in `reps` calls."""
+    times, _ = kernel_times(torch, fn, reps)
+    return sum(us for _, us in times.values()) / sum(
+        c for c, _ in times.values())
+
+
+def profile_call(torch, label, fn, card, top=6):
+    """Phase 9: one call of fn under torch.profiler (after a warm-up);
+    prints the wall time, the device kernels, the device's busy time and
+    share, and the `top` kernels by device time."""
+    by_name, wall = kernel_times(torch, fn)
+    busy_us = sum(us for _, us in by_name.values())
     share = 100.0 * busy_us / 1e6 / wall
     log(f"profile {label} [{card}]: wall {1e3 * wall:.2f} ms under the "
-        f"profiler, {len(kernels)} device kernels, device busy "
-        f"{busy_us / 1e3:.3f} ms ({share:.1f}% of the wall time, idle "
-        f"{100.0 - share:.1f}%)")
-    by_name = defaultdict(lambda: [0, 0.0])
-    for e in kernels:
-        by_name[e.name][0] += 1
-        by_name[e.name][1] += e.time_range.elapsed_us()
+        f"profiler, {sum(n for n, _ in by_name.values())} device kernels, "
+        f"device busy {busy_us / 1e3:.3f} ms ({share:.1f}% of the wall "
+        f"time, idle {100.0 - share:.1f}%)")
     for name, (n, us) in sorted(by_name.items(),
                                 key=lambda x: -x[1][1])[:top]:
         log(f"    {us / 1e3:9.3f} ms  {n:6d} x  {name[:90]}")
@@ -1154,7 +1229,7 @@ def run(torch) -> dict:
                        **{k: 0 for k in FUSED}},
             "fft": {"transport3d": 0, "vort_flux3d": 0,
                     "tracer_div3d": NSTEPS, "te_map_remap": NSTEPS,
-                    **{k: 4 * sm.ck.LAUNCHES_PER_CALL * NSTEPS
+                    **{k: 4 * sm.ck.launches_per_call(k) * NSTEPS
                        for k in FUSED}},
         }
         runs = {impl: sm.hs_path(impl, *paths[impl], expect[impl])
@@ -1171,6 +1246,8 @@ def run(torch) -> dict:
         for label, name, a, kw in cases:
             rows.append((label, name,
                          *sm.time_row(label, name, a, kw, 50, 5)))
+            if name == "k4":
+                sm.k4_split(label, a, kw, 10)
         steady = runs["fft"]["steady"]
     # ---- phases 6-8: the ZM step and its tail kernel
     with phase("6-8 ZM step at f19"):
@@ -1239,7 +1316,7 @@ def run(torch) -> dict:
             continue
         # transport3d runs at two orders, launched equally often per
         # step: its numbers are the mean of the two per-launch values; a K
-        # is timed per call (LAUNCHES_PER_CALL launches)
+        # is timed per call (launches_per_call launches)
         mine = [r for r in rows if r[1] == name]
         mean = lambda i: sum(r[i] for r in mine) / len(mine)  # noqa: E731
         kernels.append({

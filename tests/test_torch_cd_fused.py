@@ -16,8 +16,10 @@ against the JAX package's cd_pallas, float64 on the CPU at 36x24x6.
 - Dry mass is conserved; the wrappers' checks refuse what the kernels
   cannot take; the default HS step runs the fused path.
 - csrc/cd_fused_kernels.cu built as host C++ (stub CUDA qualifiers, each
-  launch a loop over blocks of one thread) against the plain versions:
-  float64 within 1e-12 and float32 within 1e-5 of each output's max.
+  launch its blocks in turn, a block's threads as std::threads sharing
+  its shared memory and meeting at __syncthreads()) against the plain
+  versions: float64 within 1e-12 and float32 within 1e-5 of each
+  output's max.
 - On a card (marked `cuda`), each kernel against its plain version.
 """
 
@@ -276,29 +278,71 @@ def test_wrappers_refuse_what_the_kernels_cannot_take():
         ck.k2(*d[:7], (d[7][0][:-1],) + tuple(d[7][1:]), *d[8:])
 
 
-# csrc/cd_fused_kernels.cu as host C++: stub CUDA qualifiers, each launch a
-# loop over its blocks with one thread a block.
+# csrc/cd_fused_kernels.cu (with the headers it includes) as host C++: stub
+# CUDA qualifiers; each launch runs its blocks one after another, each
+# block's blockDim threads as std::threads that share the block's
+# __shared__ (static) data and meet at __syncthreads() (a std::barrier);
+# cp.async copies are plain copies (the sources' host branch).
 _HOST_STUBS = """
 #pragma once
+#include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <thread>
+#include <vector>
 using std::pow; using std::log; using std::fabs; using std::trunc;
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __restrict__
 #define __shared__ static
-inline void __syncthreads() {}
+#define __align__(n) __attribute__((aligned(n)))
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-struct HostDim { unsigned x = 0, y = 0, z = 0; };
-static HostDim blockIdx, threadIdx, blockDim{1, 1, 1}, gridDim{1, 1, 1};
+struct dim3 {
+  unsigned x, y, z;
+  constexpr dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1)
+      : x(a), y(b), z(c) {}
+};
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 blockDim, gridDim;
+inline std::barrier<>* cam_block_barrier = nullptr;
+inline void __syncthreads() { cam_block_barrier->arrive_and_wait(); }
+inline long cam_host_launch_count = 0;
+extern "C" long cam_host_launches() { return cam_host_launch_count; }
+template <typename F>
+void cam_host_launch(F body, dim3 grid, dim3 block, size_t = 0,
+                     cudaStream_t = nullptr) {
+  ++cam_host_launch_count;
+  gridDim = grid;
+  blockDim = block;
+  const unsigned nt = block.x * block.y * block.z;
+  std::barrier<> bar(nt);
+  cam_block_barrier = &bar;
+  std::vector<std::thread> threads;
+  for (unsigned t = 0; t < nt; ++t)
+    threads.emplace_back([&, t] {
+      threadIdx = dim3(t % block.x, t / block.x % block.y,
+                       t / (block.x * block.y));
+      for (unsigned z = 0; z < grid.z; ++z)
+        for (unsigned y = 0; y < grid.y; ++y)
+          for (unsigned x = 0; x < grid.x; ++x) {
+            blockIdx = dim3(x, y, z);
+            body();
+            bar.arrive_and_wait();   // the block's shared data is free
+          }
+    });
+  for (auto& th : threads) th.join();
+}
 """
 
-_LAUNCH = re.compile(r"(\w+<T>)<<<(.*?), .*?>>>\((.*?)\);", re.S)
+_LAUNCH = re.compile(r"(\w+<T>)<<<(.*?)>>>\((.*?)\);", re.S)
+# launch sites: K1-K3 two each, K4 four, the DFT filter two
+_N_LAUNCHES = 12
 
 
 @pytest.fixture(scope="module")
@@ -311,20 +355,21 @@ def host_lib(tmp_path_factory):
     if cxx is None:
         pytest.skip("no host C++ compiler")
     tmp = tmp_path_factory.mktemp("cd_fused_host")
-    src = (cuda_build.CSRC / "cd_fused_kernels.cu").read_text()
-    src, n = _LAUNCH.subn(
-        r"{ gridDim.x = \2; for (unsigned b_ = 0; b_ < gridDim.x; ++b_) "
-        r"{ blockIdx.x = b_; \1(\3); } }", src)
-    assert n == 8, n
+    n = 0
+    for name in cuda_build.SOURCES["cd_fused_kernels"]:
+        src, k = _LAUNCH.subn(r"cam_host_launch([&] { \1(\3); }, \2);",
+                              (cuda_build.CSRC / name).read_text())
+        (tmp / name).write_text(src)
+        n += k
+    assert n == _N_LAUNCHES, n
     (tmp / "cuda_runtime.h").write_text(_HOST_STUBS)
-    (tmp / "tp_core.cuh").write_text(
-        (cuda_build.CSRC / "tp_core.cuh").read_text())
-    (tmp / "cd_fused.cpp").write_text(src)
     lib = tmp / "libcd_fused_host.so"
-    subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC",
-                    "-shared", "-I", str(tmp), "-o", str(lib),
-                    str(tmp / "cd_fused.cpp")], check=True, timeout=300)
+    subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
+                    "-shared", "-pthread", "-I", str(tmp), "-o", str(lib),
+                    "-x", "c++", str(tmp / "cd_fused_kernels.cu")],
+                   check=True, timeout=300)
     dll = ctypes.CDLL(str(lib))
+    dll.cam_host_launches.restype = ctypes.c_long
     for stem, argtypes in cuda_build.SIGNATURES["cd_fused_kernels"]:
         for suf in ("f32", "f64"):
             fn = getattr(dll, f"{stem}_{suf}")
@@ -335,11 +380,13 @@ def host_lib(tmp_path_factory):
 def _host_run(dll, name, args, dtype):
     """The host build of kernel `name` (k1...k4) on the recorded wrapper
     arguments `args` cast to `dtype`, marshalled by the wrapper's own
-    launch function."""
+    launch function; returns its outputs and the launches it made."""
     suf = "f32" if dtype == torch.float32 else "f64"
     run = getattr(ck, f"_run_{name}")
-    return run(getattr(dll, f"cam_cd_{name}_{suf}"), None,
-               *[_cast(x, dtype) for x in args])
+    n0 = dll.cam_host_launches()
+    out = run(getattr(dll, f"cam_cd_{name}_{suf}"), None,
+              *[_cast(x, dtype) for x in args])
+    return out, dll.cam_host_launches() - n0
 
 
 def _cast(x, dtype, device="cpu"):
@@ -356,13 +403,16 @@ def test_cuda_source_arithmetic_on_the_host(name, host_lib):
     plain version on the inputs of a fused step (K4 also with the filter
     off, avg_sq KE and del4 damping): float64 within 1e-12, float32
     within 1e-5 of each output's max (glibc's powf/logf are not
-    PyTorch's, so float32 is not bitwise here)."""
+    PyTorch's, so float32 is not bitwise here); each call makes the
+    launches the wrapper counts for it (launches_per_call)."""
     for flags in (BASE, FLAG_SETS["avg_sq_div4"] | dict(dyn_filter=False)):
         rec = _k_calls(flags)
         for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
             args = [_cast(x, dtype) for x in rec[name]]
             want = getattr(tcf, f"{name}_ref")(*args)
-            got = _host_run(host_lib, name, rec[name], dtype)
+            got, launches = _host_run(host_lib, name, rec[name], dtype)
+            assert launches == ck.launches_per_call(
+                name, flags["dyn_filter"]), (name, launches)
             for i, (g, w) in enumerate(zip(got, want)):
                 assert torch.isfinite(g).all(), (name, i)
                 assert_close(g, w, tol, f"{name} {dtype} output {i}")
@@ -385,6 +435,6 @@ def test_cuda_kernel_matches_plain_version(name, dtype, tol):
     got = fn(*args)
     want = getattr(tcf, f"{name}_ref")(*args)
     torch.cuda.synchronize()
-    assert fn.launches == n0 + ck.LAUNCHES_PER_CALL
+    assert fn.launches == n0 + ck.launches_per_call(name)
     for i, (g, w) in enumerate(zip(got, want)):
         assert_close(g.cpu(), w.cpu(), tol, f"{name} output {i}")
