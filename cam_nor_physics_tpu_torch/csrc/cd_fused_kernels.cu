@@ -17,44 +17,44 @@
 // Design. The TPU kernels run the levels as a sequential grid and carry
 // pe, pe^kappa, ln pe (K1, K3) or the interface geopotential (K2, K4) from
 // one level to the next in VMEM scratch. Here the carry is a column pass,
-// one thread per (j, i) looping over k with the carry in registers. K1-K3
-// are two launches each: a level kernel, one thread block per level
-// walking its (jm, im) slab in phases separated by __syncthreads() (as the
-// stencil kernels do, with the transport phases shared through
-// tp_core.cuh), and the column pass. K1 and K3 run the level kernel first
-// and the downward pass over its thickness and pt after it; K2 and K4 run
-// the upward pass first, over the dgz of K1/K3. K4 then spreads its level
-// work over all SMs: three row kernels, one block per (row, level), whose
-// launch boundaries are the phase boundaries, and with the filter on the
-// two tiled DFT products of dft_filter.cuh over all km*jm level rows (6
-// launches a call; 4 with the filter off). Intermediate slabs (Courants,
-// advective operators, energy, corner fields, damping, the increments to
+// one thread per (j, i) looping over k with the carry in registers. K1 and
+// K3 run it last (the downward pass over their thickness and pt), K2 and
+// K4 first (the upward pass over the dgz of K1/K3). K1 is two launches: a
+// level kernel, one thread block per level walking its (jm, im) slab in
+// phases separated by __syncthreads() (with tp_core.cuh's
+// transport_level), and the column pass. K2, K3 and K4 spread their level
+// work over all SMs: row kernels, one block per (row, level), whose
+// launch boundaries are the phase boundaries (K3 through tp_core.cuh's
+// row form of transport_level). Intermediate slabs (Courants, advective
+// operators, fluxes, energy, corner fields, damping, the increments to
 // filter) live in a scratch tensor the wrapper allocates; each level's
-// are a few hundred KB and are read back from L2.
+// are a few hundred KB and are read back from L2. Launches a call: K1 2,
+// K2 5 (2 with the filter off), K3 5, K4 6 (4 with the filter off).
 //
 // The polar filter is the TPU kernel's two-sided real DFT, written out:
-// per level and row, nf = im/2+1 forward sums over i of a[i]*cos and
-// a[i]*sin, times the row's response, then per point the inverse sums
-// over m, each sum one product and one addition per term in index order.
-// K2 filters duc with the center response and dvc with the edge response
-// inside its level kernel (dft_forward, dft_inverse); K4 du with the edge
-// response and dv with the center response through dft_filter.cuh.
+// per level row, nf = im/2+1 forward sums over i of a[i]*cos and a[i]*sin,
+// times the row's response, then per point the inverse sums over m, each
+// sum one product and one addition per term in index order. K2 and K4 run
+// it as the two tiled products of dft_filter.cuh over all km*jm level
+// rows: K2 filters duc with the center response and dvc with the edge
+// response, K4 du with the edge response and dv with the center response.
 //
 // Numerics. The plain versions are written in the order these kernels
 // evaluate; row factors come in one (kNumRows, jm) table from the wrapper
 // (cd_fused._metric_rows), so no point divides by a host scalar; the
 // library compiles with --fmad=false; pow and log are CUDA's, as PyTorch's
-// elementwise kernels call them; the polar-cap sums accumulate in double.
+// elementwise kernels call them; the polar-cap sums accumulate in double,
+// one thread a sum, in index order.
 // The carries start from ptop, ptop^kappa and ln ptop computed in double
 // on the host.
 //
 // Bound. Per call each K reads and writes a few (km, jm, im) slabs: 4 to
 // 10 slabs of 1.4 MB at f19 in float32, a few microseconds at 3.35 TB/s.
 // The DFT sums of K2 and K4 are 8 * jm * nf * im operations per level and
-// filtered field (about 16 MFLOP per level at f19), 0.4 GFLOP per call.
-// K1-K3 are latency-bound: one block per level keeps km of the 132 SMs
-// busy in their level kernels. K4's row kernels run km*jm blocks, and its
-// DFT products are bound by the FP32 lanes (dft_filter.cuh).
+// filtered field (about 16 MFLOP per level at f19), 0.4 GFLOP per call,
+// bound by the FP32 lanes (dft_filter.cuh). K1 is latency-bound: one
+// block per level keeps km of the 132 SMs busy; the row kernels run
+// km*jm blocks.
 #include "dft_filter.cuh"
 #include "tp_core.cuh"
 
@@ -141,37 +141,6 @@ __device__ void ffsl_flags(const T* crx, int jm, int im, uint8_t* fl) {
   }
 }
 
-// forward real-DFT sums of a (jm, im) slab times the response: sr, si
-// (jm, nf)
-template <typename T>
-__device__ void dft_forward(const T* a, const T* fc, const T* fs,
-                            const T* resp, int jm, int im, int nf, T* sr,
-                            T* si) {
-  for (int idx = threadIdx.x; idx < jm * nf; idx += blockDim.x) {
-    const int j = idx / nf, m = idx - j * nf;
-    const T* r = a + j * im;
-    T s = T(0), t = T(0);
-    for (int i = 0; i < im; ++i) {
-      s = s + r[i] * fc[i * nf + m];
-      t = t + r[i] * fs[i * nf + m];
-    }
-    sr[idx] = s * resp[idx];
-    si[idx] = t * resp[idx];
-  }
-}
-
-// inverse real-DFT sums at (j, i)
-template <typename T>
-__device__ T dft_inverse(const T* sr, const T* si, const T* gc, const T* gs,
-                         int j, int i, int im, int nf) {
-  T c = T(0), s = T(0);
-  for (int m = 0; m < nf; ++m) {
-    c = c + sr[j * nf + m] * gc[m * im + i];
-    s = s + si[j * nf + m] * gs[m * im + i];
-  }
-  return c + s;
-}
-
 // a center field averaged to the SW corner of (j, i); row 0 is zero
 template <typename T, typename F>
 __device__ T corner(F a, int j, int i) {
@@ -236,132 +205,205 @@ k1_level_kernel(const T* __restrict__ u, const T* __restrict__ v,
   }
 }
 
-// ------------------------------------------------------------ K2
+// ------------------------------------------------------------ row kernels
+//
+// K2, K3 and K4 run their level work over all SMs: one block of
+// kRowThreads threads per (row, level), the threads over i, each kernel a
+// phase of the TPU kernel's level program. A phase that reads another
+// row's result of an earlier phase starts a new launch; the intermediates
+// stay in the level scratch slabs.
 
+constexpr int kRowThreads = 64;    // row kernels (a power of two)
+
+// ------------------------------------------------------------ K2
+//
+// After the upward pass, k2_kick_kernel computes the C-grid PGF and the
+// Coriolis kick of each point. With the filter off it finishes the point
+// (uc, crx, cry): 2 launches a call. With the filter on it stores the
+// kicks duc and dvc; the two DFT products of dft_filter.cuh filter them
+// over all km*jm level rows (duc on the center response, dvc on the edge
+// response, the opposite of K4) and add them to uc0 and vc0; and
+// k2_courant_kernel takes the Courants of uc and vc: 5 launches a call.
+
+// the D-grid Courants of the point (j, i) at p from its new winds
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-k2_level_kernel(const T* __restrict__ pt_h, const T* __restrict__ pkz_h,
-                const T* __restrict__ uc0, const T* __restrict__ vc0,
-                const T* __restrict__ M, const T* __restrict__ fcm,
-                const T* __restrict__ fsm, const T* __restrict__ gcm,
-                const T* __restrict__ gsm, const T* __restrict__ rspc,
-                const T* __restrict__ rspe, double dt, double dt5, Consts cs,
-                int filter, int jm, int im, int nf, T* __restrict__ uc_out,
-                T* __restrict__ crx_out, T* __restrict__ cry_out,
-                T* __restrict__ scratch, T* __restrict__ spec) {
-  const int k = blockIdx.x, km = gridDim.x;
+__device__ __forceinline__ void k2_courants(T uc, T vc, const T* M, double dt,
+                                            int j, int jm, size_t p,
+                                            T* crx, T* cry) {
+  crx[p] = (j == 0 || j == jm - 1) ? T(0) : uc * T(dt) / M[kDxp * jm + j];
+  cry[p] = j == 0 ? T(0) : vc * T(dt) / M[kDy * jm + j];
+}
+
+// the kicks duc, dvc of row j. The energy en = phi + cp pt pkz at (j, i),
+// (j, i-1) and (j-1, i) is recomputed where it is read, not stored by a
+// launch of its own: measured on the H100 (tools/k2_energy_ab.py), the
+// stored form made a K2 call 3-6% slower at f19, f09 and f05
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+k2_kick_kernel(const T* __restrict__ pt_h, const T* __restrict__ pkz_h,
+               const T* __restrict__ uc0, const T* __restrict__ vc0,
+               const T* __restrict__ M, double dt, double dt5, Consts cs,
+               int filter, int jm, int im, T* __restrict__ uc_out,
+               T* __restrict__ crx_out, T* __restrict__ cry_out,
+               T* __restrict__ scratch) {
+  const int j = blockIdx.x, k = blockIdx.y, km = gridDim.y;
   const int n = jm * im;
   const size_t off = (size_t)k * n;
   auto S = [&](int s) { return scratch + ((size_t)s * km + k) * n; };
-  const T* phi = S(0);
-  T *en = S(1), *duc = S(2), *dvc = S(3);
-  T* sp = spec + (size_t)k * 4 * jm * nf;
+  T *duc = S(1), *dvc = S(2);
   const T cp = T(cs.cpair);
-  const Slab<T> P{pt_h + off, jm, im}, Z{pkz_h + off, jm, im},
-      U{uc0 + off, jm, im}, V{vc0 + off, jm, im};
-
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x)
-    en[idx] = phi[idx] + cp * pt_h[off + idx] * pkz_h[off + idx];
-  __syncthreads();
-  const Slab<T> E{en, jm, im};
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int j = idx / im, i = idx - j * im;
-    const T dxp = M[kDxp * jm + j], dy = M[kDy * jm + j];
+  const Slab<T> PHI{S(0), jm, im}, P{pt_h + off, jm, im},
+      Z{pkz_h + off, jm, im}, U{uc0 + off, jm, im}, V{vc0 + off, jm, im};
+  auto E = [&](int jj, int ii) {
+    return PHI(jj, ii) + cp * P(jj, ii) * Z(jj, ii);
+  };
+  const T dxp = M[kDxp * jm + j], dy = M[kDy * jm + j];
+  for (int i = threadIdx.x; i < im; i += blockDim.x) {
+    const int idx = j * im + i;
+    const T e = E(j, i);
     T pgf_u = T(0), pgf_v = T(0);
     if (j != 0 && j != jm - 1) {
-      const T dx_en = (E(j, i) - E(j, i - 1)) / dxp;
+      const T dx_en = (e - E(j, i - 1)) / dxp;
       const T dx_th = (P(j, i) - P(j, i - 1)) / dxp;
       const T pi_u = T(0.5) * (Z(j, i) + Z(j, i - 1));
       pgf_u = -(dx_en - cp * pi_u * dx_th);
     }
     if (j != 0) {
-      const T dy_en = (E(j, i) - E(j - 1, i)) / dy;
+      const T dy_en = (e - E(j - 1, i)) / dy;
       const T dy_th = (P(j, i) - P(j - 1, i)) / dy;
       const T pi_v = T(0.5) * (Z(j, i) + Z(j - 1, i));
       pgf_v = -(dy_en - cp * pi_v * dy_th);
     }
     // vc at uc points and uc at vc points
-    auto vcc = [&](int jj, int ii) {
-      return T(0.5) * (V(jj, ii) + (jj == jm - 1 ? T(0) : V(jj + 1, ii)));
+    auto vcc = [&](int ii) {
+      return T(0.5) * (V(j, ii) + (j == jm - 1 ? T(0) : V(j + 1, ii)));
     };
-    const T vcu = T(0.5) * (vcc(j, i) + vcc(j, i - 1));
+    const T vcu = T(0.5) * (vcc(i) + vcc(i - 1));
     const T ucv = j == 0 ? T(0) : T(0.5) * (U(j, i) + U(j - 1, i));
-    duc[idx] = T(dt5) * (M[kF0 * jm + j] * vcu + pgf_u);
-    dvc[idx] = T(dt5) * (-M[kFc * jm + j] * ucv + pgf_v);
-  }
-  __syncthreads();
-  if (filter) {
-    dft_forward(duc, fcm, fsm, rspc, jm, im, nf, sp, sp + jm * nf);
-    dft_forward(dvc, fcm, fsm, rspe, jm, im, nf, sp + 2 * jm * nf,
-                sp + 3 * jm * nf);
-    __syncthreads();
-  }
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int j = idx / im, i = idx - j * im;
-    T du = duc[idx], dv = dvc[idx];
+    const T du = T(dt5) * (M[kF0 * jm + j] * vcu + pgf_u);
+    const T dv = T(dt5) * (-M[kFc * jm + j] * ucv + pgf_v);
     if (filter) {
-      du = dft_inverse(sp, sp + jm * nf, gcm, gsm, j, i, im, nf);
-      dv = dft_inverse(sp + 2 * jm * nf, sp + 3 * jm * nf, gcm, gsm, j, i,
-                       im, nf);
+      duc[idx] = du;
+      dvc[idx] = dv;
+    } else {
+      const T uc = U(j, i) + du;
+      uc_out[off + idx] = uc;
+      k2_courants(uc, V(j, i) + dv, M, dt, j, jm, off + idx, crx_out,
+                  cry_out);
     }
-    const T uc = uc0[off + idx] + du;
-    const T vc = vc0[off + idx] + dv;
-    uc_out[off + idx] = uc;
-    crx_out[off + idx] =
-        (j == 0 || j == jm - 1) ? T(0) : uc * T(dt) / M[kDxp * jm + j];
-    cry_out[off + idx] = j == 0 ? T(0) : vc * T(dt) / M[kDy * jm + j];
   }
 }
 
-// ------------------------------------------------------------ K3
-
+// the Courants of row j from the filtered uc and vc
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-k3_level_kernel(const T* __restrict__ delp, const T* __restrict__ pt,
+__global__ void __launch_bounds__(kRowThreads)
+k2_courant_kernel(const T* __restrict__ uc, const T* __restrict__ vc,
+                  const T* __restrict__ M, double dt, int jm, int im,
+                  T* __restrict__ crx, T* __restrict__ cry) {
+  const int j = blockIdx.x, k = blockIdx.y;
+  const size_t r = ((size_t)k * jm + j) * im;
+  for (int i = threadIdx.x; i < im; i += blockDim.x)
+    k2_courants(uc[r + i], vc[r + i], M, dt, j, jm, r + i, crx, cry);
+}
+
+// ------------------------------------------------------------ K3
+//
+// The D-grid transport in tp_core.cuh's row form, one row kernel a phase
+// of transport_level, then the downward pressure pass: 5 launches a call.
+
+// phase 1: yfx, va, the row's FFSL flag (stored per (level, row) for the
+// later phases), adx/ady of h and q
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+k3_inner_kernel(const T* __restrict__ delp, const T* __restrict__ pt,
                 const T* __restrict__ crx, const T* __restrict__ cry,
-                const T* __restrict__ M, double rcap, int iord, int jord,
-                int band, int K, int jm, int im, T* __restrict__ delp_new,
-                T* __restrict__ pt_new, T* __restrict__ mfx,
-                T* __restrict__ mfy, T* __restrict__ scratch,
-                uint8_t* __restrict__ flags) {
-  const int k = blockIdx.x, km = gridDim.x;
+                const T* __restrict__ M, int band, int K, int jm, int im,
+                T* __restrict__ scratch, uint8_t* __restrict__ flags) {
+  const int j = blockIdx.x, k = blockIdx.y, km = gridDim.y;
   const int n = jm * im;
   const size_t off = (size_t)k * n;
   auto S = [&](int s) { return scratch + ((size_t)s * km + k) * n; };
-  T *yfx = S(0), *va = S(1), *ddp = S(6), *dpt = S(7);
-  uint8_t* fl = flags + (size_t)k * jm;
+  T *yfx = S(0), *va = S(1);
   const T *cx = crx + off, *cy = cry + off;
-  const T* cose = M + kCose * jm;
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int j = idx / im;
-    yfx[idx] = cy[idx] * cose[j];
+  for (int i = threadIdx.x; i < im; i += blockDim.x) {
+    const int idx = j * im + i;
+    yfx[idx] = cy[idx] * M[kCose * jm + j];
     va[idx] = T(0.5) * (cy[idx] + (j == jm - 1 ? T(0) : cy[idx + im]));
   }
-  ffsl_flags(cx, jm, im, fl);
-  __syncthreads();
-  transport_level(delp + off, pt + off, cx, cy, yfx, va, fl, M + kCosp * jm,
-                  M + kAcosp * jm, rcap, iord, jord, band, K, jm, im, ddp,
-                  dpt, mfx + off, mfy + off, S(2), S(3), S(4), S(5));
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+  // (the reduction's __syncthreads() also orders va before ady reads it)
+  const bool flag = row_ffsl_flag<T, kRowThreads>(cx + (size_t)j * im, im);
+  if (threadIdx.x == 0) flags[(size_t)k * jm + j] = flag ? 1 : 0;
+  tp_row_inner(delp + off, pt + off, cx, va, ffsl_in_band(flag, j, jm, band),
+               M[kCosp * jm + j], K, j, jm, im, S(2), S(3), S(4), S(5));
+}
+
+// phase 2: tp2c's mass fluxes mfy, mfx (K3 outputs)
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+k3_mass_kernel(const T* __restrict__ crx, const T* __restrict__ cry,
+               const T* __restrict__ M, int iord, int jord, int band, int K,
+               int jm, int im, T* __restrict__ mfx, T* __restrict__ mfy,
+               T* __restrict__ scratch, const uint8_t* __restrict__ flags) {
+  const int j = blockIdx.x, k = blockIdx.y, km = gridDim.y;
+  const int n = jm * im;
+  const size_t off = (size_t)k * n;
+  auto S = [&](int s) { return scratch + ((size_t)s * km + k) * n; };
+  tp_row_mass_fluxes(S(2), S(3), crx + off, cry + off, S(0),
+                     ffsl_row(flags + (size_t)k * jm, j, jm, band),
+                     M[kCosp * jm + j], iord, jord, K, j, jm, im, mfx + off,
+                     mfy + off);
+}
+
+// phase 3: the thickness tendency dh and q's fluxes
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+k3_q_flux_kernel(const T* __restrict__ crx, const T* __restrict__ cry,
+                 const T* __restrict__ mfx, const T* __restrict__ mfy,
+                 const T* __restrict__ M, double rcap, int iord, int jord,
+                 int band, int K, int jm, int im, T* __restrict__ scratch,
+                 const uint8_t* __restrict__ flags) {
+  const int j = blockIdx.x, k = blockIdx.y, km = gridDim.y;
+  const int n = jm * im;
+  const size_t off = (size_t)k * n;
+  auto S = [&](int s) { return scratch + ((size_t)s * km + k) * n; };
+  const T cap = row_cap(mfy + off, j, jm, im, rcap);
+  tp_row_q_fluxes(S(4), S(5), crx + off, cry + off, mfx + off, mfy + off,
+                  ffsl_row(flags + (size_t)k * jm, j, jm, band),
+                  M[kCosp * jm + j], M[kAcosp * jm + j], cap, iord, jord, K,
+                  j, jm, im, S(6), S(7), S(8));
+}
+
+// phase 4: dq, the thickness floor and pt
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+k3_finish_kernel(const T* __restrict__ delp, const T* __restrict__ pt,
+                 const T* __restrict__ M, double rcap, int jm, int im,
+                 T* __restrict__ delp_new, T* __restrict__ pt_new,
+                 T* __restrict__ scratch) {
+  const int j = blockIdx.x, k = blockIdx.y, km = gridDim.y;
+  const int n = jm * im;
+  const size_t off = (size_t)k * n;
+  auto S = [&](int s) { return scratch + ((size_t)s * km + k) * n; };
+  const T *ddp = S(6), *fy = S(7), *fx = S(8);
+  const T cap = row_cap(fy, j, jm, im, rcap);
+  const T acosa = M[kAcosp * jm + j];
+  for (int i = threadIdx.x; i < im; i += blockDim.x) {
+    const int idx = j * im + i;
+    const T dq = div_point(fx, fy, j, i, jm, im, acosa, cap, cap);
     const T d = delp[off + idx];
     const T dn = tmax(d + ddp[idx], T(0.05) * d);
     delp_new[off + idx] = dn;
-    pt_new[off + idx] = (pt[off + idx] * d + dpt[idx]) / dn;
+    pt_new[off + idx] = (pt[off + idx] * d + dq) / dn;
   }
 }
 
 // ------------------------------------------------------------ K4
 //
-// K4 runs over all SMs: after the upward pass, three row kernels, one
-// block of kRowThreads threads per (row, level), each a phase of the
-// TPU kernel's level program (the phase boundaries are launch
-// boundaries, the intermediates stay in the level scratch slabs), then,
-// with the filter on, the two tiled DFT products of dft_filter.cuh over
-// all level rows of du and dv.
+// After the upward pass, three row kernels, then, with the filter on, the
+// two tiled DFT products of dft_filter.cuh over all level rows of du and
+// dv: 6 launches a call, 4 with the filter off.
 
 enum KeMethod { kKeCentered = 0, kKeAvgSq = 1, kKeUpwind = 2 };
-
-constexpr int kRowThreads = 64;    // K4's row kernels (a power of two)
 
 // phase 1: the row's FFSL flag, the polar-cap means (rows 0 and jm-1),
 // and at each point the absolute vorticity, the energy, the advecting
@@ -381,7 +423,6 @@ k4_vort_kernel(const T* __restrict__ u, const T* __restrict__ v,
   const T* phi = S(0);
   T *zeta = S(1), *en = S(2), *udt = S(3), *vedt = S(4), *div = S(5);
   __shared__ T cap;
-  __shared__ T red[kRowThreads];
   const T cp = T(cs.cpair), tdt = T(dt), tdl = T(cs.dl), tdp = T(cs.dp),
           tre = T(cs.rearth);
   const T* cose = M + kCose * jm;
@@ -401,18 +442,9 @@ k4_vort_kernel(const T* __restrict__ u, const T* __restrict__ v,
   };
   if (threadIdx.x == 0 && j == 0) cap = (T)(-cap_sum(1) * rcirc);
   if (threadIdx.x == 0 && j == jm - 1) cap = (T)(cap_sum(jm - 1) * rcirc);
-  // the row's FFSL flag: some |crx| above 1 (a max: exact in any order)
-  T mx = T(0);
-  for (int i = threadIdx.x; i < im; i += blockDim.x)
-    mx = tmax(mx, (T)fabs(cx[i]));
-  red[threadIdx.x] = mx;
-  __syncthreads();
-  for (int h = blockDim.x / 2; h > 0; h >>= 1) {
-    if ((int)threadIdx.x < h)
-      red[threadIdx.x] = tmax(red[threadIdx.x], red[threadIdx.x + h]);
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) flags[(size_t)k * jm + j] = red[0] > T(1) ? 1 : 0;
+  // the row's FFSL flag (its __syncthreads() also publishes cap)
+  const bool flag = row_ffsl_flag<T, kRowThreads>(cx, im);
+  if (threadIdx.x == 0) flags[(size_t)k * jm + j] = flag ? 1 : 0;
 
   auto a_of_v = [&](int jj, int ii) {
     return T(0.5) * (V(jj, ii) + V(jj, ii + 1));
@@ -597,13 +629,30 @@ int launch_k2(const T* pt_h, const T* pkz_h, const T* dgz_h, const T* uc0,
               const T* rspe, double dt, double dt5, Consts cs, int filter,
               int km, int jm, int im, T* uc, T* crx, T* cry, T* scratch,
               T* spec, void* stream) {
-  const int n = jm * im, nf = im / 2 + 1;
-  const int nb = col_blocks(n);
-  up_geopotential_kernel<T><<<nb, kColThreads, 0, (cudaStream_t)stream>>>(
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int n = jm * im;
+  const dim3 rows(jm, km);
+  up_geopotential_kernel<T><<<col_blocks(n), kColThreads, 0, st>>>(
       dgz_h, phis, km, n, scratch);
-  k2_level_kernel<T><<<km, kThreads, 0, (cudaStream_t)stream>>>(
-      pt_h, pkz_h, uc0, vc0, M, fcm, fsm, gcm, gsm, rspc, rspe, dt, dt5, cs,
-      filter, jm, im, nf, uc, crx, cry, scratch, spec);
+  k2_kick_kernel<T><<<rows, kRowThreads, 0, st>>>(
+      pt_h, pkz_h, uc0, vc0, M, dt, dt5, cs, filter, jm, im, uc, crx, cry,
+      scratch);
+  if (filter) {
+    // duc (center response) and dvc (edge response) of every level row;
+    // the inverse adds them to uc0 (into uc) and vc0 (into slab 3)
+    const int rows_all = km * jm;
+    const size_t ns = (size_t)rows_all * dftf::spectrum_stride(im / 2 + 1);
+    const T *duc = scratch + (size_t)km * n,
+            *dvc = scratch + (size_t)2 * km * n;
+    T* vc = scratch + (size_t)3 * km * n;
+    dftf::launch_dft_filter<T>({duc, rspc, spec, spec + ns},
+                               {dvc, rspe, spec + 2 * ns, spec + 3 * ns},
+                               {spec, spec + ns, uc0, uc},
+                               {spec + 2 * ns, spec + 3 * ns, vc0, vc}, fcm,
+                               fsm, gcm, gsm, rows_all, jm, im, st);
+    k2_courant_kernel<T><<<rows, kRowThreads, 0, st>>>(uc, vc, M, dt, jm, im,
+                                                       crx, cry);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -613,12 +662,19 @@ int launch_k3(const T* delp, const T* pt, const T* crx, const T* cry,
               Consts cs, int iord, int jord, int band, int K, int km, int jm,
               int im, T* delp_new, T* pt_new, T* mfx, T* mfy, T* pkz, T* dgz,
               T* scratch, uint8_t* flags, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
   const int n = jm * im;
-  k3_level_kernel<T><<<km, kThreads, 0, (cudaStream_t)stream>>>(
-      delp, pt, crx, cry, M, rcap, iord, jord, band, K, jm, im, delp_new,
-      pt_new, mfx, mfy, scratch, flags);
-  const int nb = col_blocks(n);
-  down_thermo_kernel<T><<<nb, kColThreads, 0, (cudaStream_t)stream>>>(
+  const dim3 rows(jm, km);
+  k3_inner_kernel<T><<<rows, kRowThreads, 0, st>>>(
+      delp, pt, crx, cry, M, band, K, jm, im, scratch, flags);
+  k3_mass_kernel<T><<<rows, kRowThreads, 0, st>>>(
+      crx, cry, M, iord, jord, band, K, jm, im, mfx, mfy, scratch, flags);
+  k3_q_flux_kernel<T><<<rows, kRowThreads, 0, st>>>(
+      crx, cry, mfx, mfy, M, rcap, iord, jord, band, K, jm, im, scratch,
+      flags);
+  k3_finish_kernel<T><<<rows, kRowThreads, 0, st>>>(
+      delp, pt, M, rcap, jm, im, delp_new, pt_new, scratch);
+  down_thermo_kernel<T><<<col_blocks(n), kColThreads, 0, st>>>(
       delp_new, pt_new, ptop, pk0, pl0, cs, km, n, pkz, dgz);
   return (int)cudaGetLastError();
 }

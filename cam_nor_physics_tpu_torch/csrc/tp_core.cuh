@@ -263,21 +263,29 @@ __device__ T div_point(const T* fx, const T* fy, int j, int i, int jm, int im,
 
 // sum of one row (one thread), accumulated in double: for float rows the
 // result does not depend on the order, so it matches the plain version's
-// torch.sum of the same row in float64
+// torch.sum of the same row in float64. In index order; unrolled so that
+// the loads run ahead of the dependent sum
 template <typename T>
 __device__ double row_sum(const T* r, int im) {
   double s = 0.0;
+#pragma unroll 16
   for (int i = 0; i < im; ++i) s = s + (double)r[i];
   return s;
 }
 
-// whether row j takes the FFSL branch: its flag, and with band >= 0 only
-// `band` rows at each pole (ffsl_band in ops/tp_core.py)
-__device__ __forceinline__ bool ffsl_row(const uint8_t* ffsl, int j, int jm,
-                                         int band) {
-  if (!ffsl[j]) return false;
+// whether a row j whose FFSL flag is `flag` takes the FFSL branch: with
+// band >= 0 only `band` rows at each pole (ffsl_band in ops/tp_core.py)
+__device__ __forceinline__ bool ffsl_in_band(bool flag, int j, int jm,
+                                             int band) {
+  if (!flag) return false;
   if (band < 0 || 2 * band >= jm) return true;
   return j < band || j >= jm - band;
+}
+
+// whether row j takes the FFSL branch, from the per-row flags
+__device__ __forceinline__ bool ffsl_row(const uint8_t* ffsl, int j, int jm,
+                                         int band) {
+  return ffsl_in_band(ffsl[j] != 0, j, jm, band);
 }
 
 // the thread that takes the second of two single-thread jobs: another warp
@@ -341,6 +349,108 @@ __device__ void transport_level(const T* h, const T* q, const T* cx,
     dq[idx] = div_point(s1, s0, j, i, jm, im, acosp[j], caps[0], caps[1]);
   }
   __syncthreads();
+}
+
+// ---------------------------------------------------------------- row form
+//
+// transport_level's phases for ONE row j of a level, by one thread block
+// of a (row, level) grid, the threads over i. Each phase reads other rows
+// only of what an earlier phase wrote, so the phase boundaries are the
+// caller's launch boundaries:
+//   1. row_ffsl_flag over the row's Courants; tp_row_inner: adx/ady of h
+//      and q into s0..s3;
+//   2. tp_row_mass_fluxes: tp2c's mass fluxes mfy (from rows j-3..j+1 of
+//      s0) and mfx;
+//   3. row_cap of mfy, then tp_row_q_fluxes: dh (the caps at the pole
+//      rows) and q's fluxes fy (from rows j-3..j+1 of s2) and fx;
+//   4. row_cap of fy, then dq = div_point(fx, fy, ...) at each point.
+// The points evaluate the same functions as transport_level, so the two
+// forms agree bitwise.
+
+// the FFSL flag of a row of im Courants c: some |c| above 1 (a max, exact
+// in any order), by a shared-memory reduction over the block's N threads
+// (a power of two). Every thread of the block calls it and gets the flag.
+template <typename T, int N>
+__device__ bool row_ffsl_flag(const T* c, int im) {
+  __shared__ T red[N];
+  T mx = T(0);
+  for (int i = threadIdx.x; i < im; i += blockDim.x)
+    mx = tmax(mx, (T)fabs(c[i]));
+  red[threadIdx.x] = mx;
+  __syncthreads();
+  for (int h = N / 2; h > 0; h >>= 1) {
+    if ((int)threadIdx.x < h)
+      red[threadIdx.x] = tmax(red[threadIdx.x], red[threadIdx.x + h]);
+    __syncthreads();
+  }
+  return red[0] > T(1);
+}
+
+// the polar cap of row j from the slab's y-fluxes fy: -sum(fy row 1) on
+// row 0, +sum(fy row jm-1) on row jm-1, times rcap (one thread's row_sum);
+// 0 on other rows. Every thread of the block calls it (once a kernel: it
+// synchronises) and gets the cap.
+template <typename T>
+__device__ T row_cap(const T* fy, int j, int jm, int im, double rcap) {
+  __shared__ T cap;
+  if (threadIdx.x == 0) {
+    if (j == 0) {
+      cap = (T)(-row_sum(fy + im, im) * rcap);
+    } else if (j == jm - 1) {
+      cap = (T)(row_sum(fy + (jm - 1) * im, im) * rcap);
+    } else {
+      cap = T(0);
+    }
+  }
+  __syncthreads();
+  return cap;
+}
+
+// phase 1 at row j: s0 adx(h), s1 ady(h), s2 adx(q), s3 ady(q); f the
+// row's FFSL branch, cosa its cosine
+template <typename T>
+__device__ void tp_row_inner(const T* h, const T* q, const T* cx,
+                             const T* va, bool f, T cosa, int K, int j,
+                             int jm, int im, T* s0, T* s1, T* s2, T* s3) {
+  for (int i = threadIdx.x; i < im; i += blockDim.x) {
+    const int idx = j * im + i;
+    s0[idx] = adx_point(h, cx, j, i, jm, im, cosa, f, K);
+    s1[idx] = ady_point(h, va, j, i, jm, im);
+    s2[idx] = adx_point(q, cx, j, i, jm, im, cosa, f, K);
+    s3[idx] = ady_point(q, va, j, i, jm, im);
+  }
+}
+
+// phase 2 at row j: tp2c's mass fluxes of h (id = 0: the Courant number
+// is the flux)
+template <typename T>
+__device__ void tp_row_mass_fluxes(const T* s0, const T* s1, const T* cx,
+                                   const T* cy, const T* yf, bool f, T cosa,
+                                   int iord, int jord, int K, int j, int jm,
+                                   int im, T* mfx, T* mfy) {
+  const int r = j * im;
+  for (int i = threadIdx.x; i < im; i += blockDim.x) {
+    mfy[r + i] = ytp_point(s0, cy, yf, j, i, jm, im, jord);
+    mfx[r + i] = xtp_point(s1 + r, cx + r, cx + r, i, im, cosa, f, iord, 0,
+                           K);
+  }
+}
+
+// phase 3 at row j: dh (cap the row's row_cap of mfy), and q's fluxes fy
+// from s2 = adx(q) and fx from s3 = ady(q) with the mass fluxes (id = 1)
+template <typename T>
+__device__ void tp_row_q_fluxes(const T* s2, const T* s3, const T* cx,
+                                const T* cy, const T* mfx, const T* mfy,
+                                bool f, T cosa, T acosa, T cap, int iord,
+                                int jord, int K, int j, int jm, int im, T* dh,
+                                T* fy, T* fx) {
+  const int r = j * im;
+  for (int i = threadIdx.x; i < im; i += blockDim.x) {
+    dh[r + i] = div_point(mfx, mfy, j, i, jm, im, acosa, cap, cap);
+    fy[r + i] = ytp_point(s2, cy, mfy, j, i, jm, im, jord);
+    fx[r + i] = xtp_point(s3 + r, cx + r, mfx + r, i, im, cosa, f, iord, 1,
+                          K);
+  }
 }
 
 }  // namespace tpc

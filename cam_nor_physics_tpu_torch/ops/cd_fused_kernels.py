@@ -8,8 +8,10 @@ There is no fallback between the two: a kernel that does not build or
 launch raises. `_check` validates the inputs on either device.
 
 Each call adds its CUDA launches, `launches_per_call(name, dyn_filter)`,
-to `<wrapper>.launches`: K1-K3 a level kernel and a column pass that
-carries pressure or geopotential over k; K4 the upward pass, three row
+to `<wrapper>.launches`: K1 a level kernel and the downward pressure
+pass; K2 the upward geopotential pass and a row kernel, with the polar
+filter on also its two DFT products and a row kernel for the Courants;
+K3 four row kernels and the downward pass; K4 the upward pass, three row
 kernels and, with the polar filter on, its two DFT products. The
 transport kernels take iord/jord 1 and 4, the orders the dycore runs.
 """
@@ -27,12 +29,13 @@ from . import cuda_build
 from . import tp_core as tp
 from .stencil_kernels import KERNEL_ORDERS
 
-# CUDA launches a call of each K, (polar filter off, on): K4 adds the two
-# DFT products of csrc/dft_filter.cuh when it filters
-LAUNCHES_PER_CALL = {"k1": (2, 2), "k2": (2, 2), "k3": (2, 2), "k4": (4, 6)}
+# CUDA launches a call of each K, (polar filter off, on): K2 and K4 add
+# the two DFT products of csrc/dft_filter.cuh when they filter, K2 also
+# the Courants' row kernel
+LAUNCHES_PER_CALL = {"k1": (2, 2), "k2": (2, 5), "k3": (5, 5), "k4": (4, 6)}
 
-# scratch slabs of each level kernel (csrc/cd_fused_kernels.cu)
-_SCRATCH = {"k1": 13, "k2": 4, "k3": 8, "k4": 12}
+# scratch slabs of each K (csrc/cd_fused_kernels.cu)
+_SCRATCH = {"k1": 13, "k2": 4, "k3": 9, "k4": 12}
 
 
 def launches_per_call(name: str, dyn_filter: bool = True) -> int:
@@ -98,15 +101,18 @@ def _launch(name, fn, *args):
                            f"cudaError {rc}")
 
 
-def _scratch(name, ref, spec=None):
-    """The level kernels' scratch slabs, per-level row flags and, with
-    `spec`, the DFT spectra of that shape."""
+def _scratch(name, ref, spec=False):
+    """A K's scratch slabs, per-level row flags and, with `spec`, the DFT
+    spectra: sr, si of two fields over all km·jm level rows, each row nf
+    rounded up to whole 16-byte copies (dftf::spectrum_stride)."""
     km, jm, im = ref.shape
     out = [torch.empty((_SCRATCH[name], km, jm, im), dtype=ref.dtype,
                        device=ref.device),
            torch.empty((km, jm), dtype=torch.uint8, device=ref.device)]
-    if spec is not None:
-        out.append(torch.empty(spec, dtype=ref.dtype, device=ref.device))
+    if spec:
+        lds = (im // 2 + 1 + 3) // 4 * 4
+        out.append(torch.empty((4, km * jm, lds), dtype=ref.dtype,
+                               device=ref.device))
     return out
 
 
@@ -211,7 +217,7 @@ def _run_k2(fn, stream, pt_h, pkz_h, dgz_h, uc0, vc0, phis, metrics, dft,
             dt, dt5, dyn_filter):
     km, jm, im = pt_h.shape
     outs = [torch.empty_like(pt_h) for _ in range(3)]
-    scratch, _, spec = _scratch("k2", pt_h, (km, 4, jm, im // 2 + 1))
+    scratch, _, spec = _scratch("k2", pt_h, spec=True)
     _launch("k2", fn, pt_h, pkz_h, dgz_h, uc0, vc0, phis, metrics, *dft,
             float(dt), float(dt5), c.CPAIR, int(bool(dyn_filter)), km, jm,
             im, *outs, scratch, spec, stream)
@@ -234,10 +240,7 @@ def _run_k4(fn, stream, u, v, pt_new, pkz, dgz, phis, crx, cry, uc, metrics,
             del2_velocity, dyn_filter, rcirc, band):
     km, jm, im = u.shape
     outs = [torch.empty_like(u) for _ in range(2)]
-    # sr, si of du and of dv over all level rows, each row nf rounded up to
-    # whole 16-byte copies (dftf::spectrum_stride)
-    lds = (im // 2 + 1 + 3) // 4 * 4
-    scratch, flags, spec = _scratch("k4", u, (4, km * jm, lds))
+    scratch, flags, spec = _scratch("k4", u, spec=True)
     # dt·ν as the plain version's Python product
     dtdel2 = dt * del2_velocity if del2_velocity > 0.0 else 0.0
     _launch("k4", fn, u, v, pt_new, pkz, dgz, phis, crx, cry, uc, metrics,

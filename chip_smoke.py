@@ -19,27 +19,30 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
    the fused step's K1-K4 inputs (filter_impl="fft"), the pe sets of
    te_map; plus stress cases that force the FFSL branch near the poles
    (transport3d, vort_flux3d, tracer_div3d, K1, K3, K4) and K2/K4 with the
-   polar filter off, K4 with the avg_sq KE and del4 damping; float32
-   within 1e-5 and float64 within 1e-12 of each output's max magnitude;
+   polar filter off, K4 with the avg_sq KE and del4 damping, K3 at
+   order 1 with FFSL rows and a polar band; float32 within 1e-5 and
+   float64 within 1e-12 of each output's max magnitude, and K2 and K3
+   bitwise (max abs error 0);
 4. runs both HS paths, build_step(144, 96, 26, float32, "cuda",
    filter_impl=...) for 4 large steps (2 model hours) each, with the
    launch counts set to 0 just before and read just after: the unfused
    "matmul" step launches transport3d and vort_flux3d, the fused "fft"
    step (the default, the JAX package's) K1-K4, 4 calls per step of
-   cd_fused_kernels.launches_per_call launches each (K1-K3 2, K4 6 with
-   the polar filter), and no transport3d or vort_flux3d; both launch
-   tracer_div3d and te_map_remap once a step. Each path: finite fields,
-   global dry-mass drift <= 1e-5, and agreement with the same 4 steps run
-   through the plain versions on the card: ps, pt, u, v and q each within
-   1e-3 of the field's max, or within twice the spread that one float32
-   ulp of pt makes in the plain run over those steps where that is larger
-   (float64: within 1e-9). Then one float64 small step of the fused path
-   against the unfused formulation (cd_step fused=False) from the same
-   state, within 1e-7 of each field's max (tests/test_cd_pallas.py);
+   cd_fused_kernels.launches_per_call launches each (K1 2, K2 5, K3 5,
+   K4 6 with the polar filter), and no transport3d or vort_flux3d; both
+   launch tracer_div3d and te_map_remap once a step. Each path: finite
+   fields, global dry-mass drift <= 1e-5, and agreement with the same 4
+   steps run through the plain versions on the card: ps, pt, u, v and q
+   each within 1e-3 of the field's max, or within twice the spread that
+   one float32 ulp of pt makes in the plain run over those steps where
+   that is larger (float64: within 1e-9). Then one float64 small step of
+   the fused path against the unfused formulation (cd_step fused=False)
+   from the same state, within 1e-7 of each field's max
+   (tests/test_cd_pallas.py);
 5. times each kernel and its plain version (CUDA events) and both steps;
-   K4's device time split by kernel (torch.profiler): its upward pass and
-   row kernels against its two DFT products, and the products' rate on
-   their own work;
+   K2's, K3's and K4's device time split by kernel (torch.profiler): the
+   column pass and row kernels against K2's and K4's two DFT products,
+   and the products' rate on their own work;
 6. holds the fused ZM tail kernel (zm_tail) against its plain version
    (zm_tail_ref) at f19's 13,824 columns x 26 levels, on the inputs the
    port's own zm_convr gives it on entry.varied_zm_inputs (bench.py's
@@ -77,8 +80,10 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
     through the kernels with exact launch counts, finite fields and
     dry-mass drift <= 1e-5; then one call each of K1-K4, tracer_div3d and
     te_map_remap, on the inputs of the next step, against its plain
-    version (float32 gate of item 3) and timed beside its bound, with K2's
-    and K4's share of the step, and K4's split by kernel as in item 5;
+    version (float32 gate of item 3) and timed beside its bound, with
+    K1-K4's share of the step by kernel, and K2-K4's split by kernel as
+    in item 5; at f05 also K3 with FFSL rows forced and K2 with the
+    filter off (float32, bitwise);
 12. runs the port's bench (cam_nor_physics_tpu_torch.bench.run) at f19
     once, with the launch counts set to 0 just before and read just
     after: the probe exactly once, every kernel of the fused path at
@@ -110,6 +115,8 @@ NSTEPS = 4
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_F32_OPS = 67e12              # float32 FLOP/s outside the tensor cores
 TOL = {"float32": 1e-5, "float64": 1e-12}
+EXACT = ("k2", "k3")       # kernels held bitwise to their plain versions
+SPLIT = ("k2", "k3", "k4")  # kernels whose device time is split by kernel
 DRIFT_TOL = 1e-5
 PLAIN_TOL = 1e-3          # float32, ROADMAP.md R2 ...
 PLAIN_SPREAD = 2.0        # ... or this many times the one-ulp spread (R2b)
@@ -152,6 +159,7 @@ FUSED = ("k1", "k2", "k3", "k4")
 PROBE_CALLS = 200          # back-to-back probe calls a timing turn
 PROBE_ROUNDS = 3           # rounds of its six interleaved turns
 GRAPH_K = 8                # steps per CUDA-graph replay, as the bench's chunk
+PROFILE_TRIES = 3          # profiler windows run before giving up
 BEYOND = ("f09", "f05")    # the bench's grids beyond f19
 # repetitions of each kernel (and of its plain version) timed there
 BEYOND_REPS = {"f09": (20, 3), "f05": (10, 2)}
@@ -283,7 +291,8 @@ class Smoke:
         there). Returns (args, kwargs, FFSL rows)."""
         torch = self.torch
         a = list(a)
-        rows = list(range(1, 4)) + list(range(JM - 4, JM - 1))
+        jm = a[0].shape[-2]
+        rows = list(range(1, 4)) + list(range(jm - 4, jm - 1))
 
         def raised(x, by):
             x = x.clone()
@@ -320,11 +329,17 @@ class Smoke:
 
     def variants(self, name, a, kw, grid):
         """K2 and K4 with the polar filter off; K4 with the avg_sq KE and
-        del4 divergence damping (div4_coef_nd = 0.02) as well."""
+        del4 divergence damping (div4_coef_nd = 0.02) as well; K3 at
+        iord = jord = 1 with FFSL rows forced and a polar band of 3 rows
+        (rows 3 and jm-4 keep their flag but not the branch)."""
         a = list(a)
         if name == "k2":
             a[10] = False
             return [("k2[filter off]", tuple(a))]
+        if name == "k3":
+            sa = list(self.stressed(name, a, kw)[0])
+            sa[5], sa[6], sa[9] = 1, 1, 3
+            return [("k3[order 1,ffsl,band 3]", tuple(sa))]
         if name != "k4":
             return []
         dt = a[12]
@@ -368,13 +383,16 @@ class Smoke:
             scale = max(float(w.abs().max()), 1e-30)
             abs_err = max(abs_err, d)
             rel = max(rel, d / scale)
-        ok = rel <= TOL[dtype_name]
+        exact = name in EXACT
+        ok = abs_err == 0.0 if exact else rel <= TOL[dtype_name]
         log(f"check {label:<24} {dtype_name}: max_abs_err={abs_err:.3e} "
-            f"max_rel_err={rel:.3e} tol={TOL[dtype_name]:.0e} "
-            f"{'ok' if ok else 'FAIL'}")
+            f"max_rel_err={rel:.3e} tol="
+            + ("bitwise" if exact else f"{TOL[dtype_name]:.0e}")
+            + f" {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"{label} {dtype_name}: kernel disagrees with "
-                               f"its plain version ({rel:.3e})")
+                               f"its plain version ({abs_err:.3e} abs, "
+                               f"{rel:.3e} rel)")
         return abs_err
 
     # ------------------------------------------------------------ phase 4
@@ -633,25 +651,25 @@ class Smoke:
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                      else "operations")
 
-    def k4_split(self, label, a, kw, reps):
-        """K4's device time a call split by kernel (torch.profiler, each
-        kernel's mean over the launches it recorded): the upward pass and
-        row kernels against the two DFT products, and the products' rate
-        on their own work (16 km jm nf im operations, a multiply and an
-        add a term)."""
+    def split(self, name, label, a, kw, reps):
+        """A K's device time a call split by kernel (torch.profiler, each
+        kernel's mean over the launches it recorded): the column pass and
+        row kernels against K2's and K4's two DFT products, and the
+        products' rate on their own work (16 km jm nf im operations, a
+        multiply and an add a term)."""
         torch = self.torch
-        times, _ = kernel_times(torch, lambda: self.kernel("k4")(*a, **kw),
+        times, _ = kernel_times(torch, lambda: self.kernel(name)(*a, **kw),
                                 reps)
         km, jm, im = a[0].shape
         mean_ms = {n: us / c / 1e3 for n, (c, us) in times.items()}
         dft_ms = sum(t for n, t in mean_ms.items() if "dft_" in n)
         level_ms = sum(t for n, t in mean_ms.items() if "dft_" not in n)
-        log(f"split {label:<18} device ms a call: level kernels "
+        log(f"split {label:<18} device ms a call: row and column kernels "
             f"{level_ms:.4f}, DFT products {dft_ms:.4f}  [{self.card}]")
         for n, t in sorted(mean_ms.items(), key=lambda x: -x[1]):
             log(f"    {t:9.4f} ms  ({times[n][0]} launches recorded in "
                 f"{reps} calls)  {n[:70]}")
-        if a[21]:
+        if name != "k3" and a[{"k2": 10, "k4": 21}[name]]:
             ops = 16 * km * jm * (im // 2 + 1) * im
             log(f"    DFT products: {ops:.3e} ops in {dft_ms:.4f} ms = "
                 f"{ops / dft_ms / 1e9:.3f} TFLOP/s (a multiply and an add a "
@@ -878,18 +896,31 @@ class Smoke:
             self.compare(f"{name}@{gname}", name, a, kw, "float32")
             times[name] = self.time_row(f"{name}@{gname}", name, a, kw,
                                         reps, plain_reps)[0]
-            if name == "k4":
-                self.k4_split(f"k4@{gname}", a, kw, 3)
+            if name in SPLIT:
+                self.split(name, f"{name}@{gname}", a, kw, 3)
+        if gname == "f05":
+            # where the row kernels' blocks are most numerous: K3's flags
+            # and caps with FFSL rows forced, K2's finishing row kernel
+            a, kw = last["k3"]
+            sa, skw, nrows = self.stressed("k3", a, kw)
+            self.compare(f"k3@{gname}+ffsl({nrows} rows)", "k3", sa, skw,
+                         "float32")
+            a, kw = last["k2"]
+            for vlabel, va in self.variants("k2", a, kw, grid):
+                self.compare(f"{vlabel}@{gname}", "k2", va, kw, "float32")
         steady = sum(step_s[1:]) / (len(step_s) - 1)
         per_step = {n: times[n] * (calls if n in FUSED else
                                    n2 * nv if n == "tracer_div3d" else nv)
                     for n in times}
+        share = {n.upper(): 100.0 * per_step[n] / (1e3 * steady)
+                 for n in FUSED}
+        share["K1-K4"] = sum(share.values())
         log(f"{gname}: kernel time a step (calls x kernel ms): "
             + ", ".join(f"{n} {t:.2f}" for n, t in per_step.items())
-            + f" ms; K2 + K4 {per_step['k2'] + per_step['k4']:.2f} ms = "
-            f"{100.0 * (per_step['k2'] + per_step['k4']) / (1e3 * steady):.1f}"
-            f"% of the HS step ({1e3 * steady:.2f} ms, mean of spin-up steps "
-            f"2-{SPINUP}) [{self.card}]")
+            + f" ms; share of the HS step ({1e3 * steady:.2f} ms, mean of "
+            f"spin-up steps 2-{SPINUP}): "
+            + ", ".join(f"{n} {v:.1f}%" for n, v in share.items())
+            + f" [{self.card}]")
         return {"drift": drift, "steady": steady}
 
 
@@ -1112,25 +1143,31 @@ def run_zm(torch, sm: Smoke, card: str) -> dict:
 
 def kernel_times(torch, fn, reps=1):
     """One warm-up call of fn, then `reps` calls under torch.profiler:
-    ({device kernel name: [launches recorded, µs]}, wall seconds)."""
+    ({device kernel name: [launches recorded, µs]}, wall seconds). The
+    profiler drops launches in short windows, at times all of them: a
+    window that recorded no device kernel is run again, up to
+    PROFILE_TRIES windows in all."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name = defaultdict(lambda: [0, 0.0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name][0] += 1
-            by_name[e.name][1] += e.time_range.elapsed_us()
-    if not by_name:
-        raise RuntimeError("the profiler recorded no device time")
-    return by_name, wall
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name = defaultdict(lambda: [0, 0.0])
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name][0] += 1
+                by_name[e.name][1] += e.time_range.elapsed_us()
+        if by_name:
+            return by_name, wall
+        log(f"profiler: no device kernel recorded in window {attempt} of "
+            f"{PROFILE_TRIES}")
+    raise RuntimeError("the profiler recorded no device time")
 
 
 def device_us(torch, fn, reps):
@@ -1246,8 +1283,8 @@ def run(torch) -> dict:
         for label, name, a, kw in cases:
             rows.append((label, name,
                          *sm.time_row(label, name, a, kw, 50, 5)))
-            if name == "k4":
-                sm.k4_split(label, a, kw, 10)
+            if name in SPLIT:
+                sm.split(name, label, a, kw, 10)
         steady = runs["fft"]["steady"]
     # ---- phases 6-8: the ZM step and its tail kernel
     with phase("6-8 ZM step at f19"):

@@ -19,7 +19,8 @@ against the JAX package's cd_pallas, float64 on the CPU at 36x24x6.
   launch its blocks in turn, a block's threads as std::threads sharing
   its shared memory and meeting at __syncthreads()) against the plain
   versions: float64 within 1e-12 and float32 within 1e-5 of each
-  output's max.
+  output's max; also K2 with the filter off and K3 with FFSL rows and a
+  polar band at orders 1 and 4.
 - On a card (marked `cuda`), each kernel against its plain version.
 """
 
@@ -341,8 +342,8 @@ void cam_host_launch(F body, dim3 grid, dim3 block, size_t = 0,
 """
 
 _LAUNCH = re.compile(r"(\w+<T>)<<<(.*?)>>>\((.*?)\);", re.S)
-# launch sites: K1-K3 two each, K4 four, the DFT filter two
-_N_LAUNCHES = 12
+# launch sites: K1 two, K2 three, K3 five, K4 four, the DFT filter two
+_N_LAUNCHES = 16
 
 
 @pytest.fixture(scope="module")
@@ -397,27 +398,69 @@ def _cast(x, dtype, device="cpu"):
     return x
 
 
+def _host_matches_plain(dll, name, args, dyn_filter):
+    """The host build of K `name` on `args` against its plain version:
+    float64 within 1e-12, float32 within 1e-5 of each output's max
+    (glibc's powf/logf are not PyTorch's, so float32 is not bitwise
+    here); the call makes launches_per_call(name, dyn_filter) launches."""
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        want = getattr(tcf, f"{name}_ref")(*[_cast(x, dtype) for x in args])
+        got, launches = _host_run(dll, name, args, dtype)
+        assert launches == ck.launches_per_call(name, dyn_filter), (
+            name, launches)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert torch.isfinite(g).all(), (name, i)
+            assert_close(g, w, tol, f"{name} {dtype} output {i}")
+
+
 @pytest.mark.parametrize("name", ["k1", "k2", "k3", "k4"])
 def test_cuda_source_arithmetic_on_the_host(name, host_lib):
     """Each K of csrc/cd_fused_kernels.cu, built for the host, against its
     plain version on the inputs of a fused step (K4 also with the filter
     off, avg_sq KE and del4 damping): float64 within 1e-12, float32
-    within 1e-5 of each output's max (glibc's powf/logf are not
-    PyTorch's, so float32 is not bitwise here); each call makes the
-    launches the wrapper counts for it (launches_per_call)."""
+    within 1e-5 of each output's max; each call makes the launches the
+    wrapper counts for it (launches_per_call)."""
     for flags in (BASE, FLAG_SETS["avg_sq_div4"] | dict(dyn_filter=False)):
         rec = _k_calls(flags)
-        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-            args = [_cast(x, dtype) for x in rec[name]]
-            want = getattr(tcf, f"{name}_ref")(*args)
-            got, launches = _host_run(host_lib, name, rec[name], dtype)
-            assert launches == ck.launches_per_call(
-                name, flags["dyn_filter"]), (name, launches)
-            for i, (g, w) in enumerate(zip(got, want)):
-                assert torch.isfinite(g).all(), (name, i)
-                assert_close(g, w, tol, f"{name} {dtype} output {i}")
+        _host_matches_plain(host_lib, name, rec[name], flags["dyn_filter"])
         if name != "k4":
             break
+
+
+# rows whose |crx| K3's FFSL cases raise by 1.5, and the polar band they
+# set: rows 1, 2 and JM-3, JM-2 take the FFSL branch, rows 3 and JM-4 are
+# flagged but lie outside the band
+FFSL_ROWS = [1, 2, 3, JM - 4, JM - 3, JM - 2]
+FFSL_BAND = 3
+ROW_CASES = ("k2_filter_off", "k3_ffsl_band_order1", "k3_ffsl_band_order4")
+
+
+def _row_case(case):
+    """(name, args, dyn_filter) of a K2 or K3 case beyond the fused step's
+    own calls: K2 with the polar filter off; K3 at iord = jord = 1 or 4
+    with FFSL rows forced and a polar band set."""
+    rec = _k_calls(BASE)
+    if case == "k2_filter_off":
+        a = list(rec["k2"])
+        a[10] = False
+        return "k2", a, False
+    a = list(rec["k3"])
+    crx = a[2].clone()
+    crx[:, FFSL_ROWS] += torch.where(crx[:, FFSL_ROWS] >= 0, 1.5, -1.5)
+    order = int(case[-1])
+    a[2], a[5], a[6], a[9] = crx, order, order, FFSL_BAND
+    flagged = tcf._ffsl_rows(crx).any(0)
+    assert flagged[FFSL_ROWS].all() and flagged.sum() == len(FFSL_ROWS)
+    return "k3", a, True
+
+
+@pytest.mark.parametrize("case", ROW_CASES)
+def test_cuda_source_row_kernel_cases_on_the_host(case, host_lib):
+    """The host build of K2 with the filter off (its row kernel finishes
+    the point) and of K3 with FFSL rows and a polar band, at orders 1 and
+    4, against the plain versions, as the test above holds them."""
+    name, args, dyn_filter = _row_case(case)
+    _host_matches_plain(host_lib, name, args, dyn_filter)
 
 
 @pytest.mark.cuda
@@ -438,3 +481,23 @@ def test_cuda_kernel_matches_plain_version(name, dtype, tol):
     assert fn.launches == n0 + ck.launches_per_call(name)
     for i, (g, w) in enumerate(zip(got, want)):
         assert_close(g.cpu(), w.cpu(), tol, f"{name} output {i}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ROW_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+def test_cuda_row_kernel_cases_match_plain_version(case, dtype, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: "
+                    "pytest -m cuda tests/test_torch_*.py)")
+    name, a, dyn_filter = _row_case(case)
+    args = [_cast(x, dtype, "cuda") for x in a]
+    fn = getattr(ck, name)
+    n0 = fn.launches
+    got = fn(*args)
+    want = getattr(tcf, f"{name}_ref")(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + ck.launches_per_call(name, dyn_filter)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert_close(g.cpu(), w.cpu(), tol, f"{case} output {i}")
