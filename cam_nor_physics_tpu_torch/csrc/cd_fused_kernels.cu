@@ -19,17 +19,18 @@
 // one level to the next in VMEM scratch. Here the carry is a column pass,
 // one thread per (j, i) looping over k with the carry in registers. K1 and
 // K3 run it last (the downward pass over their thickness and pt), K2 and
-// K4 first (the upward pass over the dgz of K1/K3). K1 is two launches: a
-// level kernel, one thread block per level walking its (jm, im) slab in
-// phases separated by __syncthreads() (with tp_core.cuh's
-// transport_level), and the column pass. K2, K3 and K4 spread their level
-// work over all SMs: row kernels, one block per (row, level), whose
-// launch boundaries are the phase boundaries (K3 through tp_core.cuh's
-// row form of transport_level). Intermediate slabs (Courants, advective
-// operators, fluxes, energy, corner fields, damping, the increments to
-// filter) live in a scratch tensor the wrapper allocates; each level's
-// are a few hundred KB and are read back from L2. Launches a call: K1 2,
-// K2 5 (2 with the filter off), K3 5, K4 6 (4 with the filter off).
+// K4 first (the upward pass over the dgz of K1/K3). The level work runs
+// over all SMs: row kernels, one block of kRowThreads threads per (row,
+// level), whose launch boundaries are the phase boundaries. K1 and K3
+// share their transport, tp_core.cuh's row form of transport_level (four
+// row kernels: inner operators, mass fluxes, dh and q's fluxes, the
+// finish with the floors); K1 runs it at order 1 on the C-grid winds and
+// Courants of a row kernel of its own. Intermediate slabs (Courants,
+// advective operators, fluxes, energy, corner fields, damping, the
+// increments to filter) live in a scratch tensor the wrapper allocates;
+// each level's are a few hundred KB and are read back from L2. Launches a
+// call: K1 6, K2 5 (2 with the filter off), K3 5, K4 6 (4 with the filter
+// off).
 //
 // The polar filter is the TPU kernel's two-sided real DFT, written out:
 // per level row, nf = im/2+1 forward sums over i of a[i]*cos and a[i]*sin,
@@ -52,9 +53,9 @@
 // 10 slabs of 1.4 MB at f19 in float32, a few microseconds at 3.35 TB/s.
 // The DFT sums of K2 and K4 are 8 * jm * nf * im operations per level and
 // filtered field (about 16 MFLOP per level at f19), 0.4 GFLOP per call,
-// bound by the FP32 lanes (dft_filter.cuh). K1 is latency-bound: one
-// block per level keeps km of the 132 SMs busy; the row kernels run
-// km*jm blocks.
+// bound by the FP32 lanes (dft_filter.cuh). The row kernels run km*jm
+// blocks; the transport phases re-derive each point's slopes and edge
+// values from the slabs in L2, so they stay well above the bytes bound.
 #include "dft_filter.cuh"
 #include "tp_core.cuh"
 
@@ -64,7 +65,6 @@ namespace {
 
 using namespace tpc;
 
-constexpr int kThreads = 512;      // level kernels: one block per level
 constexpr int kColThreads = 256;   // column passes: one thread per (j, i)
 
 // rows of the metric table, in the order of cd_fused.METRIC_ROWS
@@ -131,16 +131,6 @@ up_geopotential_kernel(const T* __restrict__ dgz, const T* __restrict__ phis,
 
 // ------------------------------------------------------------ shared pieces
 
-// per-row FFSL flags of one level: some |crx| of the row exceeds 1
-template <typename T>
-__device__ void ffsl_flags(const T* crx, int jm, int im, uint8_t* fl) {
-  for (int j = threadIdx.x; j < jm; j += blockDim.x) {
-    T m = T(0);
-    for (int i = 0; i < im; ++i) m = tmax(m, (T)fabs(crx[j * im + i]));
-    fl[j] = m > T(1) ? 1 : 0;
-  }
-}
-
 // a center field averaged to the SW corner of (j, i); row 0 is zero
 template <typename T, typename F>
 __device__ T corner(F a, int j, int i) {
@@ -148,72 +138,50 @@ __device__ T corner(F a, int j, int i) {
   return T(0.25) * ((a(j, i) + a(j, i - 1)) + (a(j - 1, i) + a(j - 1, i - 1)));
 }
 
-// ------------------------------------------------------------ K1
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-k1_level_kernel(const T* __restrict__ u, const T* __restrict__ v,
-                const T* __restrict__ pt, const T* __restrict__ delp,
-                const T* __restrict__ M, double dt5, double rcap, int band,
-                int K, int jm, int im, T* __restrict__ pt_h,
-                T* __restrict__ uc0, T* __restrict__ vc0,
-                T* __restrict__ scratch, uint8_t* __restrict__ flags) {
-  const int k = blockIdx.x, km = gridDim.x;
-  const int n = jm * im;
-  const size_t off = (size_t)k * n;
-  auto S = [&](int s) { return scratch + ((size_t)s * km + k) * n; };
-  T *crx = S(0), *cry = S(1), *yfx = S(2), *va2 = S(3), *ddp = S(8),
-    *dpt = S(9), *mfx = S(10), *mfy = S(11), *delp_h = S(12);
-  uint8_t* fl = flags + (size_t)k * jm;
-  const Slab<T> U{u + off, jm, im}, V{v + off, jm, im};
-  const T* cose = M + kCose * jm;
-
-  // A-grid winds, zero on the pole rows
-  auto ua = [&](int j, int i) {
-    return (j == 0 || j == jm - 1) ? T(0) : T(0.5) * (U(j, i) + U(j + 1, i));
-  };
-  auto va = [&](int j, int i) {
-    return (j == 0 || j == jm - 1) ? T(0) : T(0.5) * (V(j, i) + V(j, i + 1));
-  };
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int j = idx / im, i = idx - j * im;
-    const T uc = T(0.5) * (ua(j, i) + ua(j, i - 1));
-    const T vc = j == 0 ? T(0) : T(0.5) * (va(j, i) + va(j - 1, i));
-    uc0[off + idx] = uc;
-    vc0[off + idx] = vc;
-    crx[idx] = (j == 0 || j == jm - 1) ? T(0) : uc * T(dt5) / M[kDxp * jm + j];
-    const T cy = j == 0 ? T(0) : vc * T(dt5) / M[kDy * jm + j];
-    cry[idx] = cy;
-    yfx[idx] = cy * cose[j];
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int j = idx / im;
-    va2[idx] = T(0.5) * (cry[idx] + (j == jm - 1 ? T(0) : cry[idx + im]));
-  }
-  ffsl_flags(crx, jm, im, fl);
-  __syncthreads();
-  transport_level(delp + off, pt + off, crx, cry, yfx, va2, fl,
-                  M + kCosp * jm, M + kAcosp * jm, rcap, 1, 1, band, K, jm,
-                  im, ddp, dpt, mfx, mfy, S(4), S(5), S(6), S(7));
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const T d = delp[off + idx], p = pt[off + idx];
-    const T dh = tmax(d + ddp[idx], T(0.05) * d);
-    const T ph = (p * d + dpt[idx]) / dh;
-    delp_h[idx] = dh;
-    pt_h[off + idx] = tmax(ph, T(0.1) * p);
-  }
-}
-
 // ------------------------------------------------------------ row kernels
 //
-// K2, K3 and K4 run their level work over all SMs: one block of
-// kRowThreads threads per (row, level), the threads over i, each kernel a
-// phase of the TPU kernel's level program. A phase that reads another
+// K1-K4 run their level work over all SMs: one block of kRowThreads
+// threads (tp_core.cuh) per (row, level), the threads over i, each kernel
+// a phase of the TPU kernel's level program. A phase that reads another
 // row's result of an earlier phase starts a new launch; the intermediates
 // stay in the level scratch slabs.
 
-constexpr int kRowThreads = 64;    // row kernels (a power of two)
+// ------------------------------------------------------------ K1
+//
+// The C-grid winds and Courants by a row kernel of their own (the
+// transport's va at row j reads cry at row j+1), then K3's transport row
+// kernels at order 1 with K1's floors, then the downward pressure pass:
+// 6 launches a call. Scratch slabs 0-8 are the transport's (below), 9 crx,
+// 10 cry, 11 mfx, 12 mfy, 13 the floored thickness delp_h.
+
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+k1_winds_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                const T* __restrict__ M, double dt5, int jm, int im,
+                T* __restrict__ uc0, T* __restrict__ vc0,
+                T* __restrict__ crx, T* __restrict__ cry) {
+  const int j = blockIdx.x, k = blockIdx.y;
+  const size_t off = (size_t)k * jm * im;
+  const Slab<T> U{u + off, jm, im}, V{v + off, jm, im};
+  // A-grid winds, zero on the pole rows
+  auto ua = [&](int jj, int ii) {
+    return (jj == 0 || jj == jm - 1) ? T(0)
+                                     : T(0.5) * (U(jj, ii) + U(jj + 1, ii));
+  };
+  auto va = [&](int jj, int ii) {
+    return (jj == 0 || jj == jm - 1) ? T(0)
+                                     : T(0.5) * (V(jj, ii) + V(jj, ii + 1));
+  };
+  for (int i = threadIdx.x; i < im; i += blockDim.x) {
+    const size_t p = off + (size_t)j * im + i;
+    const T uc = T(0.5) * (ua(j, i) + ua(j, i - 1));
+    const T vc = j == 0 ? T(0) : T(0.5) * (va(j, i) + va(j - 1, i));
+    uc0[p] = uc;
+    vc0[p] = vc;
+    crx[p] = (j == 0 || j == jm - 1) ? T(0) : uc * T(dt5) / M[kDxp * jm + j];
+    cry[p] = j == 0 ? T(0) : vc * T(dt5) / M[kDy * jm + j];
+  }
+}
 
 // ------------------------------------------------------------ K2
 //
@@ -310,12 +278,14 @@ k2_courant_kernel(const T* __restrict__ uc, const T* __restrict__ vc,
 //
 // The D-grid transport in tp_core.cuh's row form, one row kernel a phase
 // of transport_level, then the downward pressure pass: 5 launches a call.
+// K1 runs the same kernels at order 1. Scratch slabs: 0 yfx, 1 va, 2-5
+// adx(h), ady(h), adx(q), ady(q), 6 dh, 7 fy, 8 fx.
 
 // phase 1: yfx, va, the row's FFSL flag (stored per (level, row) for the
 // later phases), adx/ady of h and q
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
-k3_inner_kernel(const T* __restrict__ delp, const T* __restrict__ pt,
+tp_inner_kernel(const T* __restrict__ delp, const T* __restrict__ pt,
                 const T* __restrict__ crx, const T* __restrict__ cry,
                 const T* __restrict__ M, int band, int K, int jm, int im,
                 T* __restrict__ scratch, uint8_t* __restrict__ flags) {
@@ -333,14 +303,17 @@ k3_inner_kernel(const T* __restrict__ delp, const T* __restrict__ pt,
   // (the reduction's __syncthreads() also orders va before ady reads it)
   const bool flag = row_ffsl_flag<T, kRowThreads>(cx + (size_t)j * im, im);
   if (threadIdx.x == 0) flags[(size_t)k * jm + j] = flag ? 1 : 0;
-  tp_row_inner(delp + off, pt + off, cx, va, ffsl_in_band(flag, j, jm, band),
-               M[kCosp * jm + j], K, j, jm, im, S(2), S(3), S(4), S(5));
+  const T* q[2] = {delp + off, pt + off};
+  T* const sx[2] = {S(2), S(4)};
+  T* const sy[2] = {S(3), S(5)};
+  tp_row_inner<2>(q, cx, va, ffsl_in_band(flag, j, jm, band),
+                  M[kCosp * jm + j], K, j, jm, im, sx, sy);
 }
 
-// phase 2: tp2c's mass fluxes mfy, mfx (K3 outputs)
+// phase 2: tp2c's mass fluxes mfy, mfx (K3 outputs; K1 scratch)
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
-k3_mass_kernel(const T* __restrict__ crx, const T* __restrict__ cry,
+tp_mass_kernel(const T* __restrict__ crx, const T* __restrict__ cry,
                const T* __restrict__ M, int iord, int jord, int band, int K,
                int jm, int im, T* __restrict__ mfx, T* __restrict__ mfy,
                T* __restrict__ scratch, const uint8_t* __restrict__ flags) {
@@ -348,16 +321,16 @@ k3_mass_kernel(const T* __restrict__ crx, const T* __restrict__ cry,
   const int n = jm * im;
   const size_t off = (size_t)k * n;
   auto S = [&](int s) { return scratch + ((size_t)s * km + k) * n; };
-  tp_row_mass_fluxes(S(2), S(3), crx + off, cry + off, S(0),
-                     ffsl_row(flags + (size_t)k * jm, j, jm, band),
-                     M[kCosp * jm + j], iord, jord, K, j, jm, im, mfx + off,
-                     mfy + off);
+  tp_row_fluxes(S(2), S(3), crx + off, cry + off, crx + off, S(0), 0,
+                ffsl_row(flags + (size_t)k * jm, j, jm, band),
+                M[kCosp * jm + j], iord, jord, K, j, jm, im, mfx + off,
+                mfy + off);
 }
 
 // phase 3: the thickness tendency dh and q's fluxes
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
-k3_q_flux_kernel(const T* __restrict__ crx, const T* __restrict__ cry,
+tp_q_flux_kernel(const T* __restrict__ crx, const T* __restrict__ cry,
                  const T* __restrict__ mfx, const T* __restrict__ mfy,
                  const T* __restrict__ M, double rcap, int iord, int jord,
                  int band, int K, int jm, int im, T* __restrict__ scratch,
@@ -367,16 +340,17 @@ k3_q_flux_kernel(const T* __restrict__ crx, const T* __restrict__ cry,
   const size_t off = (size_t)k * n;
   auto S = [&](int s) { return scratch + ((size_t)s * km + k) * n; };
   const T cap = row_cap(mfy + off, j, jm, im, rcap);
-  tp_row_q_fluxes(S(4), S(5), crx + off, cry + off, mfx + off, mfy + off,
-                  ffsl_row(flags + (size_t)k * jm, j, jm, band),
-                  M[kCosp * jm + j], M[kAcosp * jm + j], cap, iord, jord, K,
-                  j, jm, im, S(6), S(7), S(8));
+  tp_row_div(mfx + off, mfy + off, M[kAcosp * jm + j], cap, j, jm, im, S(6));
+  tp_row_fluxes(S(4), S(5), crx + off, cry + off, mfx + off, mfy + off, 1,
+                ffsl_row(flags + (size_t)k * jm, j, jm, band),
+                M[kCosp * jm + j], iord, jord, K, j, jm, im, S(8), S(7));
 }
 
-// phase 4: dq, the thickness floor and pt
-template <typename T>
+// phase 4: dq, the thickness floor and pt; kFloorPt (K1) also floors pt
+// at a tenth of its old value
+template <typename T, bool kFloorPt>
 __global__ void __launch_bounds__(kRowThreads)
-k3_finish_kernel(const T* __restrict__ delp, const T* __restrict__ pt,
+tp_finish_kernel(const T* __restrict__ delp, const T* __restrict__ pt,
                  const T* __restrict__ M, double rcap, int jm, int im,
                  T* __restrict__ delp_new, T* __restrict__ pt_new,
                  T* __restrict__ scratch) {
@@ -390,10 +364,11 @@ k3_finish_kernel(const T* __restrict__ delp, const T* __restrict__ pt,
   for (int i = threadIdx.x; i < im; i += blockDim.x) {
     const int idx = j * im + i;
     const T dq = div_point(fx, fy, j, i, jm, im, acosa, cap, cap);
-    const T d = delp[off + idx];
+    const T d = delp[off + idx], p = pt[off + idx];
     const T dn = tmax(d + ddp[idx], T(0.05) * d);
+    const T pn = (p * d + dq) / dn;
     delp_new[off + idx] = dn;
-    pt_new[off + idx] = (pt[off + idx] * d + dq) / dn;
+    pt_new[off + idx] = kFloorPt ? tmax(pn, T(0.1) * p) : pn;
   }
 }
 
@@ -605,20 +580,47 @@ k4_wind_kernel(const T* __restrict__ u, const T* __restrict__ v,
 
 int col_blocks(int n) { return (n + kColThreads - 1) / kColThreads; }
 
+// the transport row kernels of K1 and K3 and the downward pass over the
+// new thickness and pt: 5 launches
+template <typename T, bool kFloorPt>
+void launch_transport_rows(const T* delp, const T* pt, const T* crx,
+                           const T* cry, const T* M, double rcap,
+                           double ptop, double pk0, double pl0, Consts cs,
+                           int iord, int jord, int band, int K, int km,
+                           int jm, int im, T* delp_new, T* pt_new, T* mfx,
+                           T* mfy, T* pkz, T* dgz, T* scratch,
+                           uint8_t* flags, cudaStream_t st) {
+  const int n = jm * im;
+  const dim3 rows(jm, km);
+  tp_inner_kernel<T><<<rows, kRowThreads, 0, st>>>(
+      delp, pt, crx, cry, M, band, K, jm, im, scratch, flags);
+  tp_mass_kernel<T><<<rows, kRowThreads, 0, st>>>(
+      crx, cry, M, iord, jord, band, K, jm, im, mfx, mfy, scratch, flags);
+  tp_q_flux_kernel<T><<<rows, kRowThreads, 0, st>>>(
+      crx, cry, mfx, mfy, M, rcap, iord, jord, band, K, jm, im, scratch,
+      flags);
+  tp_finish_kernel<T, kFloorPt><<<rows, kRowThreads, 0, st>>>(
+      delp, pt, M, rcap, jm, im, delp_new, pt_new, scratch);
+  down_thermo_kernel<T><<<col_blocks(n), kColThreads, 0, st>>>(
+      delp_new, pt_new, ptop, pk0, pl0, cs, km, n, pkz, dgz);
+}
+
 template <typename T>
 int launch_k1(const T* u, const T* v, const T* pt, const T* delp, const T* M,
               double dt5, double rcap, double ptop, double pk0, double pl0,
               Consts cs, int band, int K, int km, int jm, int im, T* pt_h,
               T* uc0, T* vc0, T* pkz_h, T* dgz_h, T* scratch,
               uint8_t* flags, void* stream) {
-  const int n = jm * im;
-  k1_level_kernel<T><<<km, kThreads, 0, (cudaStream_t)stream>>>(
-      u, v, pt, delp, M, dt5, rcap, band, K, jm, im, pt_h, uc0, vc0, scratch,
-      flags);
-  const int nb = col_blocks(n);
-  down_thermo_kernel<T><<<nb, kColThreads, 0, (cudaStream_t)stream>>>(
-      scratch + (size_t)12 * km * n, pt_h, ptop, pk0, pl0, cs, km, n, pkz_h,
-      dgz_h);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t ns = (size_t)km * jm * im;     // one scratch slab
+  T *crx = scratch + 9 * ns, *cry = scratch + 10 * ns,
+    *mfx = scratch + 11 * ns, *mfy = scratch + 12 * ns,
+    *delp_h = scratch + 13 * ns;
+  k1_winds_kernel<T><<<dim3(jm, km), kRowThreads, 0, st>>>(
+      u, v, M, dt5, jm, im, uc0, vc0, crx, cry);
+  launch_transport_rows<T, true>(delp, pt, crx, cry, M, rcap, ptop, pk0, pl0,
+                                 cs, 1, 1, band, K, km, jm, im, delp_h, pt_h,
+                                 mfx, mfy, pkz_h, dgz_h, scratch, flags, st);
   return (int)cudaGetLastError();
 }
 
@@ -662,20 +664,10 @@ int launch_k3(const T* delp, const T* pt, const T* crx, const T* cry,
               Consts cs, int iord, int jord, int band, int K, int km, int jm,
               int im, T* delp_new, T* pt_new, T* mfx, T* mfy, T* pkz, T* dgz,
               T* scratch, uint8_t* flags, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int n = jm * im;
-  const dim3 rows(jm, km);
-  k3_inner_kernel<T><<<rows, kRowThreads, 0, st>>>(
-      delp, pt, crx, cry, M, band, K, jm, im, scratch, flags);
-  k3_mass_kernel<T><<<rows, kRowThreads, 0, st>>>(
-      crx, cry, M, iord, jord, band, K, jm, im, mfx, mfy, scratch, flags);
-  k3_q_flux_kernel<T><<<rows, kRowThreads, 0, st>>>(
-      crx, cry, mfx, mfy, M, rcap, iord, jord, band, K, jm, im, scratch,
-      flags);
-  k3_finish_kernel<T><<<rows, kRowThreads, 0, st>>>(
-      delp, pt, M, rcap, jm, im, delp_new, pt_new, scratch);
-  down_thermo_kernel<T><<<col_blocks(n), kColThreads, 0, st>>>(
-      delp_new, pt_new, ptop, pk0, pl0, cs, km, n, pkz, dgz);
+  launch_transport_rows<T, false>(delp, pt, crx, cry, M, rcap, ptop, pk0, pl0,
+                                  cs, iord, jord, band, K, km, jm, im,
+                                  delp_new, pt_new, mfx, mfy, pkz, dgz,
+                                  scratch, flags, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

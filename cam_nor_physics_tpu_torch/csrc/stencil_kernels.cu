@@ -5,26 +5,31 @@
 //                       mass-consistent tp2d of pt, polar caps closed
 //   vort_kernel      <- _vort_kernel (vort_flux3d): ytp/xtp fluxes of the
 //                       absolute vorticity
-//   tracer_kernel    <- _tracer_kernel (tracer_div3d): trac2d's tracer-mass
+//   tracer_*_kernel  <- _tracer_kernel (tracer_div3d): trac2d's tracer-mass
 //                       flux divergence, polar caps closed
 //
 // Design. The TPU kernels run one grid step per level with the whole (jm, im)
-// slab in VMEM. Here one thread block owns one level (one (tracer, level) for
-// the tracer kernel) and walks the slab in phases separated by
-// __syncthreads(): the inner advective operators (adx, ady) are written to a
-// per-level scratch slab that the wrapper allocates, then the y- and x-fluxes
-// are evaluated point by point from it (each thread recomputes the slopes and
+// slab in VMEM. Here transport_kernel and vort_kernel, which only the unfused
+// "matmul" step runs, give one thread block a level: transport_kernel walks
+// the slab in phases separated by __syncthreads() (tp_core.cuh's
+// transport_level), the inner advective operators (adx, ady) going to a
+// per-level scratch slab that the wrapper allocates, then the y- and
+// x-fluxes point by point from it (each thread recomputes the slopes and
 // edge values its point needs, see tp_core.cuh), then the flux divergence.
-// The polar caps are row sums taken by one thread each. Scratch and fields of
-// one level are a few hundred KB, so the phases read them back from L2.
+// tracer_div3d, on the main path, runs over all SMs: three row kernels on a
+// (jm, nq*km) grid, one block of kRowThreads threads per (row, tracer,
+// level), through tp_core.cuh's row form (adx/ady; the fluxes; the cap and
+// the divergence), the launch boundaries its phase boundaries. The polar
+// caps are row sums taken by one thread each, in index order in double.
 //
 // Bound. Each kernel reads its input slabs once and writes its outputs once:
-// ~10 (transport), 7 (vort), 6 (tracer) slabs of jm*im values per level; at
-// 144x96x26 f32 that is a few MB per call, a few microseconds at 3.35 TB/s.
-// The stencil arithmetic (a few hundred flops a point) is far from the card's
-// peak too. This first version is latency-bound: one block per level keeps
-// only km of the 132 SMs busy, and the phases serialize on L2 round trips.
-// Making it fast (row bands with halos, shared-memory slabs) is later work.
+// ~10 (transport), 7 (vort), 7 (tracer: q, crx, cry, mfx, mfy and va read,
+// dqm written) slabs of jm*im values per level; at 144x96x26 f32
+// that is a few MB per call, a few microseconds at 3.35 TB/s. The stencil
+// arithmetic (a few hundred flops a point) is far from the card's peak too.
+// The one-block-per-level kernels are latency-bound (km of the 132 SMs
+// busy); the tracer's row kernels re-derive each point's slopes from the
+// scratch slabs in L2.
 #include "tp_core.cuh"
 
 #include <stdint.h>
@@ -33,7 +38,7 @@ namespace {
 
 using namespace tpc;
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 512;      // transport, vort: one block a level
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -84,52 +89,64 @@ vort_kernel(const T* __restrict__ zeta, const T* __restrict__ crx,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-tracer_kernel(const T* __restrict__ q, const T* __restrict__ crx,
-              const T* __restrict__ cry, const T* __restrict__ mfx,
-              const T* __restrict__ mfy, const T* __restrict__ va,
-              const uint8_t* __restrict__ ffsl, const T* __restrict__ cosp,
-              const T* __restrict__ acosp, double rcap, int iord, int jord,
-              int band, int K, int km, int jm, int im, T* __restrict__ dqm,
-              T* __restrict__ scratch) {
-  const int b = blockIdx.x;          // tracer * km + level
-  const int k = b % km;
-  const int n = jm * im;
-  const size_t off = (size_t)k * n;
-  const T* qk = q + (size_t)b * n;
-  const T *cx = crx + off, *cy = cry + off, *fxm = mfx + off,
-          *fym = mfy + off, *v = va + off;
-  const uint8_t* fl = ffsl + (size_t)k * jm;
-  const size_t nb = gridDim.x;
-  T* s0 = scratch + ((size_t)0 * nb + b) * n;   // adx
-  T* s1 = scratch + ((size_t)1 * nb + b) * n;   // ady
-  T* s2 = scratch + ((size_t)2 * nb + b) * n;   // fy
-  T* s3 = scratch + ((size_t)3 * nb + b) * n;   // fx
-  __shared__ T caps[2];
+// tracer_div3d: three row kernels on a (jm, nq*km) grid, blockIdx.y =
+// tracer * km + level. Scratch slabs of each (tracer, level): 0 adx(q),
+// 1 ady(q), 2 fy, 3 fx.
+struct TracerRow {
+  int j, b, k;         // row, (tracer, level), level
+  size_t n;            // points of a level slab
+  __device__ TracerRow(int km, int jm, int im)
+      : j(blockIdx.x), b(blockIdx.y), k(blockIdx.y % km),
+        n((size_t)jm * im) {}
+  template <typename T>
+  __device__ T* slab(T* scratch, int s) const {   // scratch slab s
+    return scratch + ((size_t)s * gridDim.y + b) * n;
+  }
+};
 
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int j = idx / im, i = idx - j * im;
-    s0[idx] = adx_point(qk, cx, j, i, jm, im, cosp[j],
-                        ffsl_row(fl, j, jm, band), K);
-    s1[idx] = ady_point(qk, v, j, i, jm, im);
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int j = idx / im, i = idx - j * im;
-    s2[idx] = ytp_point(s0, cy, fym, j, i, jm, im, jord);
-    s3[idx] = xtp_point(s1 + j * im, cx + j * im, fxm + j * im, i, im,
-                        cosp[j], ffsl_row(fl, j, jm, band), iord, 1, K);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) caps[0] = (T)(-row_sum(s2 + im, im) * rcap);
-  if (second_lane()) caps[1] = (T)(row_sum(s2 + (jm - 1) * im, im) * rcap);
-  __syncthreads();
-  T* out = dqm + (size_t)b * n;
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int j = idx / im, i = idx - j * im;
-    out[idx] = div_point(s3, s2, j, i, jm, im, acosp[j], caps[0], caps[1]);
-  }
+// phase 1: adx and ady of the row
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+tracer_inner_kernel(const T* __restrict__ q, const T* __restrict__ crx,
+                    const T* __restrict__ va,
+                    const uint8_t* __restrict__ ffsl,
+                    const T* __restrict__ cosp, int band, int K, int km,
+                    int jm, int im, T* __restrict__ scratch) {
+  const TracerRow r(km, jm, im);
+  const T* qr = q + r.b * r.n;
+  T *sx = r.slab(scratch, 0), *sy = r.slab(scratch, 1);
+  tp_row_inner<1>(&qr, crx + r.k * r.n, va + r.k * r.n,
+                  ffsl_row(ffsl + (size_t)r.k * jm, r.j, jm, band),
+                  cosp[r.j], K, r.j, jm, im, &sx, &sy);
+}
+
+// phase 2: the row's fluxes fy = ytp(adx)·mfy and fx = xtp(ady)·mfx
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+tracer_flux_kernel(const T* __restrict__ crx, const T* __restrict__ cry,
+                   const T* __restrict__ mfx, const T* __restrict__ mfy,
+                   const uint8_t* __restrict__ ffsl,
+                   const T* __restrict__ cosp, int iord, int jord, int band,
+                   int K, int km, int jm, int im, T* __restrict__ scratch) {
+  const TracerRow r(km, jm, im);
+  const size_t off = r.k * r.n;
+  tp_row_fluxes(r.slab(scratch, 0), r.slab(scratch, 1), crx + off,
+                cry + off, mfx + off, mfy + off, 1,
+                ffsl_row(ffsl + (size_t)r.k * jm, r.j, jm, band), cosp[r.j],
+                iord, jord, K, r.j, jm, im, r.slab(scratch, 3),
+                r.slab(scratch, 2));
+}
+
+// phase 3: the row's cap of fy, then the flux divergence
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+tracer_div_kernel(const T* __restrict__ acosp, double rcap, int km, int jm,
+                  int im, T* __restrict__ dqm, T* __restrict__ scratch) {
+  const TracerRow r(km, jm, im);
+  const T* fy = r.slab(scratch, 2);
+  const T cap = row_cap(fy, r.j, jm, im, rcap);
+  tp_row_div(r.slab(scratch, 3), fy, acosp[r.j], cap, r.j, jm, im,
+             dqm + r.b * r.n);
 }
 
 template <typename T>
@@ -162,9 +179,15 @@ int launch_tracer(const T* q, const T* crx, const T* cry, const T* mfx,
                   const T* cosp, const T* acosp, double rcap, int iord,
                   int jord, int band, int K, int nq, int km, int jm, int im,
                   T* dqm, T* scratch, void* stream) {
-  tracer_kernel<T><<<nq * km, kThreads, 0, (cudaStream_t)stream>>>(
-      q, crx, cry, mfx, mfy, va, ffsl, cosp, acosp, rcap, iord, jord, band,
-      K, km, jm, im, dqm, scratch);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const dim3 rows(jm, nq * km);
+  tracer_inner_kernel<T><<<rows, kRowThreads, 0, st>>>(
+      q, crx, va, ffsl, cosp, band, K, km, jm, im, scratch);
+  tracer_flux_kernel<T><<<rows, kRowThreads, 0, st>>>(
+      crx, cry, mfx, mfy, ffsl, cosp, iord, jord, band, K, km, jm, im,
+      scratch);
+  tracer_div_kernel<T><<<rows, kRowThreads, 0, st>>>(acosp, rcap, km, jm, im,
+                                                      dqm, scratch);
   return (int)cudaGetLastError();
 }
 

@@ -299,7 +299,10 @@ __device__ __forceinline__ bool second_lane() {
 // separated by __syncthreads(). h, q, cx, cy, yf, va are the level's
 // (jm, im) slabs, fl its per-row FFSL flags, s0..s3 four scratch slabs.
 // Writes dh and dq (flux divergences, polar caps closed) and the mass
-// fluxes mfx, mfy (transport3d_ref in ops/stencil_kernels.py).
+// fluxes mfx, mfy (transport3d_ref in ops/stencil_kernels.py). Its one
+// user is stencil_kernels.cu's transport_kernel (transport3d, the unfused
+// "matmul" step); the fused K1 and K3 and tracer_div3d take the row form
+// below.
 template <typename T>
 __device__ void transport_level(const T* h, const T* q, const T* cx,
                                 const T* cy, const T* yf, const T* va,
@@ -354,18 +357,21 @@ __device__ void transport_level(const T* h, const T* q, const T* cx,
 // ---------------------------------------------------------------- row form
 //
 // transport_level's phases for ONE row j of a level, by one thread block
-// of a (row, level) grid, the threads over i. Each phase reads other rows
-// only of what an earlier phase wrote, so the phase boundaries are the
-// caller's launch boundaries:
-//   1. row_ffsl_flag over the row's Courants; tp_row_inner: adx/ady of h
-//      and q into s0..s3;
-//   2. tp_row_mass_fluxes: tp2c's mass fluxes mfy (from rows j-3..j+1 of
-//      s0) and mfx;
-//   3. row_cap of mfy, then tp_row_q_fluxes: dh (the caps at the pole
-//      rows) and q's fluxes fy (from rows j-3..j+1 of s2) and fx;
+// of a (row, level) grid, kRowThreads threads over i. Each phase reads
+// other rows only of what an earlier phase wrote, so the phase boundaries
+// are the caller's launch boundaries:
+//   1. row_ffsl_flag over the row's Courants (or the caller's flags);
+//      tp_row_inner: adx/ady of the fields (h and q for tp2c + tp2d);
+//   2. tp_row_fluxes with id = 0: tp2c's mass fluxes mfy (from rows
+//      j-3..j+1 of adx(h)) and mfx;
+//   3. row_cap of mfy, then tp_row_div: dh; tp_row_fluxes with id = 1:
+//      q's fluxes fy (from rows j-3..j+1 of adx(q)) and fx;
 //   4. row_cap of fy, then dq = div_point(fx, fy, ...) at each point.
-// The points evaluate the same functions as transport_level, so the two
-// forms agree bitwise.
+// A tracer (tracer_div3d) runs phases 1, 3 and 4 on its one field with
+// the given mass fluxes. The points evaluate the same functions as
+// transport_level, so the two forms agree bitwise.
+
+constexpr int kRowThreads = 64;    // row kernels' block (a power of two)
 
 // the FFSL flag of a row of im Courants c: some |c| above 1 (a max, exact
 // in any order), by a shared-memory reduction over the block's N threads
@@ -406,51 +412,46 @@ __device__ T row_cap(const T* fy, int j, int jm, int im, double rcap) {
   return cap;
 }
 
-// phase 1 at row j: s0 adx(h), s1 ady(h), s2 adx(q), s3 ady(q); f the
+// phase 1 at row j of NF fields q[n]: sx[n] = adx(q[n]), sy[n] =
+// ady(q[n]), the fields' points side by side in one loop over i; f the
 // row's FFSL branch, cosa its cosine
-template <typename T>
-__device__ void tp_row_inner(const T* h, const T* q, const T* cx,
-                             const T* va, bool f, T cosa, int K, int j,
-                             int jm, int im, T* s0, T* s1, T* s2, T* s3) {
+template <int NF, typename T>
+__device__ void tp_row_inner(const T* const* q, const T* cx, const T* va,
+                             bool f, T cosa, int K, int j, int jm, int im,
+                             T* const* sx, T* const* sy) {
   for (int i = threadIdx.x; i < im; i += blockDim.x) {
     const int idx = j * im + i;
-    s0[idx] = adx_point(h, cx, j, i, jm, im, cosa, f, K);
-    s1[idx] = ady_point(h, va, j, i, jm, im);
-    s2[idx] = adx_point(q, cx, j, i, jm, im, cosa, f, K);
-    s3[idx] = ady_point(q, va, j, i, jm, im);
+#pragma unroll
+    for (int n = 0; n < NF; ++n) {
+      sx[n][idx] = adx_point(q[n], cx, j, i, jm, im, cosa, f, K);
+      sy[n][idx] = ady_point(q[n], va, j, i, jm, im);
+    }
   }
 }
 
-// phase 2 at row j: tp2c's mass fluxes of h (id = 0: the Courant number
-// is the flux)
+// phases 2 and 3 at row j: the fluxes fy = ytp(sx)·ym and fx = xtp(sy)
+// of a field whose inner operators are sx = adx, sy = ady. id = 0 (tp2c's
+// mass fluxes of h): ym = yfx and xm = cx, the Courant number is the
+// flux; id = 1 (a mixing ratio): ym, xm the mass fluxes
 template <typename T>
-__device__ void tp_row_mass_fluxes(const T* s0, const T* s1, const T* cx,
-                                   const T* cy, const T* yf, bool f, T cosa,
-                                   int iord, int jord, int K, int j, int jm,
-                                   int im, T* mfx, T* mfy) {
+__device__ void tp_row_fluxes(const T* sx, const T* sy, const T* cx,
+                              const T* cy, const T* xm, const T* ym, int id,
+                              bool f, T cosa, int iord, int jord, int K,
+                              int j, int jm, int im, T* fx, T* fy) {
   const int r = j * im;
   for (int i = threadIdx.x; i < im; i += blockDim.x) {
-    mfy[r + i] = ytp_point(s0, cy, yf, j, i, jm, im, jord);
-    mfx[r + i] = xtp_point(s1 + r, cx + r, cx + r, i, im, cosa, f, iord, 0,
-                           K);
-  }
-}
-
-// phase 3 at row j: dh (cap the row's row_cap of mfy), and q's fluxes fy
-// from s2 = adx(q) and fx from s3 = ady(q) with the mass fluxes (id = 1)
-template <typename T>
-__device__ void tp_row_q_fluxes(const T* s2, const T* s3, const T* cx,
-                                const T* cy, const T* mfx, const T* mfy,
-                                bool f, T cosa, T acosa, T cap, int iord,
-                                int jord, int K, int j, int jm, int im, T* dh,
-                                T* fy, T* fx) {
-  const int r = j * im;
-  for (int i = threadIdx.x; i < im; i += blockDim.x) {
-    dh[r + i] = div_point(mfx, mfy, j, i, jm, im, acosa, cap, cap);
-    fy[r + i] = ytp_point(s2, cy, mfy, j, i, jm, im, jord);
-    fx[r + i] = xtp_point(s3 + r, cx + r, mfx + r, i, im, cosa, f, iord, 1,
+    fy[r + i] = ytp_point(sx, cy, ym, j, i, jm, im, jord);
+    fx[r + i] = xtp_point(sy + r, cx + r, xm + r, i, im, cosa, f, iord, id,
                           K);
   }
+}
+
+// the flux divergence of row j into out, cap its row_cap of fy
+template <typename T>
+__device__ void tp_row_div(const T* fx, const T* fy, T acosa, T cap, int j,
+                           int jm, int im, T* out) {
+  for (int i = threadIdx.x; i < im; i += blockDim.x)
+    out[j * im + i] = div_point(fx, fy, j, i, jm, im, acosa, cap, cap);
 }
 
 }  // namespace tpc

@@ -8,12 +8,13 @@ There is no fallback between the two: a kernel that does not build or
 launch raises. `_check` validates the inputs on either device.
 
 Each call adds its CUDA launches, `launches_per_call(name, dyn_filter)`,
-to `<wrapper>.launches`: K1 a level kernel and the downward pressure
-pass; K2 the upward geopotential pass and a row kernel, with the polar
-filter on also its two DFT products and a row kernel for the Courants;
-K3 four row kernels and the downward pass; K4 the upward pass, three row
-kernels and, with the polar filter on, its two DFT products. The
-transport kernels take iord/jord 1 and 4, the orders the dycore runs.
+to `<wrapper>.launches`: K1 a row kernel for the C-grid winds and
+Courants, K3's four transport row kernels at order 1 and the downward
+pressure pass; K2 the upward geopotential pass and a row kernel, with
+the polar filter on also its two DFT products and a row kernel for the
+Courants; K3 four row kernels and the downward pass; K4 the upward pass,
+three row kernels and, with the polar filter on, its two DFT products.
+The transport kernels take iord/jord 1 and 4, the orders the dycore runs.
 """
 
 from __future__ import annotations
@@ -32,10 +33,10 @@ from .stencil_kernels import KERNEL_ORDERS
 # CUDA launches a call of each K, (polar filter off, on): K2 and K4 add
 # the two DFT products of csrc/dft_filter.cuh when they filter, K2 also
 # the Courants' row kernel
-LAUNCHES_PER_CALL = {"k1": (2, 2), "k2": (2, 5), "k3": (5, 5), "k4": (4, 6)}
+LAUNCHES_PER_CALL = {"k1": (6, 6), "k2": (2, 5), "k3": (5, 5), "k4": (4, 6)}
 
 # scratch slabs of each K (csrc/cd_fused_kernels.cu)
-_SCRATCH = {"k1": 13, "k2": 4, "k3": 9, "k4": 12}
+_SCRATCH = {"k1": 14, "k2": 4, "k3": 9, "k4": 12}
 
 
 def launches_per_call(name: str, dyn_filter: bool = True) -> int:

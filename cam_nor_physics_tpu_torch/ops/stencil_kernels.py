@@ -6,7 +6,10 @@ on the device of its tensors: CUDA tensors launch the hand-written Hopper
 kernel (csrc/stencil_kernels.cu), CPU tensors take the plain version
 (`*_ref`), which is the same tp_core math on whole (..., jm, im) tensors.
 There is no fallback between the two: a kernel that does not build or
-launch raises. Each wrapper counts its launches in `<wrapper>.launches`.
+launch raises. Each wrapper adds its CUDA launches a call,
+`LAUNCHES_PER_CALL[name]`, to `<wrapper>.launches`: transport3d and
+vort_flux3d one level kernel; tracer_div3d three row kernels (the inner
+operators, the fluxes, the caps and divergence).
 
 Kernel orders: iord/jord 1 and 4, the orders the dycore runs (the C-grid
 half step transports at 1, the D step and trac2d at 4).
@@ -20,6 +23,9 @@ from . import cuda_build
 from . import tp_core as tp
 
 KERNEL_ORDERS = (1, 4)
+
+# CUDA launches a call of each wrapper (csrc/stencil_kernels.cu)
+LAUNCHES_PER_CALL = {"transport3d": 1, "vort_flux3d": 1, "tracer_div3d": 3}
 
 
 def transport3d_ref(delp, pt, crx, cry, yfx, va, ffsl, cosp, acosp,
@@ -119,7 +125,7 @@ def transport3d(delp, pt, crx, cry, yfx, va, ffsl, cosp, acosp,
             ddp.data_ptr(), dpt.data_ptr(), mfx.data_ptr(), mfy.data_ptr(),
             scratch.data_ptr(), _stream(delp))
     _raise_on(rc, "transport3d")
-    transport3d.launches += 1
+    transport3d.launches += LAUNCHES_PER_CALL["transport3d"]
     return ddp, dpt, mfx, mfy
 
 
@@ -143,7 +149,7 @@ def vort_flux3d(zeta, crx, cry, udt, vedt, ffsl, cosp, iord: int, jord: int,
             -1 if band is None else band, tp.max_cfl_int(im), km, jm, im,
             fx.data_ptr(), fy.data_ptr(), _stream(zeta))
     _raise_on(rc, "vort_flux3d")
-    vort_flux3d.launches += 1
+    vort_flux3d.launches += LAUNCHES_PER_CALL["vort_flux3d"]
     return fx, fy
 
 
@@ -159,19 +165,30 @@ def tracer_div3d(q, crx, cry, mfx, mfy, va, ffsl, cosp, acosp, rcap: float,
     if not q.is_cuda:
         return tracer_div3d_ref(q, crx, cry, mfx, mfy, va, ffsl, cosp, acosp,
                                 rcap, iord, jord, band)
+    lib = cuda_build.library("stencil_kernels")
+    dqm = _run_tracer(getattr(lib, f"cam_tracer_div3d_{_suffix(q.dtype)}"),
+                      _stream(q), q, crx, cry, mfx, mfy, va, ffsl, cosp,
+                      acosp, rcap, iord, jord, band)
+    tracer_div3d.launches += LAUNCHES_PER_CALL["tracer_div3d"]
+    return dqm
+
+
+def _run_tracer(fn, stream, q, crx, cry, mfx, mfy, va, ffsl, cosp, acosp,
+                rcap, iord, jord, band):
+    """tracer_div3d's launch: allocate dqm and the scratch (4 slabs a
+    tracer and level) and call `fn`, the C entry in
+    csrc/stencil_kernels.cu, on `stream` (the CPU test of the source calls
+    it with a host build of it)."""
     nq, km, jm, im = q.shape
     dqm = torch.empty_like(q)
     scratch = torch.empty((4,) + tuple(q.shape), dtype=q.dtype,
                           device=q.device)
-    lib = cuda_build.library("stencil_kernels")
-    fn = getattr(lib, f"cam_tracer_div3d_{_suffix(q.dtype)}")
     rc = fn(q.data_ptr(), crx.data_ptr(), cry.data_ptr(), mfx.data_ptr(),
             mfy.data_ptr(), va.data_ptr(), ffsl.data_ptr(), cosp.data_ptr(),
             acosp.data_ptr(), float(rcap), iord, jord,
             -1 if band is None else band, tp.max_cfl_int(im), nq, km, jm, im,
-            dqm.data_ptr(), scratch.data_ptr(), _stream(q))
+            dqm.data_ptr(), scratch.data_ptr(), stream)
     _raise_on(rc, "tracer_div3d")
-    tracer_div3d.launches += 1
     return dqm
 
 

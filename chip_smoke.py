@@ -20,17 +20,19 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
    te_map; plus stress cases that force the FFSL branch near the poles
    (transport3d, vort_flux3d, tracer_div3d, K1, K3, K4) and K2/K4 with the
    polar filter off, K4 with the avg_sq KE and del4 damping, K3 at
-   order 1 with FFSL rows and a polar band; float32 within 1e-5 and
-   float64 within 1e-12 of each output's max magnitude, and K2 and K3
-   bitwise (max abs error 0);
+   order 1 and tracer_div3d with FFSL rows and a polar band; float32
+   within 1e-5 and float64 within 1e-12 of each output's max magnitude,
+   and K1, K2, K3 and (in float32) tracer_div3d bitwise (max abs error
+   0);
 4. runs both HS paths, build_step(144, 96, 26, float32, "cuda",
    filter_impl=...) for 4 large steps (2 model hours) each, with the
    launch counts set to 0 just before and read just after: the unfused
    "matmul" step launches transport3d and vort_flux3d, the fused "fft"
    step (the default, the JAX package's) K1-K4, 4 calls per step of
-   cd_fused_kernels.launches_per_call launches each (K1 2, K2 5, K3 5,
+   cd_fused_kernels.launches_per_call launches each (K1 6, K2 5, K3 5,
    K4 6 with the polar filter), and no transport3d or vort_flux3d; both
-   launch tracer_div3d and te_map_remap once a step. Each path: finite
+   call tracer_div3d (3 launches, stencil_kernels.LAUNCHES_PER_CALL) and
+   te_map_remap once a step. Each path: finite
    fields, global dry-mass drift <= 1e-5, and agreement with the same 4
    steps run through the plain versions on the card: ps, pt, u, v and q
    each within 1e-3 of the field's max, or within twice the spread that
@@ -40,9 +42,10 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
    from the same state, within 1e-7 of each field's max
    (tests/test_cd_pallas.py);
 5. times each kernel and its plain version (CUDA events) and both steps;
-   K2's, K3's and K4's device time split by kernel (torch.profiler): the
-   column pass and row kernels against K2's and K4's two DFT products,
-   and the products' rate on their own work;
+   K1's, K2's, K3's, K4's and tracer_div3d's device time split by the
+   kernels they launch (torch.profiler): the column passes and row
+   kernels against K2's and K4's two DFT products, and the products' rate
+   on their own work;
 6. holds the fused ZM tail kernel (zm_tail) against its plain version
    (zm_tail_ref) at f19's 13,824 columns x 26 levels, on the inputs the
    port's own zm_convr gives it on entry.varied_zm_inputs (bench.py's
@@ -81,9 +84,10 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
     dry-mass drift <= 1e-5; then one call each of K1-K4, tracer_div3d and
     te_map_remap, on the inputs of the next step, against its plain
     version (float32 gate of item 3) and timed beside its bound, with
-    K1-K4's share of the step by kernel, and K2-K4's split by kernel as
-    in item 5; at f05 also K3 with FFSL rows forced and K2 with the
-    filter off (float32, bitwise);
+    K1-K4's share of the step by kernel, and the splits of item 5; K1 and
+    tracer_div3d also with FFSL rows forced and tracer_div3d with a polar
+    band, and at f05 K3 with FFSL rows forced and K2 with the filter off
+    (float32, bitwise);
 12. runs the port's bench (cam_nor_physics_tpu_torch.bench.run) at f19
     once, with the launch counts set to 0 just before and read just
     after: the probe exactly once, every kernel of the fused path at
@@ -115,8 +119,13 @@ NSTEPS = 4
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_F32_OPS = 67e12              # float32 FLOP/s outside the tensor cores
 TOL = {"float32": 1e-5, "float64": 1e-12}
-EXACT = ("k2", "k3")       # kernels held bitwise to their plain versions
-SPLIT = ("k2", "k3", "k4")  # kernels whose device time is split by kernel
+# kernels held bitwise to their plain versions, and in which dtypes
+# (tracer_div3d within TOL in float64: its caps sum a float64 row in index
+# order, torch.sum as a tree)
+BOTH = ("float32", "float64")
+EXACT = {"k1": BOTH, "k2": BOTH, "k3": BOTH, "tracer_div3d": ("float32",)}
+# kernels whose device time is split by kernel
+SPLIT = ("k1", "k2", "k3", "k4", "tracer_div3d")
 DRIFT_TOL = 1e-5
 PLAIN_TOL = 1e-3          # float32, ROADMAP.md R2 ...
 PLAIN_SPREAD = 2.0        # ... or this many times the one-ulp spread (R2b)
@@ -205,6 +214,7 @@ class Smoke:
         self.card = card
         self.tp = tp_core
         self.cd_fused = cd_fused
+        self.sk = stencil_kernels
         self.dyn_comp, self.ck = dyn_comp, cd_fused_kernels
         # where the main path looks each kernel's wrapper up (cd_step_fused
         # calls K1-K4 as attributes of their module)
@@ -328,18 +338,22 @@ class Smoke:
         return ffsl
 
     def variants(self, name, a, kw, grid):
-        """K2 and K4 with the polar filter off; K4 with the avg_sq KE and
-        del4 divergence damping (div4_coef_nd = 0.02) as well; K3 at
-        iord = jord = 1 with FFSL rows forced and a polar band of 3 rows
-        (rows 3 and jm-4 keep their flag but not the branch)."""
+        """(label, args, kwargs) of K2 and K4 with the polar filter off; K4
+        with the avg_sq KE and del4 divergence damping (div4_coef_nd =
+        0.02) as well; K3 at iord = jord = 1 and tracer_div3d with FFSL
+        rows forced and a polar band of 3 rows (rows 3 and jm-4 keep their
+        flag but not the branch)."""
         a = list(a)
         if name == "k2":
             a[10] = False
-            return [("k2[filter off]", tuple(a))]
+            return [("k2[filter off]", tuple(a), kw)]
         if name == "k3":
             sa = list(self.stressed(name, a, kw)[0])
             sa[5], sa[6], sa[9] = 1, 1, 3
-            return [("k3[order 1,ffsl,band 3]", tuple(sa))]
+            return [("k3[order 1,ffsl,band 3]", tuple(sa), kw)]
+        if name == "tracer_div3d":
+            sa, skw, _ = self.stressed(name, a, kw)
+            return [("tracer_div3d[ffsl,band 3]", sa, dict(skw, band=3))]
         if name != "k4":
             return []
         dt = a[12]
@@ -348,7 +362,7 @@ class Smoke:
                                           grid.f0, grid.fc, grid.dl, grid.dp,
                                           nu4)
         a[17], a[19], a[21] = "avg_sq", nu4, False
-        return [("k4[avg_sq,del4,filter off]", tuple(a))]
+        return [("k4[avg_sq,del4,filter off]", tuple(a), kw)]
 
     def cast(self, a, kw, dtype):
         torch = self.torch
@@ -383,7 +397,7 @@ class Smoke:
             scale = max(float(w.abs().max()), 1e-30)
             abs_err = max(abs_err, d)
             rel = max(rel, d / scale)
-        exact = name in EXACT
+        exact = dtype_name in EXACT.get(name, ())
         ok = abs_err == 0.0 if exact else rel <= TOL[dtype_name]
         log(f"check {label:<24} {dtype_name}: max_abs_err={abs_err:.3e} "
             f"max_rel_err={rel:.3e} tol="
@@ -652,24 +666,26 @@ class Smoke:
                                      else "operations")
 
     def split(self, name, label, a, kw, reps):
-        """A K's device time a call split by kernel (torch.profiler, each
-        kernel's mean over the launches it recorded): the column pass and
-        row kernels against K2's and K4's two DFT products, and the
-        products' rate on their own work (16 km jm nf im operations, a
-        multiply and an add a term)."""
+        """A kernel's device time a call split by the kernels it launches
+        (torch.profiler, each kernel's mean over the launches it
+        recorded): the column passes and row kernels against K2's and K4's
+        two DFT products, and the products' rate on their own work (16 km
+        jm nf im operations, a multiply and an add a term)."""
         torch = self.torch
         times, _ = kernel_times(torch, lambda: self.kernel(name)(*a, **kw),
                                 reps)
-        km, jm, im = a[0].shape
         mean_ms = {n: us / c / 1e3 for n, (c, us) in times.items()}
         dft_ms = sum(t for n, t in mean_ms.items() if "dft_" in n)
         level_ms = sum(t for n, t in mean_ms.items() if "dft_" not in n)
         log(f"split {label:<18} device ms a call: row and column kernels "
-            f"{level_ms:.4f}, DFT products {dft_ms:.4f}  [{self.card}]")
+            f"{level_ms:.4f}"
+            + (f", DFT products {dft_ms:.4f}" if dft_ms else "")
+            + f"  [{self.card}]")
         for n, t in sorted(mean_ms.items(), key=lambda x: -x[1]):
             log(f"    {t:9.4f} ms  ({times[n][0]} launches recorded in "
                 f"{reps} calls)  {n[:70]}")
-        if name != "k3" and a[{"k2": 10, "k4": 21}[name]]:
+        if name in ("k2", "k4") and a[{"k2": 10, "k4": 21}[name]]:
+            km, jm, im = a[0].shape
             ops = 16 * km * jm * (im // 2 + 1) * im
             log(f"    DFT products: {ops:.3e} ops in {dft_ms:.4f} ms = "
                 f"{ops / dft_ms / 1e9:.3f} TFLOP/s (a multiply and an add a "
@@ -839,7 +855,8 @@ class Smoke:
         step, state0, grid, coord, phis = build_step(
             im, jm, km, torch.float32, DEVICE, filter_impl="fft", cfg=cfg)
         expect = {"transport3d": 0, "vort_flux3d": 0,
-                  "tracer_div3d": n2 * nv * SPINUP,
+                  "tracer_div3d": (n2 * nv * SPINUP *
+                                   self.sk.LAUNCHES_PER_CALL["tracer_div3d"]),
                   "te_map_remap": nv * SPINUP,
                   **{k: self.ck.launches_per_call(k) * calls * SPINUP
                      for k in FUSED}}
@@ -898,6 +915,17 @@ class Smoke:
                                         reps, plain_reps)[0]
             if name in SPLIT:
                 self.split(name, f"{name}@{gname}", a, kw, 3)
+        # K1's and tracer_div3d's flags and caps with FFSL rows forced,
+        # and tracer_div3d with a polar band
+        for name in ("k1", "tracer_div3d"):
+            a, kw = last[name]
+            sa, skw, nrows = self.stressed(name, a, kw)
+            self.compare(f"{name}@{gname}+ffsl({nrows} rows)", name, sa,
+                         skw, "float32")
+        for vlabel, va, vkw in self.variants("tracer_div3d",
+                                             *last["tracer_div3d"], grid):
+            self.compare(f"{vlabel}@{gname}", "tracer_div3d", va, vkw,
+                         "float32")
         if gname == "f05":
             # where the row kernels' blocks are most numerous: K3's flags
             # and caps with FFSL rows forced, K2's finishing row kernel
@@ -906,8 +934,8 @@ class Smoke:
             self.compare(f"k3@{gname}+ffsl({nrows} rows)", "k3", sa, skw,
                          "float32")
             a, kw = last["k2"]
-            for vlabel, va in self.variants("k2", a, kw, grid):
-                self.compare(f"{vlabel}@{gname}", "k2", va, kw, "float32")
+            for vlabel, va, vkw in self.variants("k2", a, kw, grid):
+                self.compare(f"{vlabel}@{gname}", "k2", va, vkw, "float32")
         steady = sum(step_s[1:]) / (len(step_s) - 1)
         per_step = {n: times[n] * (calls if n in FUSED else
                                    n2 * nv if n == "tracer_div3d" else nv)
@@ -1254,18 +1282,21 @@ def run(torch) -> dict:
                 for dt in ("float32", "float64"):
                     sm.compare(f"{label}+ffsl({nrows} rows)", name, sa, skw,
                                dt)
-            for vlabel, va in sm.variants(name, a, kw, paths["fft"][2]):
+            for vlabel, va, vkw in sm.variants(name, a, kw,
+                                               paths["fft"][2]):
                 for dt in ("float32", "float64"):
-                    sm.compare(vlabel, name, va, kw, dt)
+                    sm.compare(vlabel, name, va, vkw, dt)
 
     # ---- phase 4: both HS paths through the kernels, counted
     with phase("4 HS paths at f19"):
+        # one tracer_div3d call a step, its row kernels' launches each
+        tracer_calls = NSTEPS * sm.sk.LAUNCHES_PER_CALL["tracer_div3d"]
         expect = {
             "matmul": {"transport3d": 8 * NSTEPS, "vort_flux3d": 4 * NSTEPS,
-                       "tracer_div3d": NSTEPS, "te_map_remap": NSTEPS,
+                       "tracer_div3d": tracer_calls, "te_map_remap": NSTEPS,
                        **{k: 0 for k in FUSED}},
             "fft": {"transport3d": 0, "vort_flux3d": 0,
-                    "tracer_div3d": NSTEPS, "te_map_remap": NSTEPS,
+                    "tracer_div3d": tracer_calls, "te_map_remap": NSTEPS,
                     **{k: 4 * sm.ck.launches_per_call(k) * NSTEPS
                        for k in FUSED}},
         }

@@ -15,16 +15,15 @@ against the JAX package's cd_pallas, float64 on the CPU at 36x24x6.
   cumsum associate the pressure sum differently.
 - Dry mass is conserved; the wrappers' checks refuse what the kernels
   cannot take; the default HS step runs the fused path.
-- csrc/cd_fused_kernels.cu built as host C++ (stub CUDA qualifiers, each
-  launch its blocks in turn, a block's threads as std::threads sharing
-  its shared memory and meeting at __syncthreads()) against the plain
-  versions: float64 within 1e-12 and float32 within 1e-5 of each
-  output's max; also K2 with the filter off and K3 with FFSL rows and a
-  polar band at orders 1 and 4.
+- csrc/cd_fused_kernels.cu built as host C++ (torch_port_util.host_build:
+  stub CUDA qualifiers, each launch its blocks in turn, a block's threads
+  as std::threads sharing its shared memory and meeting at
+  __syncthreads()) against the plain versions: float64 within 1e-12 and
+  float32 within 1e-5 of each output's max; also K1 with FFSL rows
+  without and with a polar band, K2 with the filter off and K3 with FFSL
+  rows and a polar band at orders 1 and 4.
 - On a card (marked `cuda`), each kernel against its plain version.
 """
-
-import re
 
 import numpy as np
 import pytest
@@ -36,9 +35,8 @@ from cam_nor_physics_tpu_torch.models.fv import cd_core as tcd
 from cam_nor_physics_tpu_torch.models.fv import cd_fused as tcf
 from cam_nor_physics_tpu_torch.models.fv import grid as tgrid
 from cam_nor_physics_tpu_torch.ops import cd_fused_kernels as ck
-from cam_nor_physics_tpu_torch.ops import cuda_build
 from conftest import run_test_in_subprocess
-from torch_port_util import assert_close, npy, t64
+from torch_port_util import assert_close, host_build, npy, t64
 
 pytest_plugins = ("torch_port_plugin",)
 
@@ -279,103 +277,15 @@ def test_wrappers_refuse_what_the_kernels_cannot_take():
         ck.k2(*d[:7], (d[7][0][:-1],) + tuple(d[7][1:]), *d[8:])
 
 
-# csrc/cd_fused_kernels.cu (with the headers it includes) as host C++: stub
-# CUDA qualifiers; each launch runs its blocks one after another, each
-# block's blockDim threads as std::threads that share the block's
-# __shared__ (static) data and meet at __syncthreads() (a std::barrier);
-# cp.async copies are plain copies (the sources' host branch).
-_HOST_STUBS = """
-#pragma once
-#include <barrier>
-#include <cmath>
-#include <cstddef>
-#include <cstdint>
-#include <thread>
-#include <vector>
-using std::pow; using std::log; using std::fabs; using std::trunc;
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __launch_bounds__(x)
-#define __restrict__
-#define __shared__ static
-#define __align__(n) __attribute__((aligned(n)))
-typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0 };
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-struct dim3 {
-  unsigned x, y, z;
-  constexpr dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1)
-      : x(a), y(b), z(c) {}
-};
-inline thread_local dim3 threadIdx, blockIdx;
-inline dim3 blockDim, gridDim;
-inline std::barrier<>* cam_block_barrier = nullptr;
-inline void __syncthreads() { cam_block_barrier->arrive_and_wait(); }
-inline long cam_host_launch_count = 0;
-extern "C" long cam_host_launches() { return cam_host_launch_count; }
-template <typename F>
-void cam_host_launch(F body, dim3 grid, dim3 block, size_t = 0,
-                     cudaStream_t = nullptr) {
-  ++cam_host_launch_count;
-  gridDim = grid;
-  blockDim = block;
-  const unsigned nt = block.x * block.y * block.z;
-  std::barrier<> bar(nt);
-  cam_block_barrier = &bar;
-  std::vector<std::thread> threads;
-  for (unsigned t = 0; t < nt; ++t)
-    threads.emplace_back([&, t] {
-      threadIdx = dim3(t % block.x, t / block.x % block.y,
-                       t / (block.x * block.y));
-      for (unsigned z = 0; z < grid.z; ++z)
-        for (unsigned y = 0; y < grid.y; ++y)
-          for (unsigned x = 0; x < grid.x; ++x) {
-            blockIdx = dim3(x, y, z);
-            body();
-            bar.arrive_and_wait();   // the block's shared data is free
-          }
-    });
-  for (auto& th : threads) th.join();
-}
-"""
-
-_LAUNCH = re.compile(r"(\w+<T>)<<<(.*?)>>>\((.*?)\);", re.S)
-# launch sites: K1 two, K2 three, K3 five, K4 four, the DFT filter two
-_N_LAUNCHES = 16
+# launch sites of csrc/cd_fused_kernels.cu and its headers: K1 one, K1's
+# and K3's transport rows five, K2 three, K4 four, the DFT filter two
+_N_LAUNCHES = 15
 
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    import ctypes
-    import shutil
-    import subprocess
-
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler")
-    tmp = tmp_path_factory.mktemp("cd_fused_host")
-    n = 0
-    for name in cuda_build.SOURCES["cd_fused_kernels"]:
-        src, k = _LAUNCH.subn(r"cam_host_launch([&] { \1(\3); }, \2);",
-                              (cuda_build.CSRC / name).read_text())
-        (tmp / name).write_text(src)
-        n += k
-    assert n == _N_LAUNCHES, n
-    (tmp / "cuda_runtime.h").write_text(_HOST_STUBS)
-    lib = tmp / "libcd_fused_host.so"
-    subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
-                    "-shared", "-pthread", "-I", str(tmp), "-o", str(lib),
-                    "-x", "c++", str(tmp / "cd_fused_kernels.cu")],
-                   check=True, timeout=300)
-    dll = ctypes.CDLL(str(lib))
-    dll.cam_host_launches.restype = ctypes.c_long
-    for stem, argtypes in cuda_build.SIGNATURES["cd_fused_kernels"]:
-        for suf in ("f32", "f64"):
-            fn = getattr(dll, f"{stem}_{suf}")
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return dll
+    return host_build("cd_fused_kernels",
+                      tmp_path_factory.mktemp("cd_fused_host"), _N_LAUNCHES)
 
 
 def _host_run(dll, name, args, dtype):
@@ -432,14 +342,32 @@ def test_cuda_source_arithmetic_on_the_host(name, host_lib):
 # flagged but lie outside the band
 FFSL_ROWS = [1, 2, 3, JM - 4, JM - 3, JM - 2]
 FFSL_BAND = 3
-ROW_CASES = ("k2_filter_off", "k3_ffsl_band_order1", "k3_ffsl_band_order4")
+# u added on FFSL_ROWS in K1's cases (m/s), on the western half of the
+# longitudes: its C-grid Courants, whose ua averages rows j and j+1,
+# exceed 1 on rows 1, 2 and JM-4..JM-2 (with the band, row JM-4 is flagged
+# but outside it), and where the raised winds end the mass flux diverges
+# enough that both of K1's floors, of delp and of pt, set points
+K1_RAISE = 2500.0
+K1_FFSL_ROWS = [1, 2, JM - 4, JM - 3, JM - 2]
+ROW_CASES = ("k1_ffsl", "k1_ffsl_band", "k2_filter_off",
+             "k3_ffsl_band_order1", "k3_ffsl_band_order4")
 
 
 def _row_case(case):
-    """(name, args, dyn_filter) of a K2 or K3 case beyond the fused step's
-    own calls: K2 with the polar filter off; K3 at iord = jord = 1 or 4
-    with FFSL rows forced and a polar band set."""
+    """(name, args, dyn_filter) of a K1, K2 or K3 case beyond the fused
+    step's own calls: K1 with u raised so that FFSL rows are flagged,
+    without and with a polar band; K2 with the polar filter off; K3 at
+    iord = jord = 1 or 4 with FFSL rows forced and a polar band set."""
     rec = _k_calls(BASE)
+    if case.startswith("k1"):
+        a = list(rec["k1"])
+        a[0] = a[0].clone()
+        a[0][:, FFSL_ROWS, :IM // 2] += K1_RAISE
+        a[8] = FFSL_BAND if case == "k1_ffsl_band" else None
+        crx = tcf.c_grid_courants(a[0], a[1], a[4], a[5])[2]
+        flagged = tcf._ffsl_rows(crx).any(0)
+        assert flagged.nonzero().flatten().tolist() == K1_FFSL_ROWS
+        return "k1", a, True
     if case == "k2_filter_off":
         a = list(rec["k2"])
         a[10] = False
@@ -456,9 +384,12 @@ def _row_case(case):
 
 @pytest.mark.parametrize("case", ROW_CASES)
 def test_cuda_source_row_kernel_cases_on_the_host(case, host_lib):
-    """The host build of K2 with the filter off (its row kernel finishes
-    the point) and of K3 with FFSL rows and a polar band, at orders 1 and
-    4, against the plain versions, as the test above holds them."""
+    """The host build of K1 with FFSL rows flagged (its transport at
+    order 1 takes the FFSL branch there), without and with a polar band,
+    of K2 with the filter off (its row
+    kernel finishes the point) and of K3 with FFSL rows and a polar band,
+    at orders 1 and 4, against the plain versions, as the test above holds
+    them."""
     name, args, dyn_filter = _row_case(case)
     _host_matches_plain(host_lib, name, args, dyn_filter)
 

@@ -8,7 +8,11 @@ relative to each output's largest magnitude: through the jnp path
 them with, and once per kernel through the Pallas kernel itself in
 interpret mode (as tests/test_pallas_kernels.py runs it). The CUDA kernels are held to the
 plain versions on the card (marked `cuda`, skipped without one; chip_smoke.py
-does the same at f19 shapes).
+does the same at f19 shapes). On the CPU, csrc/stencil_kernels.cu built as
+host C++ (torch_port_util.host_build) runs tracer_div3d's row kernels
+against tracer_div3d_ref: orders 1 and 4, FFSL rows on and off, a polar band
+on and off, two tracers; float64 within 1e-12 and float32 within 1e-5 of
+the output's max, three launches a call.
 """
 
 import jax
@@ -21,7 +25,7 @@ from cam_nor_physics_tpu.models.fv.grid import make_grid
 from cam_nor_physics_tpu.ops import pallas_kernels as pk
 from cam_nor_physics_tpu.ops import tp_core as jtp
 from cam_nor_physics_tpu_torch.ops import stencil_kernels as sk
-from torch_port_util import assert_close, slab_fields, t64
+from torch_port_util import assert_close, host_build, slab_fields, t64
 
 pytest_plugins = ("torch_port_plugin",)
 
@@ -142,6 +146,55 @@ def test_kernel_checks_refuse_unsupported_orders():
                   args[6], [], 4, 4)
 
 
+# launch sites of csrc/stencil_kernels.cu: transport and vort one each,
+# tracer_div3d three
+_N_LAUNCHES = 5
+# the polar band of the band cases: of the flagged rows 1-3 and JM-4..JM-2
+# (slab_fields), rows 1 and JM-2 take the FFSL branch
+TRACER_BAND = 2
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    return host_build("stencil_kernels",
+                      tmp_path_factory.mktemp("stencil_host"), _N_LAUNCHES)
+
+
+@pytest.mark.parametrize("band", [None, TRACER_BAND],
+                         ids=["no_band", "band"])
+@pytest.mark.parametrize("ffsl", [True, False], ids=["ffsl", "no_ffsl"])
+@pytest.mark.parametrize("order", [1, 4])
+def test_tracer_row_kernels_on_the_host(order, ffsl, band, host_lib):
+    """tracer_div3d's three row kernels of csrc/stencil_kernels.cu, built
+    for the host, against tracer_div3d_ref on two tracers, marshalled by
+    the wrapper's own launch function: float64 within 1e-12, float32
+    within 1e-5 of the output's max; a call makes
+    LAUNCHES_PER_CALL["tracer_div3d"] launches."""
+    f = slab_fields(KM, JM, IM, seed=11 + order,
+                    ffsl_rows=3 if ffsl else 0)
+    grid = make_grid(IM, JM, KM)
+    f.update(cosp=np.asarray(grid.cosp), acosp=np.asarray(grid.acosp),
+             rcap=float(grid.rcap))
+    f["udt"] = 450.0 * f["crx"]
+    f["yfx"] = f["cry"] * f["cosp"][:, None]
+    f["va"] = 0.5 * (f["cry"] + np.asarray(jtp.edge_north(f["cry"])))
+    f["ffsl"] = np.abs(f["crx"]).max(-1) > 1.0
+    assert f["q"].shape[0] == 2 and f["ffsl"].any() == ffsl
+    args = _torch(_tracer_args(f, order))
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        a = [x.to(dtype) if isinstance(x, torch.Tensor) and
+             x.is_floating_point() else x for x in args]
+        want = sk.tracer_div3d_ref(*a, band=band)
+        suf = "f32" if dtype == torch.float32 else "f64"
+        n0 = host_lib.cam_host_launches()
+        got = sk._run_tracer(getattr(host_lib, f"cam_tracer_div3d_{suf}"),
+                             None, *a, band)
+        assert (host_lib.cam_host_launches() - n0 ==
+                sk.LAUNCHES_PER_CALL["tracer_div3d"])
+        assert torch.isfinite(got).all()
+        assert_close(got, want, tol, f"tracer_div3d {dtype}")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(CASES))
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -158,6 +211,6 @@ def test_cuda_kernel_matches_plain_version(name, dtype, tol):
     got = getattr(sk, name)(*args, band=5)
     want = getattr(sk, name + "_ref")(*args, band=5)
     torch.cuda.synchronize()
-    assert getattr(sk, name).launches == n0 + 1
+    assert getattr(sk, name).launches == n0 + sk.LAUNCHES_PER_CALL[name]
     for i, (g, w) in enumerate(zip(_outputs(got), _outputs(want))):
         assert_close(g.cpu(), w.cpu(), tol, f"{name} output {i}")
