@@ -3,29 +3,48 @@
 // Replaces the Pallas TPU kernel _te_map_kernel (te_map_remap_pallas,
 // cam_nor_physics_tpu/ops/remap_pallas.py): PPM edges with the kord limiter,
 // then the cumulative mass of the piecewise-parabolic reconstruction at each
-// target interface (a clip-integral over all source cells, no search), for the
-// center fields (pt, tracers) on pe_s -> pe_t and for u / v on their own
-// staggered interface sets.
+// target interface, for the center fields (pt, tracers) on pe_s -> pe_t and
+// for u / v on their own staggered interface sets.
 //
-// Design. One thread per column: a column's km source cells are independent
-// of every other column, so the TPU's (km, block-of-columns) program becomes
-// a thread that keeps its column's reconstruction in local arrays and loops
-// over levels. In the natural (k, ncol) layout neighbouring threads read
-// neighbouring addresses, so every load and store is coalesced.
+// Design. One thread per (column, field), one launch for all fields: the
+// grid's x runs over blocks of columns and its y over the nf center fields,
+// then u, then v. Neighbouring threads take neighbouring columns of the
+// (k, ncol) layout, so every load and store is coalesced. A thread walks its
+// column once, top to bottom, with a sliding window in registers: q and
+// the interfaces at k..k+2, the limited slopes of k and k+1 and the edge
+// above k, with q and the interface at k+3 loaded one cell ahead. It keeps the
+// in-order sum P of the whole-cell masses above the current cell, the
+// column total of q dp, and a pointer kt to the next target interface. At
+// cell k it evaluates the clip fraction s of target kt in that cell (the
+// plain version's expression): while s < 1 the target lies in the cell, and
+// its cumulative mass is P plus the partial-cell term; once s = 1 the cell
+// is added to P and the walk moves down. That is O(km + km_t) work a
+// column and field, with no search and no per-thread arrays.
 //
-// Bound. The kernel reads 6 interface sets ((km+1) x ncol) and nf+2 fields
-// once and writes nf+2 fields once; its arithmetic is O(km * km_t) per column
-// and field (about 10 flops per source-target pair, ~7k per column at km=26),
-// 13,824 columns at f19: tens of MFLOP, so it is bound by the bytes, a few
-// microseconds at 3.35 TB/s. With 13,824 threads it fills the card only
-// partially; that and register spills of the km-long arrays are what a later
-// version would tune.
+// Exactness. The plain version (ops/remap_kernels.py::_remap_set_ref) sums
+// the clip integral over all km cells in index order. With monotone
+// interfaces and monotone rounding, every cell wholly above a target gets
+// s = 1 exactly and every cell wholly below it s = 0, whose term is a zero:
+// the plain fold c_0 + ... + c_j + 0 + ... equals P_j + c_j bit for bit, a
+// zero-thickness layer (dp = 0, divided by 1e-30) and a target on a source
+// interface included. So the kernel is bitwise equal to the plain version
+// on finite inputs with monotone pe_s and pe_t, as te_map's are. One case
+// differs: a non-finite edge value in a cell below a target made that
+// target's plain output NaN (0 * inf); the walk never evaluates that term.
+//
+// Bound. A call reads the 6 interface sets ((km+1) x ncol) and the nf+2
+// fields once and writes nf+2 fields once: at f19 (13,824 columns, km = 26,
+// nf = 2) about 20 MB in float32, 6 us at 3.35 TB/s. Its arithmetic (PPM
+// edges and limiter, ~40 operations a source cell; ~11 a target interface;
+// the walk's km + km_t comparisons) is under 1e8 operations, so the bytes
+// bound it. The walk's loads are a chain of km steps a thread; with
+// ncol (nf+2) threads (55,296 at f19) their latency, not the bytes, is what
+// holds it above the bound at the smallest grid.
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kMaxK = 64;       // remap_kernels.MAX_LEVELS: the wrapper refuses more
 constexpr int kThreads = 128;
 
 template <typename T>
@@ -39,91 +58,136 @@ __device__ __forceinline__ T tmin(T a, T b) { return a < b ? a : b; }
 template <typename T>
 __device__ __forceinline__ T tmax(T a, T b) { return a > b ? a : b; }
 
-// Remap one field of one column: q (km values at stride ncol) from source
-// interfaces ps to target interfaces pt (km + 1 values at stride ncol).
+// limited slope of an interior cell from its neighbours (zero in the end
+// cells, which the caller sets)
 template <typename T>
-__device__ void remap_column(const T* ps, const T* pt, const T* q, T* out,
-                             int km, int km_t, int ncol, int kord) {
-  T dp[kMaxK], qq[kMaxK], dm[kMaxK], al[kMaxK], half[kMaxK], third[kMaxK];
+__device__ __forceinline__ T slope(T qm, T q0, T qp) {
+  const T dqc = T(0.5) * ((qp - q0) + (q0 - qm));
+  const T qmax = tmax(tmax(qm, q0), qp) - q0;
+  const T qmin = q0 - tmin(tmin(qm, q0), qp);
+  return sgn(dqc) * tmin(tmin(fabs(dqc), qmax), qmin);
+}
+
+// the PPM edge between cells a (above) and b (below)
+template <typename T>
+__device__ __forceinline__ T edge(T qa, T qb, T dpa, T dpb, T dma, T dmb) {
+  return qa + dpa / (dpa + dpb) * (qb - qa) + (dma - dmb) * T(1.0 / 3.0);
+}
+
+// mass of the top fraction s of a cell with thickness dp and parabola
+// coefficients (al, half, third)
+template <typename T>
+__device__ __forceinline__ T part(T dp, T s, T al, T half, T third) {
+  return dp * (s * (al + s * (half - third * s)));
+}
+
+// Remap one field of one column: q (km values at stride ncol) from source
+// interfaces ps to target interfaces pt (km + 1 and km_t + 1 values at
+// stride ncol), in one walk down the column.
+template <typename T>
+__device__ void remap_walk(const T* __restrict__ ps, const T* __restrict__ pt,
+                           const T* __restrict__ q, T* __restrict__ out,
+                           int km, int km_t, int ncol, int kord) {
+  const size_t n = (size_t)ncol;
+  // window at cell k: q_0..q_2 = q[k..k+2], p_0..p_2 = ps[k..k+2], dp_0
+  // and dp_1 the thicknesses of k and k+1, dm_0 and dm_1 their limited
+  // slopes, e_top the unlimited edge above k (the edge below k-1)
+  T q_0 = q[0];
+  T q_1 = km > 1 ? q[n] : T(0);
+  T q_2 = km > 2 ? q[2 * n] : T(0);
+  T p_0 = ps[0], p_1 = ps[n];
+  T p_2 = km > 1 ? ps[2 * n] : T(0);
+  T dp_0 = p_1 - p_0, dp_1 = km > 1 ? p_2 - p_1 : T(0);
+  T dm_0 = T(0);
+  T dm_1 = 1 < km - 1 ? slope(q_0, q_1, q_2) : T(0);
+  T e_top = q_0;
+
+  T P = T(0), total = T(0), m_prev = T(0);
+  int kt = 1;                    // next target interface
+  T x_prev = pt[0];
+  T x = pt[(size_t)kt * n];
   for (int k = 0; k < km; ++k) {
-    dp[k] = ps[(k + 1) * ncol] - ps[k * ncol];
-    qq[k] = q[k * ncol];
-  }
-  // limited slopes (zero in the end cells)
-  for (int k = 0; k < km; ++k) {
-    if (k == 0 || k == km - 1) {
-      dm[k] = T(0);
-      continue;
-    }
-    const T dqc = T(0.5) * ((qq[k + 1] - qq[k]) + (qq[k] - qq[k - 1]));
-    const T qmax = tmax(tmax(qq[k - 1], qq[k]), qq[k + 1]) - qq[k];
-    const T qmin = qq[k] - tmin(tmin(qq[k - 1], qq[k]), qq[k + 1]);
-    dm[k] = sgn(dqc) * tmin(tmin(fabs(dqc), qmax), qmin);
-  }
-  // edges, limiter, and the parabola coefficients
-  T total = T(0);
-  for (int k = 0; k < km; ++k) {
-    total = total + qq[k] * dp[k];
-    const T q0 = qq[k];
-    T a_l, a_r, a6;
-    if (kord <= 2) {
-      a_l = q0 - dm[k];
-      a_r = q0 + dm[k];
-      a6 = T(0);
-    } else {
-      a_l = k == 0 ? q0
-                   : qq[k - 1] + dp[k - 1] / (dp[k - 1] + dp[k]) * (q0 - qq[k - 1]) +
-                         (dm[k - 1] - dm[k]) * T(1.0 / 3.0);
-      a_r = k == km - 1 ? q0
-                        : q0 + dp[k] / (dp[k] + dp[k + 1]) * (qq[k + 1] - q0) +
-                              (dm[k] - dm[k + 1]) * T(1.0 / 3.0);
-      a6 = T(3.0) * (q0 + q0 - (a_l + a_r));
-      if (kord == 3) {              // lmppm lmt = 0
-        const T da1 = a_r - a_l;
-        const T da2 = da1 * da1;
-        const T a6da = a6 * da1;
-        const bool lo = a6da < -da2, hi = a6da > da2, zero = dm[k] == T(0);
-        const T a6_lo = T(3.0) * (a_l - q0), ar_lo = a_l - a6_lo;
-        const T a6_hi = T(3.0) * (a_r - q0), al_hi = a_r - a6_hi;
-        const T a6n = zero ? T(0) : (lo ? a6_lo : (hi ? a6_hi : a6));
-        const T arn = zero ? q0 : (lo ? ar_lo : a_r);
-        const T aln = zero ? q0 : (hi ? al_hi : a_l);
-        a6 = a6n;
-        a_r = arn;
-        a_l = aln;
-      } else {                      // lmppm lmt >= 1
-        const T da1 = dm[k] + dm[k];
-        const T dl = sgn(da1) * tmin(fabs(da1), fabs(a_l - q0));
-        const T dr = sgn(da1) * tmin(fabs(da1), fabs(a_r - q0));
-        a_r = q0 + dr;
-        a_l = q0 - dl;
-        a6 = T(3.0) * (dl - dr);
+    // the cell three below, one step ahead of its use
+    const T q_3 = k + 3 < km ? q[(size_t)(k + 3) * n] : T(0);
+    const T p_3 = k + 3 <= km ? ps[(size_t)(k + 3) * n] : T(0);
+    total = total + q_0 * dp_0;
+    if (kt < km_t) {
+      // edges, limiter and parabola coefficients of cell k
+      T a_l, a_r, a6;
+      T e_bot = q_0;
+      if (kord <= 2) {
+        a_l = q_0 - dm_0;
+        a_r = q_0 + dm_0;
+        a6 = T(0);
+      } else {
+        if (k < km - 1) e_bot = edge(q_0, q_1, dp_0, dp_1, dm_0, dm_1);
+        a_l = e_top;
+        a_r = e_bot;
+        a6 = T(3.0) * (q_0 + q_0 - (a_l + a_r));
+        if (kord == 3) {            // lmppm lmt = 0
+          const T da1 = a_r - a_l;
+          const T da2 = da1 * da1;
+          const T a6da = a6 * da1;
+          const bool lo = a6da < -da2, hi = a6da > da2, zero = dm_0 == T(0);
+          const T a6_lo = T(3.0) * (a_l - q_0), ar_lo = a_l - a6_lo;
+          const T a6_hi = T(3.0) * (a_r - q_0), al_hi = a_r - a6_hi;
+          const T a6n = zero ? T(0) : (lo ? a6_lo : (hi ? a6_hi : a6));
+          const T arn = zero ? q_0 : (lo ? ar_lo : a_r);
+          const T aln = zero ? q_0 : (hi ? al_hi : a_l);
+          a6 = a6n;
+          a_r = arn;
+          a_l = aln;
+        } else {                    // lmppm lmt >= 1
+          const T da1 = dm_0 + dm_0;
+          const T dl = sgn(da1) * tmin(fabs(da1), fabs(a_l - q_0));
+          const T dr = sgn(da1) * tmin(fabs(da1), fabs(a_r - q_0));
+          a_r = q_0 + dr;
+          a_l = q_0 - dl;
+          a6 = T(3.0) * (dl - dr);
+        }
       }
-    }
-    al[k] = a_l;
-    half[k] = T(0.5) * ((a_r - a_l) + a6);
-    third[k] = a6 * T(1.0 / 3.0);
-  }
-  // cumulative mass at each target interface; the end interfaces are the
-  // column's top (0) and its full mass
-  T m_prev = T(0);
-  for (int kt = 1; kt <= km_t; ++kt) {
-    T m;
-    if (kt == km_t) {
-      m = total;
-    } else {
-      const T x = pt[kt * ncol];
-      m = T(0);
-      for (int k = 0; k < km; ++k) {
-        const T dps = dp[k] == T(0) ? T(1e-30) : dp[k];
-        T s = (x - ps[k * ncol]) / dps;
+      e_top = e_bot;
+      const T half = T(0.5) * ((a_r - a_l) + a6);
+      const T third = a6 * T(1.0 / 3.0);
+      const T dps = dp_0 == T(0) ? T(1e-30) : dp_0;
+      // the targets inside cell k, then the cell itself into P
+      for (;;) {
+        T s = (x - p_0) / dps;
         s = s < T(0) ? T(0) : (s > T(1) ? T(1) : s);
-        m = m + dp[k] * (s * (al[k] + s * (half[k] - third[k] * s)));
+        if (!(s < T(1))) {
+          P = P + part(dp_0, T(1), a_l, half, third);
+          break;
+        }
+        const T m = P + part(dp_0, s, a_l, half, third);
+        out[(size_t)(kt - 1) * n] = (m - m_prev) / (x - x_prev);
+        m_prev = m;
+        x_prev = x;
+        ++kt;
+        x = pt[(size_t)kt * n];
+        if (kt == km_t) break;
       }
     }
-    out[(kt - 1) * ncol] = (m - m_prev) / (pt[kt * ncol] - pt[(kt - 1) * ncol]);
-    m_prev = m;
+    // slide the window one cell down
+    q_0 = q_1;
+    q_1 = q_2;
+    q_2 = q_3;
+    p_0 = p_1;
+    p_1 = p_2;
+    p_2 = p_3;
+    dp_0 = dp_1;
+    dp_1 = k + 2 < km ? p_2 - p_1 : T(0);
+    dm_0 = dm_1;
+    dm_1 = k + 2 < km - 1 ? slope(q_0, q_1, q_2) : T(0);
   }
+  // targets below the last source interface take the whole column; the
+  // bottom interface the column's total
+  for (; kt < km_t; ++kt) {
+    out[(size_t)(kt - 1) * n] = (P - m_prev) / (x - x_prev);
+    m_prev = P;
+    x_prev = x;
+    x = pt[(size_t)(kt + 1) * n];
+  }
+  out[(size_t)(km_t - 1) * n] = (total - m_prev) / (x - x_prev);
 }
 
 template <typename T>
@@ -137,14 +201,24 @@ te_map_kernel(const T* __restrict__ pe_s, const T* __restrict__ pe_t,
               T* __restrict__ v_out) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= ncol) return;
-  for (int f = 0; f < nf; ++f)
-    remap_column(pe_s + col, pe_t + col, cen + (size_t)f * km * ncol + col,
-                 cen_out + (size_t)f * km_t * ncol + col, km, km_t, ncol,
-                 kord);
-  remap_column(pe_su + col, pe_tu + col, u + col, u_out + col, km, km_t, ncol,
-               kord);
-  remap_column(pe_sv + col, pe_tv + col, v + col, v_out + col, km, km_t, ncol,
-               kord);
+  const int f = blockIdx.y;
+  const T *ps = pe_s, *pt = pe_t, *q;
+  T* out;
+  if (f < nf) {
+    q = cen + (size_t)f * km * ncol;
+    out = cen_out + (size_t)f * km_t * ncol;
+  } else if (f == nf) {
+    ps = pe_su;
+    pt = pe_tu;
+    q = u;
+    out = u_out;
+  } else {
+    ps = pe_sv;
+    pt = pe_tv;
+    q = v;
+    out = v_out;
+  }
+  remap_walk(ps + col, pt + col, q + col, out + col, km, km_t, ncol, kord);
 }
 
 template <typename T>
@@ -152,7 +226,7 @@ int launch_te_map(const T* pe_s, const T* pe_t, const T* pe_su,
                   const T* pe_tu, const T* pe_sv, const T* pe_tv, const T* cen,
                   const T* u, const T* v, int nf, int km, int km_t, int ncol,
                   int kord, T* cen_out, T* u_out, T* v_out, void* stream) {
-  const int blocks = (ncol + kThreads - 1) / kThreads;
+  const dim3 blocks((ncol + kThreads - 1) / kThreads, nf + 2);
   te_map_kernel<T><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       pe_s, pe_t, pe_su, pe_tu, pe_sv, pe_tv, cen, u, v, nf, km, km_t, ncol,
       kord, cen_out, u_out, v_out);

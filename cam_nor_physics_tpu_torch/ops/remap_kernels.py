@@ -3,8 +3,10 @@
 Twin of `cam_nor_physics_tpu.ops.remap_pallas`. `te_map_remap` remaps the
 center fields (pt, tracers) on pe_s -> pe_t and u / v on their own
 edge-averaged interface sets, all in the natural (k, ncol) layout. CUDA
-tensors launch csrc/remap_kernels.cu (one thread per column); CPU tensors
-take `te_map_remap_ref`. A kernel that does not build or launch raises.
+tensors launch csrc/remap_kernels.cu: one launch a call, one thread per
+column and field, each walking its column once (O(km + km_t) work), bitwise
+equal to `te_map_remap_ref` on monotone interfaces. CPU tensors take
+`te_map_remap_ref`. A kernel that does not build or launch raises.
 `te_map_remap.launches` counts the kernel's launches.
 """
 
@@ -15,7 +17,9 @@ import torch
 from . import cuda_build
 from .remap import _ppm_edges_nonuniform
 
-MAX_LEVELS = 64        # kMaxK in csrc/remap_kernels.cu
+# The kernel's walk keeps no per-level arrays, so nothing in it bounds the
+# levels; the limit stays the wrapper's contract (and its refusal tests')
+MAX_LEVELS = 64
 
 
 def _seq_sum(x, dim: int):
@@ -62,8 +66,8 @@ def _check(pe_s, pe_t, pe_su, pe_tu, pe_sv, pe_tv, cen, u, v):
     for CPU tensors too, so the CPU runs hold te_map to the contract."""
     km, ncol = u.shape
     km_t = pe_t.shape[0] - 1
-    if km > MAX_LEVELS or km_t > MAX_LEVELS:
-        raise ValueError(f"te_map_remap: the CUDA kernel takes at most "
+    if min(km, km_t) < 1 or km > MAX_LEVELS or km_t > MAX_LEVELS:
+        raise ValueError(f"te_map_remap: the CUDA kernel takes 1 to "
                          f"{MAX_LEVELS} levels, got {km} -> {km_t}")
     if u.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"te_map_remap: float32 or float64 expected, got "
@@ -94,24 +98,34 @@ def te_map_remap(pe_s, pe_t, pe_su, pe_tu, pe_sv, pe_tv, center_fields,
     if not u.is_cuda:
         return te_map_remap_ref(pe_s, pe_t, pe_su, pe_tu, pe_sv, pe_tv,
                                 center_fields, u, v, kord)
+    lib = cuda_build.library("remap_kernels")
+    suf = "f32" if u.dtype == torch.float32 else "f64"
+    out = _run(getattr(lib, f"cam_te_map_remap_{suf}"),
+               torch.cuda.current_stream(u.device).cuda_stream, pe_s, pe_t,
+               pe_su, pe_tu, pe_sv, pe_tv, cen, u, v, kord)
+    te_map_remap.launches += 1
+    return out
+
+
+def _run(fn, stream, pe_s, pe_t, pe_su, pe_tu, pe_sv, pe_tv, cen, u, v,
+         kord):
+    """te_map_remap's launch: allocate the outputs and call `fn`, the C
+    entry in csrc/remap_kernels.cu, on `stream` (the CPU test of the source
+    calls it with a host build of it)."""
     km, ncol = u.shape
     km_t = pe_t.shape[0] - 1
     nf = cen.shape[0]
     cen_out = torch.empty((nf, km_t, ncol), dtype=u.dtype, device=u.device)
     u_out = torch.empty((km_t, ncol), dtype=u.dtype, device=u.device)
     v_out = torch.empty_like(u_out)
-    lib = cuda_build.library("remap_kernels")
-    suf = "f32" if u.dtype == torch.float32 else "f64"
-    rc = getattr(lib, f"cam_te_map_remap_{suf}")(
-        pe_s.data_ptr(), pe_t.data_ptr(), pe_su.data_ptr(), pe_tu.data_ptr(),
-        pe_sv.data_ptr(), pe_tv.data_ptr(), cen.data_ptr(), u.data_ptr(),
-        v.data_ptr(), nf, km, km_t, ncol, kord, cen_out.data_ptr(),
-        u_out.data_ptr(), v_out.data_ptr(),
-        torch.cuda.current_stream(u.device).cuda_stream)
+    rc = fn(pe_s.data_ptr(), pe_t.data_ptr(), pe_su.data_ptr(),
+            pe_tu.data_ptr(), pe_sv.data_ptr(), pe_tv.data_ptr(),
+            cen.data_ptr(), u.data_ptr(), v.data_ptr(), nf, km, km_t, ncol,
+            kord, cen_out.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
+            stream)
     if rc != 0:
         raise RuntimeError(f"te_map_remap: CUDA kernel launch failed with "
                            f"cudaError {rc}")
-    te_map_remap.launches += 1
     return list(cen_out.unbind(0)), u_out, v_out
 
 

@@ -5,7 +5,9 @@ Twin of `cam_nor_physics_tpu.models.physics.zm_tail_pallas`. `zm_tail`
 computes, in one launch, zm_conv_evap (old_snow path), momtran of u and v
 and convtran pass 1 of the stacked tracers (fracis = 1, wet dp), with the
 JAX signature and return value `(ev, mt, dq_tr)`. CUDA tensors launch
-csrc/zm_tail_kernels.cu (one thread per column); CPU tensors take
+csrc/zm_tail_kernels.cu: one launch a call, a block a tile of neighbouring
+columns staged through shared memory with coalesced loads and stores, its
+recursions one thread per (column, chain); CPU tensors take
 `zm_tail_ref`, the port's zm_conv_evap, momtran and convtran_single. A
 kernel that does not build or launch raises. `zm_tail.launches` counts the
 kernel's launches.
@@ -20,7 +22,8 @@ from ..models.physics.zm_transport import convtran_single, momtran
 from ..utils.config import ZMConfig
 from . import cuda_build
 
-MAX_LEVELS = 64        # kMaxK in csrc/zm_tail_kernels.cu
+# kMaxK in csrc/zm_tail_kernels.cu: its launch refuses more
+MAX_LEVELS = 64
 
 # the kernel's (ncol, pver) output rows, in csrc order
 MID_OUT = ("tend_s", "tend_q", "tend_s_snwprd", "tend_s_snwevmlt",
@@ -91,6 +94,21 @@ def zm_tail(cfg: ZMConfig, t1, qv1, pmid, pdel, u, v, q_tr, cld,
         return zm_tail_ref(cfg, t1, qv1, pmid, pdel, u, v, q_tr, cld, mu, md,
                            du, eu, ed, dp, jt, mx, rprd, prec_in, landfrac,
                            ztodt)
+    lib = cuda_build.library("zm_tail_kernels")
+    suf = "f32" if t1.dtype == torch.float32 else "f64"
+    out = _run(getattr(lib, f"cam_zm_tail_{suf}"),
+               torch.cuda.current_stream(t1.device).cuda_stream, cfg, t1,
+               qv1, pmid, pdel, u, v, q_tr, cld, mu, md, du, eu, ed, dp, jt,
+               mx, rprd, prec_in, landfrac, ztodt)
+    zm_tail.launches += 1
+    return out
+
+
+def _run(fn, stream, cfg, t1, qv1, pmid, pdel, u, v, q_tr, cld, mu, md, du,
+         eu, ed, dp, jt, mx, rprd, prec_in, landfrac, ztodt):
+    """zm_tail's launch: allocate the outputs, call `fn`, the C entry in
+    csrc/zm_tail_kernels.cu, on `stream` (the CPU test of the source calls
+    it with a host build of it), and unpack (ev, mt, dq_tr)."""
     ncol, pver = t1.shape
     ntr = q_tr.shape[2]
     mid = torch.empty((len(MID_OUT), ncol, pver), dtype=t1.dtype,
@@ -99,19 +117,15 @@ def zm_tail(cfg: ZMConfig, t1, qv1, pmid, pdel, u, v, q_tr, cld,
     dq = torch.empty((ncol, pver, ntr), dtype=t1.dtype, device=t1.device)
     jt64 = jt.to(torch.int64).contiguous()
     mx64 = mx.to(torch.int64).contiguous()
-    lib = cuda_build.library("zm_tail_kernels")
-    suf = "f32" if t1.dtype == torch.float32 else "f64"
-    rc = getattr(lib, f"cam_zm_tail_{suf}")(
-        *[a.data_ptr() for _, a in mids], q_tr.data_ptr(),
-        landfrac.data_ptr(), prec_in.data_ptr(), jt64.data_ptr(),
-        mx64.data_ptr(), ncol, pver, ntr, int(cfg.org), float(cfg.ke),
-        float(cfg.ke_lnd), float(cfg.momcu), float(cfg.momcd), float(ztodt),
-        mid.data_ptr(), flx.data_ptr(), dq.data_ptr(),
-        torch.cuda.current_stream(t1.device).cuda_stream)
+    rc = fn(*[a.data_ptr() for a in (t1, qv1, pmid, pdel, u, v, cld, rprd,
+                                     mu, md, du, eu, ed, dp, q_tr, landfrac,
+                                     prec_in, jt64, mx64)],
+            ncol, pver, ntr, int(cfg.org), float(cfg.ke), float(cfg.ke_lnd),
+            float(cfg.momcu), float(cfg.momcd), float(ztodt),
+            mid.data_ptr(), flx.data_ptr(), dq.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"zm_tail: CUDA kernel launch failed with "
                            f"cudaError {rc}")
-    zm_tail.launches += 1
     o = dict(zip(MID_OUT, mid.unbind(0)))
     ev = {k: o[k] for k in MID_OUT[:6]}
     ev["flxprec"], ev["flxsnow"] = flx.unbind(0)

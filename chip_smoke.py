@@ -22,8 +22,8 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
    polar filter off, K4 with the avg_sq KE and del4 damping, K3 at
    order 1 and tracer_div3d with FFSL rows and a polar band; float32
    within 1e-5 and float64 within 1e-12 of each output's max magnitude,
-   and K1, K2, K3 and (in float32) tracer_div3d bitwise (max abs error
-   0);
+   and K1, K2, K3, te_map_remap and (in float32) tracer_div3d bitwise
+   (max abs error 0);
 4. runs both HS paths, build_step(144, 96, 26, float32, "cuda",
    filter_impl=...) for 4 large steps (2 model hours) each, with the
    launch counts set to 0 just before and read just after: the unfused
@@ -41,7 +41,8 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
    the fused path against the unfused formulation (cd_step fused=False)
    from the same state, within 1e-7 of each field's max
    (tests/test_cd_pallas.py);
-5. times each kernel and its plain version (CUDA events) and both steps;
+5. times each kernel and its plain version (CUDA events) and both steps,
+   te_map_remap's device time too (torch.profiler);
    K1's, K2's, K3's, K4's and tracer_div3d's device time split by the
    kernels they launch (torch.profiler): the column passes and row
    kernels against K2's and K4's two DFT products, and the products' rate
@@ -53,7 +54,8 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
    land/ocean, every fourth column stable; seed 0): float32 within 1e-5,
    float64 within 1e-12 of each output's max (a surface rate, prec or
    snow, that is 0 everywhere in the plain version: of its column flux's
-   max / 1000);
+   max / 1000); the largest absolute error is printed beside each gate,
+   and whether it is 0;
 7. runs the ZM step, build_zm_step(13824, 26, float32, "cuda"), once on
    those inputs with the launch counts set to 0 just before and read just
    after: exactly 1 zm_tail launch, a triggered share strictly inside
@@ -61,7 +63,8 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
    same call through the plain tail, float32 and float64, on the ptend's
    s, u, v and q per species and the pbuf stores PREC_DP, SNOW_DP,
    DP_FLXPRC, DP_FLXSNW and NEVAPR_DPCU, with the gates of item 6;
-8. times zm_tail and zm_tail_ref (CUDA events), zm_conv_tend per call
+8. times zm_tail and zm_tail_ref (CUDA events; zm_tail's device time by
+   torch.profiler), zm_conv_tend per call
    (host clock, synchronised, mean of 3 after 1 warm-up) and zm_convr's
    share of it (timed inside 3 more calls),
    and the main path's grid points per second,
@@ -83,11 +86,15 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
     through the kernels with exact launch counts, finite fields and
     dry-mass drift <= 1e-5; then one call each of K1-K4, tracer_div3d and
     te_map_remap, on the inputs of the next step, against its plain
-    version (float32 gate of item 3) and timed beside its bound, with
+    version (float32 gate of item 3; te_map_remap in float64 too) and
+    timed beside its bound, with
     K1-K4's share of the step by kernel, and the splits of item 5; K1 and
     tracer_div3d also with FFSL rows forced and tracer_div3d with a polar
     band, and at f05 K3 with FFSL rows forced and K2 with the filter off
-    (float32, bitwise);
+    (float32, bitwise); then zm_tail against zm_tail_ref on the inputs the
+    port's zm_convr gives it on entry.varied_zm_inputs at the grid's
+    columns and levels (f09 55,296 x 26, f05 221,184 x 32, the bench's ZM
+    step there), float32 gate of item 6, timed beside its bound;
 12. runs the port's bench (cam_nor_physics_tpu_torch.bench.run) at f19
     once, with the launch counts set to 0 just before and read just
     after: the probe exactly once, every kernel of the fused path at
@@ -123,7 +130,8 @@ TOL = {"float32": 1e-5, "float64": 1e-12}
 # (tracer_div3d within TOL in float64: its caps sum a float64 row in index
 # order, torch.sum as a tree)
 BOTH = ("float32", "float64")
-EXACT = {"k1": BOTH, "k2": BOTH, "k3": BOTH, "tracer_div3d": ("float32",)}
+EXACT = {"k1": BOTH, "k2": BOTH, "k3": BOTH, "tracer_div3d": ("float32",),
+         "te_map_remap": BOTH}
 # kernels whose device time is split by kernel
 SPLIT = ("k1", "k2", "k3", "k4", "tracer_div3d")
 DRIFT_TOL = 1e-5
@@ -581,12 +589,12 @@ class Smoke:
         ins = [x for x in self.flat(list(a)) if isinstance(x, torch.Tensor)]
         nbytes = sum(t.numel() * t.element_size() for t in ins + out)
         if name == "te_map_remap":
-            # what the remap needs, not the kernel's all-pairs clip
-            # integral: pe_s and pe_t are monotone, so one merge pass and a
-            # prefix sum give each target interface's mass. Per column and
-            # field: PPM edges and limiter (~40 per source cell), ~11 for
-            # the partial cell at each target interface, and the merge's
-            # km + km_t + 1 comparisons plus the prefix sum's km additions
+            # what the remap needs: pe_s and pe_t are monotone, so one
+            # merge pass and a prefix sum give each target interface's mass
+            # (the kernel's walk). Per column and field: PPM edges and
+            # limiter (~40 per source cell), ~11 for the partial cell at
+            # each target interface, and the merge's km + km_t + 1
+            # comparisons plus the prefix sum's km additions
             km, ncol = a[7].shape
             km_t = a[1].shape[0] - 1
             nf = len(a[6]) + 2
@@ -691,6 +699,21 @@ class Smoke:
                 f"{ops / dft_ms / 1e9:.3f} TFLOP/s (a multiply and an add a "
                 f"term; FP32 lanes' ceiling without fused multiply-add "
                 f"{PEAK_F32_OPS / 2e12:.1f})")
+
+    def device_ms(self, label, fn, a, kw, key, reps=20):
+        """Device ms a launch of the kernel whose name holds `key` (one a
+        call of fn; torch.profiler, the mean over the launches it
+        recorded), beside the CUDA-event time that carries the wrapper's
+        host path; logs it and returns it."""
+        times, _ = kernel_times(self.torch, lambda: fn(*a, **kw), reps)
+        mine = [(c, us) for n, (c, us) in times.items() if key in n]
+        if not mine:
+            raise RuntimeError(f"{label}: the profiler recorded no {key}")
+        n = sum(c for c, _ in mine)
+        ms = sum(us for _, us in mine) / 1e3 / n
+        log(f"device {label:<16} {ms:.4f} ms a call ({n} launches of {key} "
+            f"recorded in {reps} calls)  [{self.card}]")
+        return ms
 
     def time_row(self, label, name, a, kw, reps, plain_reps):
         """Times one kernel call and its plain version (CUDA events) and
@@ -911,8 +934,13 @@ class Smoke:
         for name in FUSED + ("tracer_div3d", "te_map_remap"):
             a, kw = last[name]
             self.compare(f"{name}@{gname}", name, a, kw, "float32")
+            if name == "te_map_remap":
+                self.compare(f"{name}@{gname}", name, a, kw, "float64")
             times[name] = self.time_row(f"{name}@{gname}", name, a, kw,
                                         reps, plain_reps)[0]
+            if name == "te_map_remap":
+                self.device_ms(f"{name}@{gname}", self.kernel(name), a, kw,
+                               "te_map_kernel", 5)
             if name in SPLIT:
                 self.split(name, f"{name}@{gname}", a, kw, 3)
         # K1's and tracer_div3d's flags and caps with FFSL rows forced,
@@ -1037,23 +1065,25 @@ class ZMSmoke:
             abs_err = max(abs_err, d)
         return rel, abs_err
 
-    def gate(self, label, rel, dtype_name):
+    def gate(self, label, rel, dtype_name, abs_err):
         worst = max(rel, key=rel.get)
         ok = rel[worst] <= TOL[dtype_name]
-        log(f"check {label:<24} {dtype_name}: max_rel_err={rel[worst]:.3e} "
-            f"({worst}) tol={TOL[dtype_name]:.0e} {'ok' if ok else 'FAIL'}")
+        log(f"check {label:<24} {dtype_name}: max_abs_err={abs_err:.3e} "
+            f"({'exact' if abs_err == 0.0 else 'not exact'}) "
+            f"max_rel_err={rel[worst]:.3e} ({worst}) "
+            f"tol={TOL[dtype_name]:.0e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"{label} {dtype_name}: kernel disagrees with "
                                f"its plain version: {rel}")
 
-    def compare_tail(self, a, kw, dtype_name):
+    def compare_tail(self, a, kw, dtype_name, label="zm_tail"):
         a, kw = self.sm.cast(a, kw, getattr(self.torch, dtype_name))
         got = self.tail_outputs(self.tk.zm_tail(*a, **kw))
         want = self.tail_outputs(self.tk.zm_tail_ref(*a, **kw))
         self.torch.cuda.synchronize()
         rel, abs_err = self.rel_errors(
             got, want, {"prec": "flxprec", "snow": "flxsnow"})
-        self.gate("zm_tail", rel, dtype_name)
+        self.gate(label, rel, dtype_name, abs_err)
         return abs_err
 
     def compare_tend(self, inputs, dtype_name):
@@ -1061,10 +1091,10 @@ class ZMSmoke:
         with self.routed(self.tk.zm_tail_ref):
             want = self.tend_outputs(self.tend(*inputs))
         self.torch.cuda.synchronize()
-        rel, _ = self.rel_errors(got, want,
-                                 {"pbuf.PREC_DP": "pbuf.DP_FLXPRC",
-                                  "pbuf.SNOW_DP": "pbuf.DP_FLXSNW"})
-        self.gate("zm_conv_tend", rel, dtype_name)
+        rel, abs_err = self.rel_errors(got, want,
+                                       {"pbuf.PREC_DP": "pbuf.DP_FLXPRC",
+                                        "pbuf.SNOW_DP": "pbuf.DP_FLXSNW"})
+        self.gate("zm_conv_tend", rel, dtype_name, abs_err)
 
     def work(self, a, kw):
         """(bytes, operations) of one tail call: inputs read once, outputs
@@ -1076,6 +1106,19 @@ class ZMSmoke:
         t1, q_tr = a[1], a[7]          # zm_tail(cfg, t1, qv1, ..., q_tr, ...)
         ops = t1.numel() * (OPS_TAIL_POINT + OPS_TAIL_TRACER * q_tr.shape[2])
         return nbytes, ops
+
+    def time_tail(self, label, a, kw, reps, plain_reps):
+        """zm_tail's and zm_tail_ref's time a call (CUDA events) beside the
+        call's bound; returns (ms, plain ms, bound ms, bound_by)."""
+        sm = self.sm
+        ms = sm.time_call(self.tk.zm_tail, a, kw, reps)
+        plain_ms = sm.time_call(self.tk.zm_tail_ref, a, kw, plain_reps)
+        nbytes, ops = self.work(a, kw)
+        bound, bound_by = sm.bound(nbytes, ops)
+        log(f"time {label:<18} kernel {ms:.4f} ms  plain {plain_ms:.4f} "
+            f"ms  bound {bound:.5f} ms by {bound_by} ({nbytes} B, {ops:.3e} "
+            f"ops)  [{sm.card}]")
+        return ms, plain_ms, bound, bound_by
 
     def time_host(self, fn, calls):
         """Mean seconds of `calls` synchronised calls after one warm-up."""
@@ -1147,13 +1190,8 @@ def run_zm(torch, sm: Smoke, card: str) -> dict:
                     "float64")
 
     # ---- phase 8: times
-    ms = sm.time_call(zm.tk.zm_tail, a, kw, 50)
-    plain_ms = sm.time_call(zm.tk.zm_tail_ref, a, kw, 5)
-    nbytes, ops = zm.work(a, kw)
-    bound, bound_by = sm.bound(nbytes, ops)
-    log(f"time zm_tail            kernel {ms:.4f} ms  plain {plain_ms:.4f} "
-        f"ms  bound {bound:.5f} ms by {bound_by} ({nbytes} B, {ops:.3e} "
-        f"ops)  [{card}]")
+    ms, plain_ms, bound, bound_by = zm.time_tail("zm_tail", a, kw, 50, 5)
+    sm.device_ms("zm_tail", zm.tk.zm_tail, a, kw, "zm_tail_kernel")
     tend_s, tend_all = zm.time_host(lambda: zstep(*inputs), ZM_CALLS)
     convr_s, call_s = zm.convr_share(lambda: zstep(*inputs), ZM_CALLS)
     log(f"zm_conv_tend per call [{card}]: {1e3 * tend_s:.2f} ms (mean of "
@@ -1167,6 +1205,22 @@ def run_zm(torch, sm: Smoke, card: str) -> dict:
                     "plain_ms": plain_ms, "bound_ms": bound,
                     "bound_by": bound_by},
             "zm_s": tend_s, "step": lambda: zstep(*inputs)}
+
+
+def run_zm_grid(torch, sm: Smoke, gname: str) -> None:
+    """Phase 11's ZM part: zm_tail against zm_tail_ref (float32 gate) on
+    the inputs the port's zm_convr gives it on entry.varied_zm_inputs at
+    grid `gname`'s columns and levels, timed beside its bound."""
+    from cam_nor_physics_tpu_torch.bench import GRIDS
+    from cam_nor_physics_tpu_torch.entry import varied_zm_inputs
+    im, jm, km, _ = GRIDS[gname]
+    zm = ZMSmoke(torch, sm)
+    a, kw = zm.capture(*varied_zm_inputs(im * jm, km, torch.float32,
+                                         DEVICE))
+    zm.compare_tail(a, kw, "float32", f"zm_tail@{gname}")
+    zm.time_tail(f"zm_tail@{gname}", a, kw, *BEYOND_REPS[gname])
+    sm.device_ms(f"zm_tail@{gname}", zm.tk.zm_tail, a, kw, "zm_tail_kernel",
+                 5)
 
 
 def kernel_times(torch, fn, reps=1):
@@ -1314,6 +1368,8 @@ def run(torch) -> dict:
         for label, name, a, kw in cases:
             rows.append((label, name,
                          *sm.time_row(label, name, a, kw, 50, 5)))
+            if name == "te_map_remap":
+                sm.device_ms(label, sm.kernel(name), a, kw, "te_map_kernel")
             if name in SPLIT:
                 sm.split(name, label, a, kw, 10)
         steady = runs["fft"]["steady"]
@@ -1354,8 +1410,10 @@ def run(torch) -> dict:
 
     # ---- phase 11: the bench's HS step at f09 and f05, FVConfig()'s splits
     for gname in BEYOND:
-        with phase(f"11 HS step at {gname}"):
+        with phase(f"11 HS step and zm_tail at {gname}"):
             sm.run_grid(gname)
+            torch.cuda.empty_cache()
+            run_zm_grid(torch, sm, gname)
         torch.cuda.empty_cache()
 
     # ---- phase 12: the port's bench at f19, its main path counted

@@ -7,6 +7,9 @@ te_map_remap_ref (the plain version of the te_map CUDA kernel) is held to
 the Pallas kernel run by the interpreter (te_map_remap_pallas(interpret=
 True)) and to ops/remap.py's ppm_remap/ppm_remap_multi, on random columns
 whose source and target interfaces share their end points, as te_map's do.
+The kernel's source, csrc/remap_kernels.cu built as host C++
+(torch_port_util.host_build), is held bitwise to te_map_remap_ref in
+float32 and float64 (`HOST_CASES`).
 """
 
 import jax.numpy as jnp
@@ -30,7 +33,7 @@ from cam_nor_physics_tpu_torch.models.fv import vertical as tvert
 from cam_nor_physics_tpu_torch.ops import fill as tfill
 from cam_nor_physics_tpu_torch.ops import remap as tremap
 from cam_nor_physics_tpu_torch.ops import remap_kernels as trk
-from torch_port_util import assert_close, t64
+from torch_port_util import assert_close, host_build, t64
 
 pytest_plugins = ("torch_port_plugin",)
 
@@ -149,3 +152,140 @@ def test_hs_forcing_and_initial_state_match_jax():
                           jg, jc.ptop, 1800.0)
     for f in ("u", "v", "pt"):
         assert_close(getattr(got, f), getattr(want, f), 1e-14, f)
+
+
+def test_te_map_remap_refuses_what_the_kernel_cannot_take():
+    pes, fields, u, v = _remap_inputs(seed=1, km=4, ncol=6)
+    args = [t64(p) for p in pes] + [[t64(f) for f in fields], t64(u),
+                                     t64(v)]
+    bad = list(args)
+    bad[8] = bad[8].float()
+    with pytest.raises(TypeError, match="v is torch.float32"):
+        trk.te_map_remap(*bad)
+    bad = list(args)
+    bad[0] = bad[0].T.contiguous().T
+    with pytest.raises(ValueError, match="pe_s"):
+        trk.te_map_remap(*bad)
+    km = trk.MAX_LEVELS + 1
+    deep = [torch.zeros((km + 1, 3), dtype=torch.float64)] * 6 + \
+        [[torch.zeros((km, 3), dtype=torch.float64)]] + \
+        [torch.zeros((km, 3), dtype=torch.float64)] * 2
+    with pytest.raises(ValueError, match="levels"):
+        trk.te_map_remap(*deep)
+
+
+# te_map_remap's CUDA source as host C++ against te_map_remap_ref, bitwise,
+# at 10 levels and 40 columns (one ragged block of 128 threads). Each case:
+# (kord, nf, km_t, what else the inputs hold)
+HOST_KM, HOST_NCOL = 10, 40
+HOST_CASES = {
+    "kord2": (2, 2, HOST_KM, ()),
+    "kord3": (3, 2, HOST_KM, ()),
+    "kord4": (4, 2, HOST_KM, ()),
+    "nf1": (4, 1, HOST_KM, ()),
+    "nf3_zero_tracer": (4, 3, HOST_KM, ("zero_tracer",)),
+    "zero_layer_kord3": (3, 2, HOST_KM, ("zero_layer",)),
+    "zero_layer_kord4": (4, 2, HOST_KM, ("zero_layer",)),
+    "target_on_source": (4, 2, HOST_KM, ("on_source",)),
+    "fewer_targets": (3, 2, 7, ()),
+    "more_targets": (4, 2, 13, ("on_source",)),
+}
+
+
+def _host_inputs(kord, nf, km_t, extra, seed):
+    """te_map-like (k, ncol) inputs: six monotone interface sets sharing
+    their end points, pt-like center fields, a tracer, u and v."""
+    rng = np.random.default_rng(seed)
+    km, ncol = HOST_KM, HOST_NCOL
+    pes = [_interfaces(rng, n, ncol, j) for n, j in
+           ((km, 0.3), (km_t, 0.1), (km, 0.3), (km_t, 0.2), (km, 0.3),
+            (km_t, 0.1))]
+    if "zero_layer" in extra:
+        # zero-thickness source layers, none adjacent to another: at the
+        # top, inside and at the bottom of the column, each in some columns
+        for src in pes[0::2]:
+            src[1, :8] = src[0, :8]
+            src[5, 10:25] = src[4, 10:25]
+            src[km - 1, 30:] = src[km, 30:]
+    if "on_source" in extra:
+        # targets exactly on source interfaces in every other column
+        for src, tgt in zip(pes[0::2], pes[1::2]):
+            n = min(km, km_t)
+            tgt[2:n - 1, ::2] = src[2:n - 1, ::2]
+            tgt[:] = np.sort(tgt, axis=0)
+    fields = [250.0 + 30.0 * rng.standard_normal((km, ncol))]
+    fields += [rng.uniform(0.0, 1e-2, (km, ncol)) for _ in range(nf - 1)]
+    if "zero_tracer" in extra:
+        fields[-1] = np.zeros((km, ncol))
+    u = 10.0 * rng.standard_normal((km, ncol))
+    v = 10.0 * rng.standard_normal((km, ncol))
+    return pes, fields, u, v
+
+
+@pytest.fixture(scope="module")
+def remap_host_lib(tmp_path_factory):
+    return host_build("remap_kernels", tmp_path_factory.mktemp("remap_host"),
+                      1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", list(HOST_CASES))
+def test_cuda_source_bitwise_on_the_host(case, dtype, remap_host_lib):
+    """csrc/remap_kernels.cu built for the host, through the wrapper's own
+    launch function, against te_map_remap_ref: every output bitwise equal
+    (one launch a call for all fields)."""
+    kord, nf, km_t, extra = HOST_CASES[case]
+    pes, fields, u, v = _host_inputs(kord, nf, km_t, extra,
+                                     seed=list(HOST_CASES).index(case))
+    if "zero_layer" in extra:
+        assert (np.diff(pes[0], axis=0) == 0.0).any()
+    if "on_source" in extra:
+        assert np.isin(pes[1][1:-1], pes[0][1:-1]).any()
+
+    def ten(a):
+        return torch.from_numpy(a).to(dtype)
+
+    pe = [ten(p) for p in pes]
+    cen = [ten(f) for f in fields]
+    want = trk.te_map_remap_ref(*pe, cen, ten(u), ten(v), kord)
+    suf = "f32" if dtype == torch.float32 else "f64"
+    n0 = remap_host_lib.cam_host_launches()
+    got = trk._run(getattr(remap_host_lib, f"cam_te_map_remap_{suf}"), None,
+                   *pe, torch.stack(cen), ten(u), ten(v), kord)
+    assert remap_host_lib.cam_host_launches() - n0 == 1
+    names = [f"center[{i}]" for i in range(nf)] + ["u", "v"]
+    for name, g, w in zip(names, got[0] + [got[1], got[2]],
+                          want[0] + [want[1], want[2]]):
+        assert g.shape == (km_t, HOST_NCOL), name
+        assert torch.isfinite(w).all(), name
+        err = float((g - w).abs().max())
+        assert err == 0.0, f"{case} {dtype} {name}: max abs error {err:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", list(HOST_CASES))
+def test_cuda_kernel_bitwise_on_the_card(case, dtype):
+    """The kernel itself on HOST_CASES' inputs: bitwise equal to
+    te_map_remap_ref, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: "
+                    "pytest -m cuda tests/test_torch_*.py)")
+    kord, nf, km_t, extra = HOST_CASES[case]
+    pes, fields, u, v = _host_inputs(kord, nf, km_t, extra,
+                                     seed=list(HOST_CASES).index(case))
+
+    def ten(a):
+        return torch.from_numpy(a).to("cuda", dtype)
+
+    args = [ten(p) for p in pes] + [[ten(f) for f in fields], ten(u),
+                                     ten(v), kord]
+    n0 = trk.te_map_remap.launches
+    got = trk.te_map_remap(*args)
+    want = trk.te_map_remap_ref(*args)
+    torch.cuda.synchronize()
+    assert trk.te_map_remap.launches == n0 + 1
+    for g, w in zip(got[0] + [got[1], got[2]], want[0] + [want[1], want[2]]):
+        assert float((g - w).abs().max()) == 0.0, case

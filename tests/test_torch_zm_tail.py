@@ -7,10 +7,12 @@ Pallas tail) at 1e-12 relative to each output's largest magnitude, on the
 inputs of tests/test_zm_tail_pallas.py::_inputs and on quiescent columns,
 and to the NumPy oracles of tests/oracles/zm_conv_oracle.py at the
 tolerances tests/test_zm_oracle_parity.py uses. The kernel's CUDA source,
-built as host C++ (stub CUDA qualifiers, the launch as a loop over
-columns), is held to zm_tail_ref on the CPU; the kernel itself is held to
-zm_tail_ref on the card (marked `cuda`, skipped without one;
-chip_smoke.py does the same at f19).
+built as host C++ (torch_port_util.host_build: a block's threads as
+std::threads meeting at a barrier), is held to zm_tail_ref on the CPU,
+also with one, three and five tracers and with quiescent columns; the
+kernel itself is held to zm_tail_ref on the card (marked `cuda`, skipped
+without one; chip_smoke.py does the same at f19, and in float32 at f09's
+and f05's columns).
 """
 
 import functools
@@ -26,12 +28,11 @@ from cam_nor_physics_tpu.models.physics import zm_transport as jzt
 from cam_nor_physics_tpu.utils.config import ZMConfig as JZMConfig
 from cam_nor_physics_tpu_torch.models.physics import zm_conv as tzm
 from cam_nor_physics_tpu_torch.models.physics import zm_transport as tzt
-from cam_nor_physics_tpu_torch.ops import cuda_build
 from cam_nor_physics_tpu_torch.ops import zm_tail_kernels as ztk
 from cam_nor_physics_tpu_torch.utils.config import ZMConfig
 from oracles import zm_conv_oracle as orc
 from test_zm_tail_pallas import _inputs
-from torch_port_util import assert_close, npy
+from torch_port_util import assert_close, host_build, npy
 
 pytest_plugins = ("torch_port_plugin",)
 
@@ -282,98 +283,72 @@ def test_cuda_kernel_matches_plain_version(dtype, tol):
     assert_close(got[2].cpu(), want[2].cpu(), tol, "dq_tr")
 
 
-# The CUDA source compiled as host C++: stub CUDA qualifiers, the launch
-# rewritten to a loop over blocks of one thread. It runs the kernel's own
-# arithmetic on the CPU (with the host libm in place of CUDA's).
-_HOST_STUBS = """
-#pragma once
-#include <cmath>
-#include <cstddef>
-using std::log10; using std::pow; using std::log; using std::sqrt;
-using std::fabs;
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __launch_bounds__(x)
-#define __restrict__
-typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-struct HostDim { int x = 0, y = 0, z = 0; };
-static HostDim blockIdx, blockDim, threadIdx;
-"""
+@pytest.fixture(scope="module")
+def tail_host_lib(tmp_path_factory):
+    """csrc/zm_tail_kernels.cu built as host C++ (torch_port_util.
+    host_build: a block's threads as std::threads, its shared memory
+    static, __syncthreads() a barrier), with the host libm in place of
+    CUDA's."""
+    return host_build("zm_tail_kernels", tmp_path_factory.mktemp("tail_host"),
+                      1)
 
 
-def _host_library(tmp_path):
-    import ctypes
-    import shutil
-    import subprocess
-    from pathlib import Path
-
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler")
-    src = (Path(ztk.__file__).parent.parent / "csrc" /
-           "zm_tail_kernels.cu").read_text()
-    launch = "zm_tail_kernel<T><<<blocks, kThreads, 0, (cudaStream_t)stream>>>("
-    assert launch in src
-    i = src.index(launch)
-    j = src.index(");", i)
-    call = "zm_tail_kernel<T>(" + src[i + len(launch):j + 2]
-    src = (src[:i] + "(void)blocks; (void)stream; blockDim.x = 1;\n"
-           "  for (int b = 0; b < ncol; ++b) { blockIdx.x = b; " + call + " }"
-           + src[j + 2:])
-    (tmp_path / "cuda_runtime.h").write_text(_HOST_STUBS)
-    (tmp_path / "tail.cpp").write_text(src)
-    lib = tmp_path / "libtail.so"
-    subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC",
-                    "-shared", "-I", str(tmp_path), "-o", str(lib),
-                    str(tmp_path / "tail.cpp")], check=True, timeout=120)
-    dll = ctypes.CDLL(str(lib))
-    for stem, argtypes in cuda_build.SIGNATURES["zm_tail_kernels"]:
-        for suf in ("f32", "f64"):
-            fn = getattr(dll, f"{stem}_{suf}")
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return dll
+def _host_tail(dll, cfg, args, dtype):
+    """One zm_tail of the host build through the wrapper's launch function,
+    and zm_tail_ref, on `args` cast to dtype; asserts one launch. Returns
+    ({output: (got, want)}, the wrapper's (ev, mt, dq))."""
+    args = [a.to(dtype) if a.is_floating_point() else a for a in args]
+    suf = "f32" if dtype == torch.float32 else "f64"
+    n0 = dll.cam_host_launches()
+    got = ztk._run(getattr(dll, f"cam_zm_tail_{suf}"), None, cfg, *args, DT)
+    assert dll.cam_host_launches() - n0 == 1
+    return got, ztk.zm_tail_ref(cfg, *args, DT)
 
 
-def test_cuda_source_arithmetic_on_the_host(tmp_path):
+def _assert_tail_close(got, want, tol, label):
+    """Every output of zm_tail within tol of its max (the surface rates of
+    their column flux's, as _assert_evap_close)."""
+    _assert_evap_close(got[0], want[0], tol)
+    for k in ("dudt", "dvdt", "seten"):
+        assert_close(got[1][k], want[1][k], tol, f"{label} {k}")
+    for k in MT_PAIRS:
+        for i in range(2):
+            assert_close(got[1][k][i], want[1][k][i], tol,
+                         f"{label} {k}[{i}]")
+    assert_close(got[2], want[2], tol, f"{label} dq_tr")
+
+
+def test_cuda_source_arithmetic_on_the_host(tail_host_lib):
     """csrc/zm_tail_kernels.cu built as host C++ against zm_tail_ref:
     float64 within 1e-12 of each output's max, float32 within 1e-5 (the
     card's gates; glibc's powf/log10f differ from PyTorch's CPU ones by
-    ulps, so float32 is not bitwise here), with and without org."""
-    dll = _host_library(tmp_path)
+    ulps, so float32 is not bitwise here), with and without org. 64
+    columns: tiles of 12 (float32) and 6 (float64) columns, the last one
+    ragged."""
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         for org in (False, True):
-            cfg = ZMConfig(org=org)
             d = _case(ncol=64, seed=1)
-            args = [a.to(dtype) if a.is_floating_point() else a
-                    for a in _tail_args(d, "torch")]
-            ncol, pver = args[0].shape
-            ntr = args[6].shape[2]
-            mid = torch.empty((len(ztk.MID_OUT), ncol, pver), dtype=dtype)
-            flx = torch.empty((2, ncol, pver + 1), dtype=dtype)
-            dq = torch.empty((ncol, pver, ntr), dtype=dtype)
-            t1, qv1, pmid, pdel, u, v, q_tr, cld, mu, md, du, eu, ed, dp, \
-                jt, mx, rprd, prec, landfrac = args
-            suf = "f32" if dtype == torch.float32 else "f64"
-            rc = getattr(dll, f"cam_zm_tail_{suf}")(
-                *[a.data_ptr() for a in (t1, qv1, pmid, pdel, u, v, cld,
-                                         rprd, mu, md, du, eu, ed, dp,
-                                         q_tr, landfrac, prec, jt, mx)],
-                ncol, pver, ntr, int(org), cfg.ke, cfg.ke_lnd, cfg.momcu,
-                cfg.momcd, DT, mid.data_ptr(), flx.data_ptr(),
-                dq.data_ptr(), None)
-            assert rc == 0
-            ev, mt, want_dq = ztk.zm_tail_ref(cfg, *args, DT)
-            want = dict(ev)
-            want.update(dudt=mt["dudt"], dvdt=mt["dvdt"], seten=mt["seten"],
-                        pgu_u=mt["pguall"][0], pgu_v=mt["pguall"][1],
-                        pgd_u=mt["pgdall"][0], pgd_v=mt["pgdall"][1],
-                        icwu_u=mt["icwu"][0], icwu_v=mt["icwu"][1],
-                        icwd_u=mt["icwd"][0], icwd_v=mt["icwd"][1])
-            got = dict(zip(ztk.MID_OUT, mid.unbind(0)))
-            got["flxprec"], got["flxsnow"] = flx.unbind(0)
-            for k, g in got.items():
-                assert_close(g, want[k], tol, f"{dtype} org={org} {k}")
-            assert_close(dq, want_dq, tol, f"{dtype} org={org} dq_tr")
+            got, want = _host_tail(tail_host_lib, ZMConfig(org=org),
+                                   _tail_args(d, "torch"), dtype)
+            _assert_tail_close(got, want, tol, f"{dtype} org={org}")
+
+
+@pytest.mark.parametrize("ntr", [1, 3, 5])
+@pytest.mark.parametrize("quiet", [False, True])
+def test_cuda_source_tracer_passes_on_the_host(quiet, ntr, tail_host_lib):
+    """The host build with 1, 3 and 5 tracers (the block takes its tracers
+    two at a time: one pass, two with a single tracer in the second, three)
+    and with every mass flux zero, against zm_tail_ref at the gates of
+    test_cuda_source_arithmetic_on_the_host, on 23 columns (ragged tiles)."""
+    d = _case(quiet=quiet, ncol=23, seed=4)
+    rng = np.random.default_rng(ntr)
+    d["qtr"] = d["q"][:, :, None] * rng.uniform(0.01, 0.2, (1, 1, ntr))
+    if ntr > 1:
+        d["qtr"][:, :, -1] = 0.0          # a tracer that is 0 everywhere
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        got, want = _host_tail(tail_host_lib, ZMConfig(),
+                               _tail_args(d, "torch"), dtype)
+        assert got[2].shape == (23, d["t"].shape[1], ntr)
+        _assert_tail_close(got, want, tol, f"{dtype} ntr={ntr}")
+        if quiet:
+            assert float(got[2].abs().max()) == 0.0

@@ -72,17 +72,18 @@ _HOST_STUBS = """
 #include <cstdint>
 #include <thread>
 #include <vector>
-using std::pow; using std::log; using std::fabs; using std::trunc;
+using std::pow; using std::log; using std::log10; using std::sqrt;
+using std::fabs; using std::trunc;
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 #define __shared__ static
 #define __align__(n) __attribute__((aligned(n)))
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 struct dim3 {
   unsigned x, y, z;
