@@ -22,7 +22,7 @@
 // K4 first (the upward pass over the dgz of K1/K3). The level work runs
 // over all SMs: row kernels, one block of kRowThreads threads per (row,
 // level), whose launch boundaries are the phase boundaries. K1 and K3
-// share their transport, tp_core.cuh's row form of transport_level (four
+// share their transport, tp_core.cuh's row form of tp2c + tp2d (four
 // row kernels: inner operators, mass fluxes, dh and q's fluxes, the
 // finish with the floors); K1 runs it at order 1 on the C-grid winds and
 // Courants of a row kernel of its own. Intermediate slabs (Courants,
@@ -277,9 +277,10 @@ k2_courant_kernel(const T* __restrict__ uc, const T* __restrict__ vc,
 // ------------------------------------------------------------ K3
 //
 // The D-grid transport in tp_core.cuh's row form, one row kernel a phase
-// of transport_level, then the downward pressure pass: 5 launches a call.
-// K1 runs the same kernels at order 1. Scratch slabs: 0 yfx, 1 va, 2-5
-// adx(h), ady(h), adx(q), ady(q), 6 dh, 7 fy, 8 fx.
+// (phases 2 and 3 are tp_core.cuh's tp_flux_kernel and tp_q_flux_kernel),
+// then the downward pressure pass: 5 launches a call. K1 runs the same
+// kernels at order 1. Scratch slabs: 0 yfx, 1 va, 2-5 adx(h), ady(h),
+// adx(q), ady(q), 6 dh, 7 fy, 8 fx.
 
 // phase 1: yfx, va, the row's FFSL flag (stored per (level, row) for the
 // later phases), adx/ady of h and q
@@ -308,42 +309,6 @@ tp_inner_kernel(const T* __restrict__ delp, const T* __restrict__ pt,
   T* const sy[2] = {S(3), S(5)};
   tp_row_inner<2>(q, cx, va, ffsl_in_band(flag, j, jm, band),
                   M[kCosp * jm + j], K, j, jm, im, sx, sy);
-}
-
-// phase 2: tp2c's mass fluxes mfy, mfx (K3 outputs; K1 scratch)
-template <typename T>
-__global__ void __launch_bounds__(kRowThreads)
-tp_mass_kernel(const T* __restrict__ crx, const T* __restrict__ cry,
-               const T* __restrict__ M, int iord, int jord, int band, int K,
-               int jm, int im, T* __restrict__ mfx, T* __restrict__ mfy,
-               T* __restrict__ scratch, const uint8_t* __restrict__ flags) {
-  const int j = blockIdx.x, k = blockIdx.y, km = gridDim.y;
-  const int n = jm * im;
-  const size_t off = (size_t)k * n;
-  auto S = [&](int s) { return scratch + ((size_t)s * km + k) * n; };
-  tp_row_fluxes(S(2), S(3), crx + off, cry + off, crx + off, S(0), 0,
-                ffsl_row(flags + (size_t)k * jm, j, jm, band),
-                M[kCosp * jm + j], iord, jord, K, j, jm, im, mfx + off,
-                mfy + off);
-}
-
-// phase 3: the thickness tendency dh and q's fluxes
-template <typename T>
-__global__ void __launch_bounds__(kRowThreads)
-tp_q_flux_kernel(const T* __restrict__ crx, const T* __restrict__ cry,
-                 const T* __restrict__ mfx, const T* __restrict__ mfy,
-                 const T* __restrict__ M, double rcap, int iord, int jord,
-                 int band, int K, int jm, int im, T* __restrict__ scratch,
-                 const uint8_t* __restrict__ flags) {
-  const int j = blockIdx.x, k = blockIdx.y, km = gridDim.y;
-  const int n = jm * im;
-  const size_t off = (size_t)k * n;
-  auto S = [&](int s) { return scratch + ((size_t)s * km + k) * n; };
-  const T cap = row_cap(mfy + off, j, jm, im, rcap);
-  tp_row_div(mfx + off, mfy + off, M[kAcosp * jm + j], cap, j, jm, im, S(6));
-  tp_row_fluxes(S(4), S(5), crx + off, cry + off, mfx + off, mfy + off, 1,
-                ffsl_row(flags + (size_t)k * jm, j, jm, band),
-                M[kCosp * jm + j], iord, jord, K, j, jm, im, S(8), S(7));
 }
 
 // phase 4: dq, the thickness floor and pt; kFloorPt (K1) also floors pt
@@ -594,11 +559,13 @@ void launch_transport_rows(const T* delp, const T* pt, const T* crx,
   const dim3 rows(jm, km);
   tp_inner_kernel<T><<<rows, kRowThreads, 0, st>>>(
       delp, pt, crx, cry, M, band, K, jm, im, scratch, flags);
-  tp_mass_kernel<T><<<rows, kRowThreads, 0, st>>>(
-      crx, cry, M, iord, jord, band, K, jm, im, mfx, mfy, scratch, flags);
+  auto S = [&](int s) { return scratch + (size_t)s * km * n; };
+  tp_flux_kernel<T, 0><<<rows, kRowThreads, 0, st>>>(
+      S(2), S(3), crx, cry, crx, S(0), flags, M + kCosp * jm, iord, jord,
+      band, K, jm, im, mfx, mfy);
   tp_q_flux_kernel<T><<<rows, kRowThreads, 0, st>>>(
-      crx, cry, mfx, mfy, M, rcap, iord, jord, band, K, jm, im, scratch,
-      flags);
+      S(4), S(5), crx, cry, mfx, mfy, flags, M + kCosp * jm,
+      M + kAcosp * jm, rcap, iord, jord, band, K, jm, im, S(6), S(8), S(7));
   tp_finish_kernel<T, kFloorPt><<<rows, kRowThreads, 0, st>>>(
       delp, pt, M, rcap, jm, im, delp_new, pt_new, scratch);
   down_thermo_kernel<T><<<col_blocks(n), kColThreads, 0, st>>>(

@@ -27,10 +27,17 @@
 // s = 1 exactly and every cell wholly below it s = 0, whose term is a zero:
 // the plain fold c_0 + ... + c_j + 0 + ... equals P_j + c_j bit for bit, a
 // zero-thickness layer (dp = 0, divided by 1e-30) and a target on a source
-// interface included. So the kernel is bitwise equal to the plain version
-// on finite inputs with monotone pe_s and pe_t, as te_map's are. One case
-// differs: a non-finite edge value in a cell below a target made that
-// target's plain output NaN (0 * inf); the walk never evaluates that term.
+// interface included. That argument needs finite terms and monotone
+// interfaces; the walk checks both as it goes (a whole-cell mass that is
+// not finite, a source layer of negative thickness, a target that is not
+// finite or lies above the one before it) and writes a column it flags
+// again with the plain version's sums, term by term (remap_exact: O(km
+// km_t)). A NaN or inf in a column makes some cell's terms NaN, and with
+// them every target's sum, in the plain version and in remap_exact alike
+// (0 * inf below a target, as in JAX's _remap_set); crossed interfaces
+// give the plain version's sums. So the kernel is bitwise equal to the
+// plain version, NaN where it has NaN; a finite, monotone column pays only
+// the checks.
 //
 // Bound. A call reads the 6 interface sets ((km+1) x ncol) and the nf+2
 // fields once and writes nf+2 fields once: at f19 (13,824 columns, km = 26,
@@ -81,93 +88,91 @@ __device__ __forceinline__ T part(T dp, T s, T al, T half, T third) {
   return dp * (s * (al + s * (half - third * s)));
 }
 
-// Remap one field of one column: q (km values at stride ncol) from source
-// interfaces ps to target interfaces pt (km + 1 and km_t + 1 values at
-// stride ncol), in one walk down the column.
+// the fraction of a cell (top p, thickness dps, 1e-30 for 0) above the
+// interface x, clipped to [0, 1] (NaN stays NaN, as in torch.clamp)
 template <typename T>
-__device__ void remap_walk(const T* __restrict__ ps, const T* __restrict__ pt,
-                           const T* __restrict__ q, T* __restrict__ out,
-                           int km, int km_t, int ncol, int kord) {
-  const size_t n = (size_t)ncol;
-  // window at cell k: q_0..q_2 = q[k..k+2], p_0..p_2 = ps[k..k+2], dp_0
-  // and dp_1 the thicknesses of k and k+1, dm_0 and dm_1 their limited
-  // slopes, e_top the unlimited edge above k (the edge below k-1)
-  T q_0 = q[0];
-  T q_1 = km > 1 ? q[n] : T(0);
-  T q_2 = km > 2 ? q[2 * n] : T(0);
-  T p_0 = ps[0], p_1 = ps[n];
-  T p_2 = km > 1 ? ps[2 * n] : T(0);
-  T dp_0 = p_1 - p_0, dp_1 = km > 1 ? p_2 - p_1 : T(0);
-  T dm_0 = T(0);
-  T dm_1 = 1 < km - 1 ? slope(q_0, q_1, q_2) : T(0);
-  T e_top = q_0;
+__device__ __forceinline__ T clip(T x, T p, T dps) {
+  const T s = (x - p) / dps;
+  return s < T(0) ? T(0) : (s > T(1) ? T(1) : s);
+}
 
-  T P = T(0), total = T(0), m_prev = T(0);
-  int kt = 1;                    // next target interface
-  T x_prev = pt[0];
-  T x = pt[(size_t)kt * n];
-  for (int k = 0; k < km; ++k) {
-    // the cell three below, one step ahead of its use
-    const T q_3 = k + 3 < km ? q[(size_t)(k + 3) * n] : T(0);
-    const T p_3 = k + 3 <= km ? ps[(size_t)(k + 3) * n] : T(0);
-    total = total + q_0 * dp_0;
-    if (kt < km_t) {
-      // edges, limiter and parabola coefficients of cell k
-      T a_l, a_r, a6;
-      T e_bot = q_0;
-      if (kord <= 2) {
-        a_l = q_0 - dm_0;
-        a_r = q_0 + dm_0;
-        a6 = T(0);
-      } else {
-        if (k < km - 1) e_bot = edge(q_0, q_1, dp_0, dp_1, dm_0, dm_1);
-        a_l = e_top;
-        a_r = e_bot;
-        a6 = T(3.0) * (q_0 + q_0 - (a_l + a_r));
-        if (kord == 3) {            // lmppm lmt = 0
-          const T da1 = a_r - a_l;
-          const T da2 = da1 * da1;
-          const T a6da = a6 * da1;
-          const bool lo = a6da < -da2, hi = a6da > da2, zero = dm_0 == T(0);
-          const T a6_lo = T(3.0) * (a_l - q_0), ar_lo = a_l - a6_lo;
-          const T a6_hi = T(3.0) * (a_r - q_0), al_hi = a_r - a6_hi;
-          const T a6n = zero ? T(0) : (lo ? a6_lo : (hi ? a6_hi : a6));
-          const T arn = zero ? q_0 : (lo ? ar_lo : a_r);
-          const T aln = zero ? q_0 : (hi ? al_hi : a_l);
-          a6 = a6n;
-          a_r = arn;
-          a_l = aln;
-        } else {                    // lmppm lmt >= 1
-          const T da1 = dm_0 + dm_0;
-          const T dl = sgn(da1) * tmin(fabs(da1), fabs(a_l - q_0));
-          const T dr = sgn(da1) * tmin(fabs(da1), fabs(a_r - q_0));
-          a_r = q_0 + dr;
-          a_l = q_0 - dl;
-          a6 = T(3.0) * (dl - dr);
-        }
-      }
-      e_top = e_bot;
-      const T half = T(0.5) * ((a_r - a_l) + a6);
-      const T third = a6 * T(1.0 / 3.0);
-      const T dps = dp_0 == T(0) ? T(1e-30) : dp_0;
-      // the targets inside cell k, then the cell itself into P
-      for (;;) {
-        T s = (x - p_0) / dps;
-        s = s < T(0) ? T(0) : (s > T(1) ? T(1) : s);
-        if (!(s < T(1))) {
-          P = P + part(dp_0, T(1), a_l, half, third);
-          break;
-        }
-        const T m = P + part(dp_0, s, a_l, half, third);
-        out[(size_t)(kt - 1) * n] = (m - m_prev) / (x - x_prev);
-        m_prev = m;
-        x_prev = x;
-        ++kt;
-        x = pt[(size_t)kt * n];
-        if (kt == km_t) break;
+// The PPM parabolas of one field's column, cell by cell from the top: q
+// (km values) on the interfaces ps (km + 1), both at stride n. A window in
+// registers: q_0..q_2 = q[k..k+2], p_0..p_2 = ps[k..k+2], dp_0 and dp_1
+// the thicknesses of k and k+1, dm_0 and dm_1 their limited slopes, e_top
+// the unlimited edge above k (the edge below k-1); q_3 and p_3, the cell
+// and interface three below, are loaded one step ahead of their use.
+template <typename T>
+struct Column {
+  const T* __restrict__ ps;
+  const T* __restrict__ q;
+  size_t n;
+  int km, kord;
+  T q_0, q_1, q_2, q_3, p_0, p_1, p_2, p_3, dp_0, dp_1, dm_0, dm_1, e_top;
+  T a_l, half, third;          // cell k's parabola, after parabola(k)
+
+  __device__ Column(const T* ps_, const T* q_, int km_, size_t n_, int kord_)
+      : ps(ps_), q(q_), n(n_), km(km_), kord(kord_) {
+    q_0 = q[0];
+    q_1 = km > 1 ? q[n] : T(0);
+    q_2 = km > 2 ? q[2 * n] : T(0);
+    p_0 = ps[0];
+    p_1 = ps[n];
+    p_2 = km > 1 ? ps[2 * n] : T(0);
+    dp_0 = p_1 - p_0;
+    dp_1 = km > 1 ? p_2 - p_1 : T(0);
+    dm_0 = T(0);
+    dm_1 = 1 < km - 1 ? slope(q_0, q_1, q_2) : T(0);
+    e_top = q_0;
+  }
+
+  __device__ void load_ahead(int k) {
+    q_3 = k + 3 < km ? q[(size_t)(k + 3) * n] : T(0);
+    p_3 = k + 3 <= km ? ps[(size_t)(k + 3) * n] : T(0);
+  }
+
+  // edges, limiter and parabola coefficients of cell k
+  __device__ void parabola(int k) {
+    T a_r, a6;
+    T e_bot = q_0;
+    if (kord <= 2) {
+      a_l = q_0 - dm_0;
+      a_r = q_0 + dm_0;
+      a6 = T(0);
+    } else {
+      if (k < km - 1) e_bot = edge(q_0, q_1, dp_0, dp_1, dm_0, dm_1);
+      a_l = e_top;
+      a_r = e_bot;
+      a6 = T(3.0) * (q_0 + q_0 - (a_l + a_r));
+      if (kord == 3) {            // lmppm lmt = 0
+        const T da1 = a_r - a_l;
+        const T da2 = da1 * da1;
+        const T a6da = a6 * da1;
+        const bool lo = a6da < -da2, hi = a6da > da2, zero = dm_0 == T(0);
+        const T a6_lo = T(3.0) * (a_l - q_0), ar_lo = a_l - a6_lo;
+        const T a6_hi = T(3.0) * (a_r - q_0), al_hi = a_r - a6_hi;
+        const T a6n = zero ? T(0) : (lo ? a6_lo : (hi ? a6_hi : a6));
+        const T arn = zero ? q_0 : (lo ? ar_lo : a_r);
+        const T aln = zero ? q_0 : (hi ? al_hi : a_l);
+        a6 = a6n;
+        a_r = arn;
+        a_l = aln;
+      } else {                    // lmppm lmt >= 1
+        const T da1 = dm_0 + dm_0;
+        const T dl = sgn(da1) * tmin(fabs(da1), fabs(a_l - q_0));
+        const T dr = sgn(da1) * tmin(fabs(da1), fabs(a_r - q_0));
+        a_r = q_0 + dr;
+        a_l = q_0 - dl;
+        a6 = T(3.0) * (dl - dr);
       }
     }
-    // slide the window one cell down
+    e_top = e_bot;
+    half = T(0.5) * ((a_r - a_l) + a6);
+    third = a6 * T(1.0 / 3.0);
+  }
+
+  // slide the window one cell down
+  __device__ void slide(int k) {
     q_0 = q_1;
     q_1 = q_2;
     q_2 = q_3;
@@ -179,6 +184,82 @@ __device__ void remap_walk(const T* __restrict__ ps, const T* __restrict__ pt,
     dm_0 = dm_1;
     dm_1 = k + 2 < km - 1 ? slope(q_0, q_1, q_2) : T(0);
   }
+};
+
+// The plain version's answer for one column, term by term: each interior
+// target's mass the in-order sum of the clip integral over all km cells,
+// O(km * km_t). Taken only by a column the walk flags; not inlined, so
+// that the walk keeps its registers.
+template <typename T>
+__device__ __attribute__((noinline)) void remap_exact(const T* __restrict__ ps, const T* __restrict__ pt,
+                            const T* __restrict__ q, T* __restrict__ out,
+                            int km, int km_t, size_t n, int kord, T total) {
+  T m_prev = T(0);
+  T x_prev = pt[0];
+  for (int kt = 1; kt < km_t; ++kt) {
+    const T x = pt[(size_t)kt * n];
+    Column<T> c(ps, q, km, n, kord);
+    T m = T(0);
+    for (int k = 0; k < km; ++k) {
+      c.load_ahead(k);
+      c.parabola(k);
+      const T dps = c.dp_0 == T(0) ? T(1e-30) : c.dp_0;
+      const T term = part(c.dp_0, clip(x, c.p_0, dps), c.a_l, c.half,
+                          c.third);
+      m = k == 0 ? term : m + term;
+      c.slide(k);
+    }
+    out[(size_t)(kt - 1) * n] = (m - m_prev) / (x - x_prev);
+    m_prev = m;
+    x_prev = x;
+  }
+  out[(size_t)(km_t - 1) * n] =
+      (total - m_prev) / (pt[(size_t)km_t * n] - x_prev);
+}
+
+// Remap one field of one column: q (km values at stride ncol) from source
+// interfaces ps to target interfaces pt (km + 1 and km_t + 1 values at
+// stride ncol), in one walk down the column. A column where the walk meets
+// a non-finite cell mass or target, a source layer of negative thickness
+// or a target above the one before it is written again by remap_exact.
+template <typename T>
+__device__ void remap_walk(const T* __restrict__ ps, const T* __restrict__ pt,
+                           const T* __restrict__ q, T* __restrict__ out,
+                           int km, int km_t, int ncol, int kord) {
+  const size_t n = (size_t)ncol;
+  Column<T> c(ps, q, km, n, kord);
+  T P = T(0), total = T(0), m_prev = T(0);
+  int kt = 1;                    // next target interface
+  T x_prev = pt[0];
+  T x = pt[(size_t)kt * n];
+  bool flag = !isfinite(x_prev) || !isfinite(x) || !(x >= x_prev);
+  for (int k = 0; k < km; ++k) {
+    c.load_ahead(k);
+    total = total + c.q_0 * c.dp_0;
+    c.parabola(k);
+    const T whole = part(c.dp_0, T(1), c.a_l, c.half, c.third);
+    flag = flag || !isfinite(whole) || c.dp_0 < T(0);
+    if (kt < km_t) {
+      const T dps = c.dp_0 == T(0) ? T(1e-30) : c.dp_0;
+      // the targets inside cell k, then the cell itself into P
+      for (;;) {
+        const T s = clip(x, c.p_0, dps);
+        if (!(s < T(1))) {
+          P = P + whole;
+          break;
+        }
+        const T m = P + part(c.dp_0, s, c.a_l, c.half, c.third);
+        out[(size_t)(kt - 1) * n] = (m - m_prev) / (x - x_prev);
+        m_prev = m;
+        x_prev = x;
+        ++kt;
+        x = pt[(size_t)kt * n];
+        flag = flag || !isfinite(x) || !(x >= x_prev);
+        if (kt == km_t) break;
+      }
+    }
+    c.slide(k);
+  }
   // targets below the last source interface take the whole column; the
   // bottom interface the column's total
   for (; kt < km_t; ++kt) {
@@ -186,8 +267,10 @@ __device__ void remap_walk(const T* __restrict__ ps, const T* __restrict__ pt,
     m_prev = P;
     x_prev = x;
     x = pt[(size_t)(kt + 1) * n];
+    flag = flag || !isfinite(x) || !(x >= x_prev);
   }
   out[(size_t)(km_t - 1) * n] = (total - m_prev) / (x - x_prev);
+  if (flag) remap_exact(ps, pt, q, out, km, km_t, n, kord, total);
 }
 
 template <typename T>

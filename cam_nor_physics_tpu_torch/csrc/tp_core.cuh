@@ -288,88 +288,26 @@ __device__ __forceinline__ bool ffsl_row(const uint8_t* ffsl, int j, int jm,
   return ffsl_in_band(ffsl[j] != 0, j, jm, band);
 }
 
-// the thread that takes the second of two single-thread jobs: another warp
-// where the block has one, else thread 0
-__device__ __forceinline__ bool second_lane() {
-  return threadIdx.x == (blockDim.x > 32 ? 32u : 0u);
-}
-
-// tp2c of h plus the mass-consistent tp2d of q (id = 1 with the mass fluxes
-// just computed) on ONE level, by one whole thread block in phases
-// separated by __syncthreads(). h, q, cx, cy, yf, va are the level's
-// (jm, im) slabs, fl its per-row FFSL flags, s0..s3 four scratch slabs.
-// Writes dh and dq (flux divergences, polar caps closed) and the mass
-// fluxes mfx, mfy (transport3d_ref in ops/stencil_kernels.py). Its one
-// user is stencil_kernels.cu's transport_kernel (transport3d, the unfused
-// "matmul" step); the fused K1 and K3 and tracer_div3d take the row form
-// below.
-template <typename T>
-__device__ void transport_level(const T* h, const T* q, const T* cx,
-                                const T* cy, const T* yf, const T* va,
-                                const uint8_t* fl, const T* cosp,
-                                const T* acosp, double rcap, int iord,
-                                int jord, int band, int K, int jm, int im,
-                                T* dh, T* dq, T* mfx, T* mfy, T* s0, T* s1,
-                                T* s2, T* s3) {
-  __shared__ T caps[2];
-  const int n = jm * im;
-  // s0 adx(h), then fy(q); s1 ady(h), then fx(q); s2 adx(q); s3 ady(q)
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int j = idx / im, i = idx - j * im;
-    const bool f = ffsl_row(fl, j, jm, band);
-    s0[idx] = adx_point(h, cx, j, i, jm, im, cosp[j], f, K);
-    s1[idx] = ady_point(h, va, j, i, jm, im);
-    s2[idx] = adx_point(q, cx, j, i, jm, im, cosp[j], f, K);
-    s3[idx] = ady_point(q, va, j, i, jm, im);
-  }
-  __syncthreads();
-  // tp2c: mass fluxes of h (id = 0: the Courant number is the flux)
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int j = idx / im, i = idx - j * im;
-    const bool f = ffsl_row(fl, j, jm, band);
-    mfy[idx] = ytp_point(s0, cy, yf, j, i, jm, im, jord);
-    mfx[idx] = xtp_point(s1 + j * im, cx + j * im, cx + j * im, i, im,
-                         cosp[j], f, iord, 0, K);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) caps[0] = (T)(-row_sum(mfy + im, im) * rcap);
-  if (second_lane()) caps[1] = (T)(row_sum(mfy + (jm - 1) * im, im) * rcap);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int j = idx / im, i = idx - j * im;
-    const bool f = ffsl_row(fl, j, jm, band);
-    dh[idx] = div_point(mfx, mfy, j, i, jm, im, acosp[j], caps[0], caps[1]);
-    s0[idx] = ytp_point(s2, cy, mfy, j, i, jm, im, jord);
-    s1[idx] = xtp_point(s3 + j * im, cx + j * im, mfx + j * im, i, im,
-                        cosp[j], f, iord, 1, K);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) caps[0] = (T)(-row_sum(s0 + im, im) * rcap);
-  if (second_lane()) caps[1] = (T)(row_sum(s0 + (jm - 1) * im, im) * rcap);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int j = idx / im, i = idx - j * im;
-    dq[idx] = div_point(s1, s0, j, i, jm, im, acosp[j], caps[0], caps[1]);
-  }
-  __syncthreads();
-}
-
 // ---------------------------------------------------------------- row form
 //
-// transport_level's phases for ONE row j of a level, by one thread block
-// of a (row, level) grid, kRowThreads threads over i. Each phase reads
-// other rows only of what an earlier phase wrote, so the phase boundaries
-// are the caller's launch boundaries:
+// tp2c of a thickness h plus the mass-consistent tp2d of a field q (id = 1
+// with the mass fluxes just computed), ONE row j of a level at a time, by
+// one thread block of a (row, level) grid, kRowThreads threads over i.
+// Each phase reads other rows only of what an earlier phase wrote, so the
+// phase boundaries are the caller's launch boundaries:
 //   1. row_ffsl_flag over the row's Courants (or the caller's flags);
 //      tp_row_inner: adx/ady of the fields (h and q for tp2c + tp2d);
-//   2. tp_row_fluxes with id = 0: tp2c's mass fluxes mfy (from rows
+//   2. tp_flux_kernel<T, 0>: tp2c's mass fluxes mfy (from rows
 //      j-3..j+1 of adx(h)) and mfx;
-//   3. row_cap of mfy, then tp_row_div: dh; tp_row_fluxes with id = 1:
-//      q's fluxes fy (from rows j-3..j+1 of adx(q)) and fx;
-//   4. row_cap of fy, then dq = div_point(fx, fy, ...) at each point.
-// A tracer (tracer_div3d) runs phases 1, 3 and 4 on its one field with
-// the given mass fluxes. The points evaluate the same functions as
-// transport_level, so the two forms agree bitwise.
+//   3. tp_q_flux_kernel: row_cap of mfy, then tp_row_div: dh; q's fluxes
+//      fy (from rows j-3..j+1 of adx(q)) and fx;
+//   4. tp_div_kernel: row_cap of fy, then dq = div_point(fx, fy, ...).
+// transport3d (stencil_kernels.cu) runs the four; K1 and K3
+// (cd_fused_kernels.cu) phases 1-3, then a phase 4 of their own with the
+// floors; a tracer (tracer_div3d) phases 1, 2 with kId = 1 and the given
+// mass fluxes, and 4; vort_flux3d is phase 2 on the vorticity.
+// The points evaluate the same functions as the plain versions' whole-slab
+// formulas, in their operand order.
 
 constexpr int kRowThreads = 64;    // row kernels' block (a power of two)
 
@@ -452,6 +390,75 @@ __device__ void tp_row_div(const T* fx, const T* fy, T acosa, T cap, int j,
                            int jm, int im, T* out) {
   for (int i = threadIdx.x; i < im; i += blockDim.x)
     out[j * im + i] = div_point(fx, fy, j, i, jm, im, acosa, cap, cap);
+}
+
+// ---------------------------------------------------------------- row kernels
+//
+// Phases 2-4 as kernels on a (jm, km, nf) grid: blockIdx.x the row j,
+// blockIdx.y the level k, blockIdx.z the field (nf = 1 but for
+// tracer_div3d's tracers). Every slab argument is an (nf, km, jm, im) or
+// (km, jm, im) array (a scratch slab of all levels included): the fields'
+// at slab row_slab(), the winds', fluxes' and FFSL flags' ((km, jm)
+// bytes) at level k; cosp and acosp are the (jm,) row factors.
+
+// the block's slab of the fields: field blockIdx.z, level blockIdx.y
+__device__ __forceinline__ size_t row_slab() {
+  return (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+}
+
+// phase 2: the fluxes of row j, fy = ytp(sx)·ym and fx = xtp(sy)·xm
+// (tp_row_fluxes; kId = 0 for tp2c's mass fluxes, 1 for a mixing ratio)
+template <typename T, int kId>
+__global__ void __launch_bounds__(kRowThreads)
+tp_flux_kernel(const T* __restrict__ sx, const T* __restrict__ sy,
+               const T* __restrict__ crx, const T* __restrict__ cry,
+               const T* __restrict__ xm, const T* __restrict__ ym,
+               const uint8_t* __restrict__ flags,
+               const T* __restrict__ cosp, int iord, int jord, int band,
+               int K, int jm, int im, T* __restrict__ fx,
+               T* __restrict__ fy) {
+  const int j = blockIdx.x, k = blockIdx.y;
+  const size_t n = (size_t)jm * im, fo = row_slab() * n, wo = k * n;
+  tp_row_fluxes(sx + fo, sy + fo, crx + wo, cry + wo, xm + wo, ym + wo, kId,
+                ffsl_row(flags + (size_t)k * jm, j, jm, band), cosp[j], iord,
+                jord, K, j, jm, im, fx + fo, fy + fo);
+}
+
+// phase 3 (nf = 1): the thickness tendency dh, the divergence of the mass
+// fluxes with the caps closed, and q's fluxes from sx = adx(q), sy =
+// ady(q). In float32, at least 25 blocks an SM (at most 40 registers;
+// ptxas then takes 32): left to itself it takes 48, and the 21 blocks
+// that leaves cost K1's call 8% at f05 (tools/stencil_ab.py)
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads, sizeof(T) == 4 ? 25 : 1)
+tp_q_flux_kernel(const T* __restrict__ sx, const T* __restrict__ sy,
+                 const T* __restrict__ crx, const T* __restrict__ cry,
+                 const T* __restrict__ mfx, const T* __restrict__ mfy,
+                 const uint8_t* __restrict__ flags,
+                 const T* __restrict__ cosp, const T* __restrict__ acosp,
+                 double rcap, int iord, int jord, int band, int K, int jm,
+                 int im, T* __restrict__ dh, T* __restrict__ fx,
+                 T* __restrict__ fy) {
+  const int j = blockIdx.x, k = blockIdx.y;
+  const size_t off = (size_t)k * jm * im;
+  const T cap = row_cap(mfy + off, j, jm, im, rcap);
+  tp_row_div(mfx + off, mfy + off, acosp[j], cap, j, jm, im, dh + off);
+  tp_row_fluxes(sx + off, sy + off, crx + off, cry + off, mfx + off,
+                mfy + off, 1, ffsl_row(flags + (size_t)k * jm, j, jm, band),
+                cosp[j], iord, jord, K, j, jm, im, fx + off, fy + off);
+}
+
+// phase 4: the row's cap of fy, then the flux divergence of the slab into
+// out
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+tp_div_kernel(const T* __restrict__ fx, const T* __restrict__ fy,
+              const T* __restrict__ acosp, double rcap, int jm, int im,
+              T* __restrict__ out) {
+  const int j = blockIdx.x;
+  const size_t off = row_slab() * jm * im;
+  const T cap = row_cap(fy + off, j, jm, im, rcap);
+  tp_row_div(fx + off, fy + off, acosp[j], cap, j, jm, im, out + off);
 }
 
 }  // namespace tpc

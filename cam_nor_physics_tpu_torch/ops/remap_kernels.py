@@ -5,7 +5,9 @@ center fields (pt, tracers) on pe_s -> pe_t and u / v on their own
 edge-averaged interface sets, all in the natural (k, ncol) layout. CUDA
 tensors launch csrc/remap_kernels.cu: one launch a call, one thread per
 column and field, each walking its column once (O(km + km_t) work), bitwise
-equal to `te_map_remap_ref` on monotone interfaces. CPU tensors take
+equal to `te_map_remap_ref`: a column with a non-finite value or crossed
+interfaces is summed again as the plain version sums it (NaN where it has
+NaN). CPU tensors take
 `te_map_remap_ref`. A kernel that does not build or launch raises.
 `te_map_remap.launches` counts the kernel's launches.
 """

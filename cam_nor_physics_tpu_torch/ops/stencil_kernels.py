@@ -7,9 +7,11 @@ kernel (csrc/stencil_kernels.cu), CPU tensors take the plain version
 (`*_ref`), which is the same tp_core math on whole (..., jm, im) tensors.
 There is no fallback between the two: a kernel that does not build or
 launch raises. Each wrapper adds its CUDA launches a call,
-`LAUNCHES_PER_CALL[name]`, to `<wrapper>.launches`: transport3d and
-vort_flux3d one level kernel; tracer_div3d three row kernels (the inner
-operators, the fluxes, the caps and divergence).
+`LAUNCHES_PER_CALL[name]`, to `<wrapper>.launches`; each launch is a row
+kernel over (row, level) blocks: transport3d four (the inner operators,
+the mass fluxes, ddp and pt's fluxes, the caps and divergence),
+vort_flux3d one (the fluxes), tracer_div3d three (the inner operators,
+the fluxes, the caps and divergence).
 
 Kernel orders: iord/jord 1 and 4, the orders the dycore runs (the C-grid
 half step transports at 1, the D step and trac2d at 4).
@@ -25,7 +27,7 @@ from . import tp_core as tp
 KERNEL_ORDERS = (1, 4)
 
 # CUDA launches a call of each wrapper (csrc/stencil_kernels.cu)
-LAUNCHES_PER_CALL = {"transport3d": 1, "vort_flux3d": 1, "tracer_div3d": 3}
+LAUNCHES_PER_CALL = {"transport3d": 4, "vort_flux3d": 1, "tracer_div3d": 3}
 
 
 def transport3d_ref(delp, pt, crx, cry, yfx, va, ffsl, cosp, acosp,
@@ -112,21 +114,12 @@ def transport3d(delp, pt, crx, cry, yfx, va, ffsl, cosp, acosp,
     if not delp.is_cuda:
         return transport3d_ref(delp, pt, crx, cry, yfx, va, ffsl, cosp,
                                acosp, rcap, iord, jord, band)
-    km, jm, im = delp.shape
-    ddp, dpt, mfx, mfy = (torch.empty_like(delp) for _ in range(4))
-    scratch = torch.empty((4,) + tuple(delp.shape), dtype=delp.dtype,
-                          device=delp.device)
     lib = cuda_build.library("stencil_kernels")
     fn = getattr(lib, f"cam_transport3d_{_suffix(delp.dtype)}")
-    rc = fn(delp.data_ptr(), pt.data_ptr(), crx.data_ptr(), cry.data_ptr(),
-            yfx.data_ptr(), va.data_ptr(), ffsl.data_ptr(), cosp.data_ptr(),
-            acosp.data_ptr(), float(rcap), iord, jord,
-            -1 if band is None else band, tp.max_cfl_int(im), km, jm, im,
-            ddp.data_ptr(), dpt.data_ptr(), mfx.data_ptr(), mfy.data_ptr(),
-            scratch.data_ptr(), _stream(delp))
-    _raise_on(rc, "transport3d")
+    out = _run_transport(fn, _stream(delp), delp, pt, crx, cry, yfx, va,
+                         ffsl, cosp, acosp, rcap, iord, jord, band)
     transport3d.launches += LAUNCHES_PER_CALL["transport3d"]
-    return ddp, dpt, mfx, mfy
+    return out
 
 
 def vort_flux3d(zeta, crx, cry, udt, vedt, ffsl, cosp, iord: int, jord: int,
@@ -140,17 +133,12 @@ def vort_flux3d(zeta, crx, cry, udt, vedt, ffsl, cosp, iord: int, jord: int,
     if not zeta.is_cuda:
         return vort_flux3d_ref(zeta, crx, cry, udt, vedt, ffsl, cosp, iord,
                                jord, band)
-    km, jm, im = zeta.shape
-    fx, fy = torch.empty_like(zeta), torch.empty_like(zeta)
     lib = cuda_build.library("stencil_kernels")
-    fn = getattr(lib, f"cam_vort_flux3d_{_suffix(zeta.dtype)}")
-    rc = fn(zeta.data_ptr(), crx.data_ptr(), cry.data_ptr(), udt.data_ptr(),
-            vedt.data_ptr(), ffsl.data_ptr(), cosp.data_ptr(), iord, jord,
-            -1 if band is None else band, tp.max_cfl_int(im), km, jm, im,
-            fx.data_ptr(), fy.data_ptr(), _stream(zeta))
-    _raise_on(rc, "vort_flux3d")
+    out = _run_vort(getattr(lib, f"cam_vort_flux3d_{_suffix(zeta.dtype)}"),
+                    _stream(zeta), zeta, crx, cry, udt, vedt, ffsl, cosp,
+                    iord, jord, band)
     vort_flux3d.launches += LAUNCHES_PER_CALL["vort_flux3d"]
-    return fx, fy
+    return out
 
 
 def tracer_div3d(q, crx, cry, mfx, mfy, va, ffsl, cosp, acosp, rcap: float,
@@ -171,6 +159,40 @@ def tracer_div3d(q, crx, cry, mfx, mfy, va, ffsl, cosp, acosp, rcap: float,
                       acosp, rcap, iord, jord, band)
     tracer_div3d.launches += LAUNCHES_PER_CALL["tracer_div3d"]
     return dqm
+
+
+def _run_transport(fn, stream, delp, pt, crx, cry, yfx, va, ffsl, cosp,
+                   acosp, rcap, iord, jord, band):
+    """transport3d's launch: allocate the outputs and the scratch (4 slabs
+    a level) and call `fn`, the C entry in csrc/stencil_kernels.cu, on
+    `stream` (the CPU test of the source calls it with a host build of
+    it). Returns (ddp, dpt, mfx, mfy)."""
+    km, jm, im = delp.shape
+    ddp, dpt, mfx, mfy = (torch.empty_like(delp) for _ in range(4))
+    scratch = torch.empty((4,) + tuple(delp.shape), dtype=delp.dtype,
+                          device=delp.device)
+    rc = fn(delp.data_ptr(), pt.data_ptr(), crx.data_ptr(), cry.data_ptr(),
+            yfx.data_ptr(), va.data_ptr(), ffsl.data_ptr(), cosp.data_ptr(),
+            acosp.data_ptr(), float(rcap), iord, jord,
+            -1 if band is None else band, tp.max_cfl_int(im), km, jm, im,
+            ddp.data_ptr(), dpt.data_ptr(), mfx.data_ptr(), mfy.data_ptr(),
+            scratch.data_ptr(), stream)
+    _raise_on(rc, "transport3d")
+    return ddp, dpt, mfx, mfy
+
+
+def _run_vort(fn, stream, zeta, crx, cry, udt, vedt, ffsl, cosp, iord, jord,
+              band):
+    """vort_flux3d's launch: allocate fx and fy and call `fn`, the C entry
+    in csrc/stencil_kernels.cu, on `stream`. Returns (fx, fy)."""
+    km, jm, im = zeta.shape
+    fx, fy = torch.empty_like(zeta), torch.empty_like(zeta)
+    rc = fn(zeta.data_ptr(), crx.data_ptr(), cry.data_ptr(), udt.data_ptr(),
+            vedt.data_ptr(), ffsl.data_ptr(), cosp.data_ptr(), iord, jord,
+            -1 if band is None else band, tp.max_cfl_int(im), km, jm, im,
+            fx.data_ptr(), fy.data_ptr(), stream)
+    _raise_on(rc, "vort_flux3d")
+    return fx, fy
 
 
 def _run_tracer(fn, stream, q, crx, cry, mfx, mfy, va, ffsl, cosp, acosp,

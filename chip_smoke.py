@@ -22,13 +22,15 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
    polar filter off, K4 with the avg_sq KE and del4 damping, K3 at
    order 1 and tracer_div3d with FFSL rows and a polar band; float32
    within 1e-5 and float64 within 1e-12 of each output's max magnitude,
-   and K1, K2, K3, te_map_remap and (in float32) tracer_div3d bitwise
-   (max abs error 0);
+   and K1, K2, K3, te_map_remap, vort_flux3d and (in float32)
+   transport3d and tracer_div3d bitwise (max abs error 0);
 4. runs both HS paths, build_step(144, 96, 26, float32, "cuda",
    filter_impl=...) for 4 large steps (2 model hours) each, with the
    launch counts set to 0 just before and read just after: the unfused
-   "matmul" step launches transport3d and vort_flux3d, the fused "fft"
-   step (the default, the JAX package's) K1-K4, 4 calls per step of
+   "matmul" step launches transport3d (8 calls a step of 4 row kernels)
+   and vort_flux3d (4 calls of 1; stencil_kernels.LAUNCHES_PER_CALL),
+   the fused "fft" step (the default, the JAX package's) K1-K4, 4 calls
+   per step of
    cd_fused_kernels.launches_per_call launches each (K1 6, K2 5, K3 5,
    K4 6 with the polar filter), and no transport3d or vort_flux3d; both
    call tracer_div3d (3 launches, stencil_kernels.LAUNCHES_PER_CALL) and
@@ -43,7 +45,8 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
    (tests/test_cd_pallas.py);
 5. times each kernel and its plain version (CUDA events) and both steps,
    te_map_remap's device time too (torch.profiler);
-   K1's, K2's, K3's, K4's and tracer_div3d's device time split by the
+   K1's, K2's, K3's, K4's, transport3d's and tracer_div3d's device
+   time split by the
    kernels they launch (torch.profiler): the column passes and row
    kernels against K2's and K4's two DFT products, and the products' rate
    on their own work;
@@ -91,7 +94,13 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
     K1-K4's share of the step by kernel, and the splits of item 5; K1 and
     tracer_div3d also with FFSL rows forced and tracer_div3d with a polar
     band, and at f05 K3 with FFSL rows forced and K2 with the filter off
-    (float32, bitwise); then zm_tail against zm_tail_ref on the inputs the
+    (float32, bitwise); then the unfused "matmul" HS step with the same
+    splits: one step through the kernels with exact launch counts, finite
+    fields and dry-mass drift <= 1e-5, and on the inputs of the next step
+    transport3d (iord 1 and 4) and vort_flux3d against their plain
+    versions (float32 gate of item 3), plain and with FFSL rows forced,
+    timed beside their bounds, transport3d's device time split by its row
+    kernels; then zm_tail against zm_tail_ref on the inputs the
     port's zm_convr gives it on entry.varied_zm_inputs at the grid's
     columns and levels (f09 55,296 x 26, f05 221,184 x 32, the bench's ZM
     step there), float32 gate of item 6, timed beside its bound;
@@ -127,13 +136,16 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_F32_OPS = 67e12              # float32 FLOP/s outside the tensor cores
 TOL = {"float32": 1e-5, "float64": 1e-12}
 # kernels held bitwise to their plain versions, and in which dtypes
-# (tracer_div3d within TOL in float64: its caps sum a float64 row in index
-# order, torch.sum as a tree)
+# (tracer_div3d and transport3d within TOL in float64: their caps sum a
+# float64 row in index order, torch.sum in another, and the two differ by
+# an ulp at times; K1 and K3 add that increment to delp and pt, which has
+# hidden it on the card's inputs)
 BOTH = ("float32", "float64")
 EXACT = {"k1": BOTH, "k2": BOTH, "k3": BOTH, "tracer_div3d": ("float32",),
-         "te_map_remap": BOTH}
+         "te_map_remap": BOTH, "transport3d": ("float32",),
+         "vort_flux3d": BOTH}
 # kernels whose device time is split by kernel
-SPLIT = ("k1", "k2", "k3", "k4", "tracer_div3d")
+SPLIT = ("k1", "k2", "k3", "k4", "transport3d", "tracer_div3d")
 DRIFT_TOL = 1e-5
 PLAIN_TOL = 1e-3          # float32, ROADMAP.md R2 ...
 PLAIN_SPREAD = 2.0        # ... or this many times the one-ulp spread (R2b)
@@ -858,14 +870,16 @@ class Smoke:
                                f"steps")
 
     # ---------------------------------------------- f09 and f05
-    def run_grid(self, gname: str) -> dict:
-        """The bench's HS step at grid `gname` with FVConfig()'s splits:
-        SPINUP large steps through the kernels from the bench's initial
-        state, with exact launch counts, finite fields and the dry-mass
-        drift over them; then one more step with each kernel's last call
-        recorded, and on those inputs K1-K4, tracer_div3d and
-        te_map_remap against their plain versions (float32 gate) and
-        timed beside their bounds."""
+    def run_grid(self, gname: str, impl: str = "fft") -> dict:
+        """The bench's HS step at grid `gname` with FVConfig()'s splits,
+        fused ("fft") or unfused ("matmul"): SPINUP large steps (the
+        unfused step 1) through the kernels from the bench's initial state,
+        with exact launch counts, finite fields and the dry-mass drift over
+        them; then one more step with each kernel's last call recorded (of
+        transport3d, the last at each order), and on those inputs the
+        path's kernels against their plain versions (float32 gate) and
+        timed beside their bounds: K1-K4, tracer_div3d and te_map_remap
+        (fused), transport3d and vort_flux3d (unfused)."""
         torch = self.torch
         from cam_nor_physics_tpu_torch.bench import GRIDS, SPINUP
         from cam_nor_physics_tpu_torch.entry import DT, build_step
@@ -875,43 +889,48 @@ class Smoke:
         ns, nstrac, nv = cfg.resolved_splits(DT, im, jm)
         n2 = (nstrac + nv - 1) // nv
         calls = (ns + n2 * nv - 1) // (n2 * nv) * n2 * nv
+        nsteps = SPINUP if impl == "fft" else 1
         step, state0, grid, coord, phis = build_step(
-            im, jm, km, torch.float32, DEVICE, filter_impl="fft", cfg=cfg)
-        expect = {"transport3d": 0, "vort_flux3d": 0,
-                  "tracer_div3d": (n2 * nv * SPINUP *
-                                   self.sk.LAUNCHES_PER_CALL["tracer_div3d"]),
-                  "te_map_remap": nv * SPINUP,
-                  **{k: self.ck.launches_per_call(k) * calls * SPINUP
-                     for k in FUSED}}
+            im, jm, km, torch.float32, DEVICE, filter_impl=impl, cfg=cfg)
+        lpc = self.sk.LAUNCHES_PER_CALL
+        # launches a small step: K1-K4's, or 2 transport3d and 1
+        # vort_flux3d calls
+        small = ({k: self.ck.launches_per_call(k) for k in FUSED}
+                 if impl == "fft" else
+                 {"transport3d": 2 * lpc["transport3d"],
+                  "vort_flux3d": lpc["vort_flux3d"]})
+        expect = {n: small.get(n, 0) * calls * nsteps for n in self.sites}
+        expect["tracer_div3d"] = n2 * nv * nsteps * lpc["tracer_div3d"]
+        expect["te_map_remap"] = nv * nsteps
         for name in self.sites:
             self.kernel(name).launches = 0
         state, step_s = state0, []
-        for _ in range(SPINUP):
+        for _ in range(nsteps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state = step(state, grid, coord, phis)
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
         launches = {n: self.kernel(n).launches for n in self.sites}
-        log(f"{gname}: {SPINUP} HS large steps at {im}x{jm}x{km} float32, "
-            f"splits (nsplit, nspltrac, nspltvrm) = {(ns, nstrac, nv)}: "
-            f"{calls} small steps and {n2 * nv} trac2d a step; launches "
-            f"{launches}; step times "
+        log(f"{gname} ({impl}): {nsteps} HS large steps at {im}x{jm}x{km} "
+            f"float32, splits (nsplit, nspltrac, nspltvrm) = "
+            f"{(ns, nstrac, nv)}: {calls} small steps and {n2 * nv} trac2d "
+            f"a step; launches {launches}; step times "
             + ", ".join(f"{1e3 * t:.2f}" for t in step_s) + f" ms "
             f"[{self.card}]")
         if launches != expect:
-            raise RuntimeError(f"{gname}: launched {launches}, expected "
-                               f"{expect}")
+            raise RuntimeError(f"{gname} ({impl}): launched {launches}, "
+                               f"expected {expect}")
         for f in ("u", "v", "pt", "delp", "q"):
             if not bool(torch.isfinite(getattr(state, f)).all()):
-                raise RuntimeError(f"{gname}: non-finite {f}")
+                raise RuntimeError(f"{gname} ({impl}): non-finite {f}")
         m0, m1 = self.dry_mass(grid, state0), self.dry_mass(grid, state)
         drift = abs(m1 - m0) / m0
-        log(f"{gname}: dry-mass drift over the {SPINUP} spin-up steps: "
+        log(f"{gname} ({impl}): dry-mass drift over {nsteps} steps: "
             f"{drift:.3e} (tol {DRIFT_TOL:.0e})")
         if drift > DRIFT_TOL:
-            raise RuntimeError(f"{gname}: dry-mass drift {drift:.3e} > "
-                               f"{DRIFT_TOL}")
+            raise RuntimeError(f"{gname} ({impl}): dry-mass drift "
+                               f"{drift:.3e} > {DRIFT_TOL}")
 
         last = {}
 
@@ -919,7 +938,9 @@ class Smoke:
             kern = self.kernel(name)
 
             def f(*a, **kw):
-                last[name] = (a, kw)
+                key = (f"{name}[iord={a[10]}]" if name == "transport3d"
+                       else name)
+                last[key] = (a, kw)
                 return kern(*a, **kw)
             # K1-K4 add their launches to their module's name for them,
             # which points here while routed
@@ -929,6 +950,10 @@ class Smoke:
         with self.routed(rec):
             step(state, grid, coord, phis)
         torch.cuda.synchronize()
+        steady = sum(step_s[1:]) / max(len(step_s) - 1, 1)
+        if impl == "matmul":
+            self.unfused_grid_kernels(gname, last, calls)
+            return {"drift": drift}
         reps, plain_reps = BEYOND_REPS[gname]
         times = {}
         for name in FUSED + ("tracer_div3d", "te_map_remap"):
@@ -964,7 +989,6 @@ class Smoke:
             a, kw = last["k2"]
             for vlabel, va, vkw in self.variants("k2", a, kw, grid):
                 self.compare(f"{vlabel}@{gname}", "k2", va, vkw, "float32")
-        steady = sum(step_s[1:]) / (len(step_s) - 1)
         per_step = {n: times[n] * (calls if n in FUSED else
                                    n2 * nv if n == "tracer_div3d" else nv)
                     for n in times}
@@ -978,6 +1002,31 @@ class Smoke:
             + ", ".join(f"{n} {v:.1f}%" for n, v in share.items())
             + f" [{self.card}]")
         return {"drift": drift, "steady": steady}
+
+    def unfused_grid_kernels(self, gname, last, calls):
+        """The unfused step's kernels at grid `gname` on the inputs `last`
+        recorded: transport3d at iord 1 and 4 and vort_flux3d against
+        their plain versions (float32), plain and with FFSL rows forced,
+        timed beside their bounds, transport3d's device time split by its
+        row kernels; their time a step (calls small steps)."""
+        reps, plain_reps = BEYOND_REPS[gname]
+        times = {}
+        for key in ("transport3d[iord=1]", "transport3d[iord=4]",
+                    "vort_flux3d"):
+            name = key.split("[")[0]
+            a, kw = last[key]
+            self.compare(f"{key}@{gname}", name, a, kw, "float32")
+            sa, skw, nrows = self.stressed(name, a, kw)
+            self.compare(f"{key}@{gname}+ffsl({nrows} rows)", name, sa, skw,
+                         "float32")
+            times[key] = self.time_row(f"{key}@{gname}", name, a, kw, reps,
+                                       plain_reps)[0]
+            if name in SPLIT:
+                self.split(name, f"{key}@{gname}", a, kw, 3)
+        log(f"{gname} (matmul): transport3d and vort_flux3d a step "
+            f"({calls} small steps x (transport3d at iord 1 and 4 + "
+            f"vort_flux3d)): "
+            f"{calls * sum(times.values()):.3f} ms [{self.card}]")
 
 
 class ZMSmoke:
@@ -1343,10 +1392,13 @@ def run(torch) -> dict:
 
     # ---- phase 4: both HS paths through the kernels, counted
     with phase("4 HS paths at f19"):
-        # one tracer_div3d call a step, its row kernels' launches each
-        tracer_calls = NSTEPS * sm.sk.LAUNCHES_PER_CALL["tracer_div3d"]
+        # one tracer_div3d call a step, 8 transport3d and 4 vort_flux3d
+        # calls on the unfused path, their row kernels' launches each
+        lpc = sm.sk.LAUNCHES_PER_CALL
+        tracer_calls = NSTEPS * lpc["tracer_div3d"]
         expect = {
-            "matmul": {"transport3d": 8 * NSTEPS, "vort_flux3d": 4 * NSTEPS,
+            "matmul": {"transport3d": 8 * NSTEPS * lpc["transport3d"],
+                       "vort_flux3d": 4 * NSTEPS * lpc["vort_flux3d"],
                        "tracer_div3d": tracer_calls, "te_map_remap": NSTEPS,
                        **{k: 0 for k in FUSED}},
             "fft": {"transport3d": 0, "vort_flux3d": 0,
@@ -1410,8 +1462,10 @@ def run(torch) -> dict:
 
     # ---- phase 11: the bench's HS step at f09 and f05, FVConfig()'s splits
     for gname in BEYOND:
-        with phase(f"11 HS step and zm_tail at {gname}"):
+        with phase(f"11 HS steps and zm_tail at {gname}"):
             sm.run_grid(gname)
+            torch.cuda.empty_cache()
+            sm.run_grid(gname, "matmul")
             torch.cuda.empty_cache()
             run_zm_grid(torch, sm, gname)
         torch.cuda.empty_cache()

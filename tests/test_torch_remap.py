@@ -9,7 +9,9 @@ True)) and to ops/remap.py's ppm_remap/ppm_remap_multi, on random columns
 whose source and target interfaces share their end points, as te_map's do.
 The kernel's source, csrc/remap_kernels.cu built as host C++
 (torch_port_util.host_build), is held bitwise to te_map_remap_ref in
-float32 and float64 (`HOST_CASES`).
+float32 and float64 (`HOST_CASES`), and on columns with a NaN or an inf
+below a target or crossed interfaces to NaN where the plain version has
+NaN and bitwise elsewhere (`ODD_CASES`).
 """
 
 import jax.numpy as jnp
@@ -261,6 +263,112 @@ def test_cuda_source_bitwise_on_the_host(case, dtype, remap_host_lib):
         assert torch.isfinite(w).all(), name
         err = float((g - w).abs().max())
         assert err == 0.0, f"{case} {dtype} {name}: max abs error {err:.3e}"
+
+
+# Columns the walk's argument does not cover (csrc/remap_kernels.cu,
+# "Exactness"), each (kord, what the inputs hold). In te_map_remap_ref:
+# - "nan": a NaN pt value (column 3, cell 8) and a NaN v (column 11, cell
+#   6), below every target but the last ones: every output of those two
+#   columns is NaN (0 * NaN in each target's sum; the bottom's total too);
+# - "inf": an inf tracer value (column 20, cell 8) and an inf interface of
+#   u's source set (column 5, interface 8): every output of those columns
+#   NaN (0 * inf below a target, inf - inf after it);
+# - "crossed": pe_s's interfaces 4 and 5 swapped in column 5, pe_t's 3 and
+#   4 in column 9, u's target interfaces 6 and 7 in column 13: finite
+#   outputs that the walk's running sum alone would not give.
+# Every other column stays finite.
+ODD_COLUMNS = {"nan": {"center[0]": [3], "v": [11]},
+               "inf": {"center[1]": [20], "u": [5]},
+               "crossed": {}}
+ODD_CASES = {"nan_kord2": (2, "nan"), "nan_kord3": (3, "nan"),
+             "nan_kord4": (4, "nan"), "inf_kord4": (4, "inf"),
+             "crossed_kord3": (3, "crossed"),
+             "crossed_kord4": (4, "crossed")}
+
+
+def _odd_inputs(kord, what, seed):
+    """_host_inputs with the non-finite values or crossed interfaces of
+    ODD_COLUMNS[what]."""
+    pes, fields, u, v = _host_inputs(kord, 2, HOST_KM, (), seed)
+    if what == "nan":
+        fields[0][8, 3] = np.nan
+        v[6, 11] = np.nan
+    elif what == "inf":
+        fields[1][8, 20] = np.inf
+        pes[2][8, 5] = np.inf
+    else:
+        pes[0][[4, 5], 5] = pes[0][[5, 4], 5]
+        pes[1][[3, 4], 9] = pes[1][[4, 3], 9]
+        pes[3][[6, 7], 13] = pes[3][[7, 6], 13]
+    return pes, fields, u, v
+
+
+def _same_bits(got, want, names, label):
+    """NaN exactly where `want` has NaN, every other value equal."""
+    for name, g, w in zip(names, got, want):
+        nan = torch.isnan(w)
+        assert torch.equal(torch.isnan(g), nan), f"{label} {name}: NaN"
+        err = float((g[~nan] - w[~nan]).abs().max())
+        assert err == 0.0, f"{label} {name}: max abs error {err:.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", list(ODD_CASES))
+def test_cuda_source_matches_plain_on_odd_columns_on_the_host(
+        case, dtype, remap_host_lib):
+    """csrc/remap_kernels.cu built for the host against te_map_remap_ref
+    on non-finite values below a target and on crossed interfaces: NaN
+    where the plain version has NaN, bitwise elsewhere. The plain
+    version's NaN columns are the ones ODD_COLUMNS names, all of their
+    outputs."""
+    kord, what = ODD_CASES[case]
+    pes, fields, u, v = _odd_inputs(kord, what, list(ODD_CASES).index(case))
+
+    def ten(a):
+        return torch.from_numpy(a).to(dtype)
+
+    pe = [ten(p) for p in pes]
+    cen = [ten(f) for f in fields]
+    want = trk.te_map_remap_ref(*pe, cen, ten(u), ten(v), kord)
+    suf = "f32" if dtype == torch.float32 else "f64"
+    got = trk._run(getattr(remap_host_lib, f"cam_te_map_remap_{suf}"), None,
+                   *pe, torch.stack(cen), ten(u), ten(v), kord)
+    names = ["center[0]", "center[1]", "u", "v"]
+    want = want[0] + [want[1], want[2]]
+    for name, w in zip(names, want):
+        cols = torch.isnan(w).any(0).nonzero().flatten().tolist()
+        assert cols == ODD_COLUMNS[what].get(name, []), (name, cols)
+        assert torch.isnan(w[:, cols]).all(), name
+    _same_bits(got[0] + [got[1], got[2]], want, names, case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", list(ODD_CASES))
+def test_cuda_kernel_matches_plain_on_odd_columns_on_the_card(case, dtype):
+    """The kernel itself on ODD_CASES' inputs: NaN where te_map_remap_ref
+    has NaN, bitwise elsewhere, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: "
+                    "pytest -m cuda tests/test_torch_*.py)")
+    kord, what = ODD_CASES[case]
+    pes, fields, u, v = _odd_inputs(kord, what, list(ODD_CASES).index(case))
+
+    def ten(a):
+        return torch.from_numpy(a).to("cuda", dtype)
+
+    args = [ten(p) for p in pes] + [[ten(f) for f in fields], ten(u),
+                                     ten(v), kord]
+    n0 = trk.te_map_remap.launches
+    got = trk.te_map_remap(*args)
+    want = trk.te_map_remap_ref(*args)
+    torch.cuda.synchronize()
+    assert trk.te_map_remap.launches == n0 + 1
+    _same_bits([g.cpu() for g in got[0] + [got[1], got[2]]],
+               [w.cpu() for w in want[0] + [want[1], want[2]]],
+               ["center[0]", "center[1]", "u", "v"], case)
 
 
 @pytest.mark.cuda

@@ -9,10 +9,11 @@ them with, and once per kernel through the Pallas kernel itself in
 interpret mode (as tests/test_pallas_kernels.py runs it). The CUDA kernels are held to the
 plain versions on the card (marked `cuda`, skipped without one; chip_smoke.py
 does the same at f19 shapes). On the CPU, csrc/stencil_kernels.cu built as
-host C++ (torch_port_util.host_build) runs tracer_div3d's row kernels
-against tracer_div3d_ref: orders 1 and 4, FFSL rows on and off, a polar band
-on and off, two tracers; float64 within 1e-12 and float32 within 1e-5 of
-the output's max, three launches a call.
+host C++ (torch_port_util.host_build) runs the row kernels of
+transport3d, vort_flux3d and tracer_div3d against their plain versions:
+orders 1 and 4, FFSL rows on and off, a polar band on and off (two tracers);
+float64 within 1e-12 and float32 within 1e-5 of each output's max,
+LAUNCHES_PER_CALL[name] launches a call.
 """
 
 import jax
@@ -146,12 +147,16 @@ def test_kernel_checks_refuse_unsupported_orders():
                   args[6], [], 4, 4)
 
 
-# launch sites of csrc/stencil_kernels.cu: transport and vort one each,
-# tracer_div3d three
-_N_LAUNCHES = 5
+# launch sites of csrc/stencil_kernels.cu: transport3d four, vort_flux3d
+# one, tracer_div3d three
+_N_LAUNCHES = 8
 # the polar band of the band cases: of the flagged rows 1-3 and JM-4..JM-2
 # (slab_fields), rows 1 and JM-2 take the FFSL branch
 TRACER_BAND = 2
+# each wrapper's launch function, which the host test calls with the host
+# library's C entry
+RUNS = {"transport3d": sk._run_transport, "vort_flux3d": sk._run_vort,
+        "tracer_div3d": sk._run_tracer}
 
 
 @pytest.fixture(scope="module")
@@ -164,35 +169,39 @@ def host_lib(tmp_path_factory):
                          ids=["no_band", "band"])
 @pytest.mark.parametrize("ffsl", [True, False], ids=["ffsl", "no_ffsl"])
 @pytest.mark.parametrize("order", [1, 4])
-def test_tracer_row_kernels_on_the_host(order, ffsl, band, host_lib):
-    """tracer_div3d's three row kernels of csrc/stencil_kernels.cu, built
-    for the host, against tracer_div3d_ref on two tracers, marshalled by
-    the wrapper's own launch function: float64 within 1e-12, float32
-    within 1e-5 of the output's max; a call makes
-    LAUNCHES_PER_CALL["tracer_div3d"] launches."""
+@pytest.mark.parametrize("name", list(RUNS))
+def test_tracer_row_kernels_on_the_host(name, order, ffsl, band, host_lib):
+    """The row kernels of csrc/stencil_kernels.cu, built for the host,
+    against the plain version of `name` (tracer_div3d on two tracers),
+    marshalled by the wrapper's own launch function: float64 within
+    1e-12, float32 within 1e-5 of each output's max; a call makes
+    LAUNCHES_PER_CALL[name] launches."""
     f = slab_fields(KM, JM, IM, seed=11 + order,
                     ffsl_rows=3 if ffsl else 0)
     grid = make_grid(IM, JM, KM)
     f.update(cosp=np.asarray(grid.cosp), acosp=np.asarray(grid.acosp),
              rcap=float(grid.rcap))
     f["udt"] = 450.0 * f["crx"]
+    f["vdt"] = 450.0 * f["cry"]
     f["yfx"] = f["cry"] * f["cosp"][:, None]
     f["va"] = 0.5 * (f["cry"] + np.asarray(jtp.edge_north(f["cry"])))
     f["ffsl"] = np.abs(f["crx"]).max(-1) > 1.0
     assert f["q"].shape[0] == 2 and f["ffsl"].any() == ffsl
-    args = _torch(_tracer_args(f, order))
+    args = _torch(CASES[name](f, order))
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         a = [x.to(dtype) if isinstance(x, torch.Tensor) and
              x.is_floating_point() else x for x in args]
-        want = sk.tracer_div3d_ref(*a, band=band)
+        want = _outputs(getattr(sk, name + "_ref")(*a, band=band))
         suf = "f32" if dtype == torch.float32 else "f64"
         n0 = host_lib.cam_host_launches()
-        got = sk._run_tracer(getattr(host_lib, f"cam_tracer_div3d_{suf}"),
-                             None, *a, band)
+        got = _outputs(RUNS[name](getattr(host_lib, f"cam_{name}_{suf}"),
+                                  None, *a, band))
         assert (host_lib.cam_host_launches() - n0 ==
-                sk.LAUNCHES_PER_CALL["tracer_div3d"])
-        assert torch.isfinite(got).all()
-        assert_close(got, want, tol, f"tracer_div3d {dtype}")
+                sk.LAUNCHES_PER_CALL[name])
+        assert len(got) == len(want)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert torch.isfinite(g).all()
+            assert_close(g, w, tol, f"{name} output {i} {dtype}")
 
 
 @pytest.mark.cuda
