@@ -30,9 +30,30 @@ Environment, as bench.py's:
                          dispatch only)
   BENCH_PHASES=1         cd_step x ns, trac2d and te_map times on stderr
   BENCH_CPU=1            run on the CPU (the kernels' plain versions)
-BENCH_COUPLED=1 and BENCH_ROOFLINE=1 raise NotImplementedError. The JSON
+  BENCH_COUPLED=1        the coupled step instead (below)
+BENCH_ROOFLINE=1 raises NotImplementedError, and so does BENCH_MICROP=1
+with BENCH_COUPLED=1 (ZM's in-plume microphysics is not ported). The JSON
 line carries bench.py's keys plus `impl` (what the headline measures) and
 `card` (nvidia-smi's name and power limit; null on the CPU).
+
+BENCH_COUPLED=1 is the twin of bench.py's `coupled_main`: the coupled
+atm_step in bench.py's configuration ("config-4b", entry.build_coupled:
+gray radiation, implicit vertical diffusion, ZM, the FV dycore with
+FVConfig()'s auto splits, aquaplanet bulk surface fluxes), float32, at
+BENCH_GRID (20 steps at f19, 5 at f09, 3 at f05, 3 with BENCH_SMALL).
+After the first step (first_step=True) and one more, the loop shapes
+are timed from the same state: per dispatch, and *chunked* (BENCH_CHUNK
+steps, only the state kept, as one CUDA graph, `ChainGraph`, held bitwise
+to as many eager steps first). bench.py's *full* (diagnostics returned)
+and *prog_only* (diagnostics dropped) are one computation in eager
+PyTorch, which builds the diagnostics whichever the caller keeps: one
+per-dispatch loop is timed and reported under both keys. Then the
+per-phase table: phys_run1 (bc_physics), phys_run2 (ac_physics),
+p_d_coupling, dyn_run (dyn) and d_p_coupling, each timed as its own
+dispatch on the same state, and on the card one step under
+torch.profiler: its device kernels, the port's (csrc/) and PyTorch's,
+and the device's busy share. The metric is grid points per second of the
+fastest shape.
 """
 
 from __future__ import annotations
@@ -40,13 +61,15 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 
 import torch
 
-from .entry import DT, build_step, build_zm_step
+from .entry import DT, build_coupled, build_step, build_zm_step
+from .ops import cuda_build
 from .ops.probe_kernels import SHAPE as PROBE_SHAPE
 from .ops.probe_kernels import probe
 from .utils.config import FVConfig
@@ -56,7 +79,19 @@ from .utils.device import resolve_device
 GRIDS = {"small": (72, 46, 10, 3), "f19": (144, 96, 26, 40),
          "f09": (288, 192, 26, 5), "f05": (576, 384, 32, 3)}
 SPINUP = 3
+PROFILE_TRIES = 3          # profiler windows run before giving up
 METRIC = "grid-points/s per chip (FV dyn step + ZM physics step)"
+# chained steps of the coupled bench, bench.py:289-297
+COUPLED_ITERS = {"small": 3, "f19": 20, "f09": 5, "f05": 3}
+COUPLED_METRIC = ("grid-points/s per chip (full coupled atm_step, "
+                  "config-4b aquaplanet)")
+COUPLED_IMPL = {
+    "cuda": "torch+cuda f32 coupled atm_step: fused fft small step (K1-K4 "
+            "CUDA), CUDA tracer_div3d, te_map_remap and ZM tail; physics, "
+            "coupling and diagnostics in PyTorch; full and prog_only: one "
+            "per-dispatch loop (eager builds the diagnostics either way)",
+    "cpu": "torch cpu f32 coupled atm_step: the kernels' plain PyTorch "
+           "versions"}
 IMPL = {"cuda": "torch+cuda f32: fused fft HS step (K1-K4 CUDA), CUDA "
                 "tracer_div3d and te_map_remap, CUDA ZM tail",
         "cpu": "torch cpu f32: the kernels' plain PyTorch versions (fused "
@@ -80,6 +115,58 @@ def card_label() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def kernel_times(fn, reps: int = 1):
+    """One warm-up call of fn, then `reps` calls under torch.profiler:
+    ({device kernel name: [launches recorded, µs]}, wall seconds). The
+    profiler drops launches in short windows, at times all of them: a
+    window that recorded no device kernel is run again, up to
+    PROFILE_TRIES windows in all."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                n_us = by_name.setdefault(e.name, [0, 0.0])
+                n_us[0] += 1
+                n_us[1] += e.time_range.elapsed_us()
+        if by_name:
+            return by_name, wall
+        print(f"profiler: no device kernel recorded in window {attempt} "
+              f"of {PROFILE_TRIES}", file=sys.stderr, flush=True)
+    raise RuntimeError("the profiler recorded no device time")
+
+
+def kernel_ident(name: str) -> str:
+    """The function name in a device kernel's demangled signature
+    ("void (anonymous namespace)::k1_winds_kernel<float>(...)" ->
+    "k1_winds_kernel")."""
+    m = re.match(r"\s*(?:void\s+)?([\w:]+)",
+                 name.replace("(anonymous namespace)::", ""))
+    return m.group(1).rsplit("::", 1)[-1] if m else name
+
+
+def by_origin(times: dict) -> dict:
+    """{"port": [launches, µs], "PyTorch": [launches, µs]} of a
+    kernel_times table: a kernel is the port's where its name is one that
+    csrc/ defines (cuda_build.kernel_names)."""
+    ours = cuda_build.kernel_names()
+    out = {"port": [0, 0.0], "PyTorch": [0, 0.0]}
+    for name, (n, us) in times.items():
+        row = out["port" if kernel_ident(name) in ours else "PyTorch"]
+        row[0] += n
+        row[1] += us
+    return out
 
 
 def _sync(dev: torch.device) -> None:
@@ -343,23 +430,167 @@ def run(grid: str = "f19", device="cuda", chunk: int = 8,
     return record
 
 
+def time_calls(fn, iters: int, dev: torch.device, passes: int = 3):
+    """Seconds per call of fn() on the same arguments: 1 warm-up call,
+    then the best of `passes` passes of `iters` calls, synchronised at
+    the end of each (bench.py:420-430)."""
+    fn()
+    _sync(dev)
+    best = float("inf")
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        _sync(dev)
+        best = min(best, (time.perf_counter() - t0) / iters)
+    return best
+
+
+def coupled_phases(model, start, sst, iters: int, dev: torch.device,
+                   passes: int = 3) -> dict:
+    """bench.py's per-phase table of the coupled step, seconds per call,
+    each phase its own dispatch on `start` (bench.py:399-441)."""
+    from .models.coupling.dp_coupling import d_p_coupling, p_d_coupling
+    from .models.coupling.surface_fluxes import bulk_surface_fluxes
+    from .models.fv.dyn_comp import dyn_run
+    from .models.physics.physpkg import phys_run1, phys_run2
+    m, reg = model, model.registry
+    cam_in = bulk_surface_fluxes(start.phys, sst, reg.pcnst)
+
+    def p1():
+        return phys_run1(m.phys_cfg, m.zm_cfg, reg, start.phys, start.pbuf,
+                         cam_in, m.dt, nstep=1)
+    o1 = p1()
+
+    def p2():
+        return phys_run2(m.phys_cfg, reg, o1.state, o1.pbuf, cam_in, m.dt)
+    o2 = p2()
+
+    def pd():
+        return p_d_coupling(start.dyn, o2.state, m.grid, m.coord.ptop, m.dt,
+                            reg)
+    dyn1 = pd()
+
+    def dyn():
+        return dyn_run(dyn1, m.grid, m.coord, start.phis, m.fv_cfg, m.dt,
+                       filter_impl=m.filter_impl, return_diags=True)
+    dyn2, ddiags = dyn()
+
+    def dp():
+        return d_p_coupling(dyn2, m.grid, start.phis, m.coord.ptop, reg,
+                            omega=ddiags["omega"])
+    return {name: time_calls(fn, iters, dev, passes)
+            for name, fn in (("bc_physics", p1), ("ac_physics", p2),
+                             ("p_d_coupling", pd), ("dyn", dyn),
+                             ("d_p_coupling", dp))}
+
+
+def profile_line(profiled, per_step: float) -> str:
+    """One profiled step (kernel_times' table and wall seconds) beside the
+    step's per-dispatch seconds without the profiler: the device kernels,
+    the port's and PyTorch's, the busy time (one stream: the kernels'
+    summed durations) and its share of both times."""
+    times, wall = profiled
+    n = sum(c for c, _ in times.values())
+    busy = sum(us for _, us in times.values()) / 1e6
+    split = ", ".join(f"{k} {c} launches {us / 1e3:.3f} ms"
+                      for k, (c, us) in by_origin(times).items())
+    return (f"profile: {n} device kernels a step ({split}); device busy "
+            f"{busy * 1e3:.3f} ms, {100 * busy / wall:.1f}% of the profiled "
+            f"{wall * 1e3:.1f} ms, {100 * busy / per_step:.1f}% of the "
+            f"{per_step * 1e3:.1f} ms a step per dispatch")
+
+
+def run_coupled(grid: str = "f19", device="cuda", chunk: int = 8,
+                iters: int | None = None, passes: int = 3,
+                microp: bool = False) -> dict:
+    """The coupled bench (BENCH_COUPLED=1) at `grid` on `device`; returns
+    the JSON record. `iters` overrides the grid's chained steps."""
+    if microp:
+        raise NotImplementedError(
+            "BENCH_MICROP=1: ZMConfig.microp (in-plume convective "
+            "microphysics) is not ported (ROADMAP.md Queue 1 item 5)")
+    dev = resolve_device(device)
+    im, jm, km, _ = GRIDS[grid]
+    iters = COUPLED_ITERS[grid] if iters is None else iters
+    on_card = dev.type == "cuda"
+    card = card_label() if on_card else None
+    check_probe(dev)
+
+    model, step, state, sst = build_coupled(im, jm, km, torch.float32, dev)
+
+    def prog_only(s):
+        return (step(s)[0],)
+
+    state, _, _ = step(state, first_step=True)
+    (start,) = prog_only(state)
+    _sync(dev)
+    del state
+    # full and prog_only: one loop, reported under both keys
+    t_step = time_fn(prog_only, (start,), iters, dev, passes)
+    t_chunked = None
+    if on_card and chunk > 1:
+        t_chunked = time_chunked(chain_graph(prog_only, (start,), chunk),
+                                 max(1, iters // chunk), passes)
+        torch.cuda.empty_cache()
+    phases = coupled_phases(model, start, sst, iters, dev, passes)
+
+    npts = im * jm * km
+    shapes = {"full": t_step, "prog_only": t_step}
+    if t_chunked is not None:
+        shapes["chunked"] = t_chunked
+    shape = min(shapes, key=shapes.get)
+    print(f"coupled: per dispatch (full = prog_only)={t_step*1e3:.1f}ms "
+          + (f"chunked(K={chunk})={t_chunked*1e3:.1f}ms "
+             if t_chunked is not None else "")
+          + f"grid={im}x{jm}x{km} device={dev.type} [{card}]",
+          file=sys.stderr)
+    print("phase table (independent dispatches, incl. per-dispatch "
+          "latency): " + " ".join(f"{k}={v*1e3:.1f}ms"
+                                  for k, v in phases.items()),
+          file=sys.stderr)
+    if on_card:
+        print(profile_line(kernel_times(lambda: prog_only(start)), t_step),
+              file=sys.stderr)
+    record = {
+        "metric": COUPLED_METRIC,
+        "value": npts / shapes[shape],
+        "unit": "gridpoints/s",
+        "vs_baseline": 1.0,
+        "headline_shape": shape,
+        "chunk": chunk if shape == "chunked" else 1,
+        "grid": f"{im}x{jm}x{km}",
+        "device": "gpu" if on_card else "cpu",
+        "t_ms": {"full": t_step * 1e3, "prog_only": t_step * 1e3},
+        "t_ms_phases_independent_dispatch":
+            {k: v * 1e3 for k, v in phases.items()},
+        "impl": COUPLED_IMPL[dev.type],
+        "card": card,
+    }
+    if t_chunked is not None:
+        record["t_ms"]["chunked_per_step"] = t_chunked * 1e3
+        record["chunked_k"] = chunk
+    return record
+
+
 def main(env=None) -> dict:
     """Reads bench.py's environment variables, runs the bench, prints the
     JSON line and returns the record."""
     env = os.environ if env is None else env
-    if env.get("BENCH_COUPLED") == "1":
-        raise NotImplementedError(
-            "BENCH_COUPLED=1: the coupled atm_step is not ported yet "
-            "(ROADMAP.md Queue 1 items 2-4)")
     if env.get("BENCH_ROOFLINE") == "1":
         raise NotImplementedError(
             "BENCH_ROOFLINE=1: bench.py reads XLA's cost model; the port's "
             "per-step byte and operation count is not written yet "
             "(ROADMAP.md Queue 1, the per-step roofline)")
-    record = run(grid=grid_from_env(env),
-                 device="cpu" if env.get("BENCH_CPU") == "1" else "cuda",
-                 chunk=int(env.get("BENCH_CHUNK", "8")),
-                 phases=env.get("BENCH_PHASES") == "1")
+    device = "cpu" if env.get("BENCH_CPU") == "1" else "cuda"
+    chunk = int(env.get("BENCH_CHUNK", "8"))
+    if env.get("BENCH_COUPLED") == "1":
+        record = run_coupled(grid=grid_from_env(env), device=device,
+                             chunk=chunk,
+                             microp=env.get("BENCH_MICROP") == "1")
+    else:
+        record = run(grid=grid_from_env(env), device=device, chunk=chunk,
+                     phases=env.get("BENCH_PHASES") == "1")
     print(json.dumps(record), flush=True)
     return record
 

@@ -4,7 +4,9 @@
 (u, v, pt, delp, q); `grid_to_numpy`/`grid_from_numpy` the FVGrid tables and
 scalars; `coord_to_numpy`/`coord_from_numpy` the HybridCoord;
 `physstate_*`, `pbuf_*` and `zmtend_to_numpy` the physics state, the physics
-buffer and the outputs of zm_conv_tend. The numpy side
+buffer and the outputs of zm_conv_tend; `atmstate_*` the coupled state of
+atm_step (dycore state, physics export, physics buffer with its lifetimes,
+phis, nstep), `camin_*` and `camout_to_numpy` the surface exchange. The numpy side
 is a plain dict keyed by the field names both packages share, so a JAX
 object converts with {f: np.asarray(getattr(obj, f)) for f in FIELDS}.
 """
@@ -14,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.atm_comp import AtmState
+from .models.coupling.camsrfexch import CAMIN_FIELDS, CAMOUT_FIELDS, CamIn
 from .models.fv.cd_core import DynState
 from .models.fv.grid import FVGrid
 from .models.fv.vertical import HybridCoord
@@ -129,3 +133,45 @@ def zmtend_to_numpy(out) -> dict:
     res.update({f: _np(getattr(out, f)) for f in TEND_FIELDS})
     res.update({f"diag.{k}": _np(v) for k, v in out.diagnostics.items()})
     return res
+
+
+# ---- the coupled state and the surface exchange ----
+
+def atmstate_from_numpy(fields: dict, device="cuda", dtype=None) -> AtmState:
+    """AtmState from {"dyn": {...}, "phys": {...}, "pbuf": ({...},
+    {lifetimes}), "phis": array, "nstep": int}; nstep becomes a 0-d int32
+    tensor, every other array keeps its dtype unless `dtype` is given."""
+    dev = resolve_device(device)
+    pb_fields, lifetimes = fields["pbuf"]
+    return AtmState(
+        dyn=dynstate_from_numpy(fields["dyn"], dev, dtype),
+        phys=physstate_from_numpy(fields["phys"], dev, dtype),
+        pbuf=pbuf_from_numpy(pb_fields, lifetimes, dev, dtype),
+        phis=_tensor(fields["phis"], dtype, dev),
+        nstep=torch.as_tensor(int(np.asarray(fields["nstep"])),
+                              dtype=torch.int32, device=dev))
+
+
+def atmstate_to_numpy(state) -> dict:
+    """The numpy form of an AtmState of either package (see
+    atmstate_from_numpy)."""
+    return {"dyn": {f: _np(getattr(state.dyn, f)) for f in STATE_FIELDS},
+            "phys": physstate_to_numpy(state.phys),
+            "pbuf": pbuf_to_numpy(state.pbuf),
+            "phis": _np(state.phis), "nstep": int(_np(state.nstep))}
+
+
+def camin_from_numpy(fields: dict, device="cuda", dtype=None) -> CamIn:
+    """CamIn from numpy arrays keyed by its field names."""
+    dev = resolve_device(device)
+    return CamIn(**{f: _tensor(fields[f], dtype, dev) for f in CAMIN_FIELDS})
+
+
+def camin_to_numpy(cam_in) -> dict:
+    """{field: array} of a CamIn of either package."""
+    return {f: _np(getattr(cam_in, f)) for f in CAMIN_FIELDS}
+
+
+def camout_to_numpy(cam_out) -> dict:
+    """{field: array} of a CamOut of either package."""
+    return {f: _np(getattr(cam_out, f)) for f in CAMOUT_FIELDS}

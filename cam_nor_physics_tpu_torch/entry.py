@@ -21,6 +21,14 @@ its tail runs the fused ZM tail kernel once a call.
     pstate, pbuf = zm_step(pstate, pbuf)
 
 Together the two are the main path that bench.py times.
+
+`build_coupled` is the twin of bench.py's coupled set-up (BENCH_COUPLED=1,
+"config-4b"): the coupled atm_step with gray radiation, ZM, vertical
+diffusion and the FV dycore over an aquaplanet with bulk surface fluxes.
+
+    model, step, state, sst = build_coupled(144, 96, 26)
+    state, cam_out, diags = step(state, first_step=True)
+    state, cam_out, diags = step(state)
 """
 
 from __future__ import annotations
@@ -28,6 +36,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.atm_comp import AtmModel, atm_init, atm_step
+from .models.coupling.surface_fluxes import (aquaplanet_sst,
+                                             bulk_surface_fluxes)
 from .models.fv.dyn_comp import dyn_run
 from .models.fv.grid import make_grid
 from .models.fv.held_suarez import hs_forcing, hs_initial_state
@@ -36,7 +47,7 @@ from .models.physics.constituents import default_registry
 from .models.physics.physics_buffer import pbuf_register, zm_pbuf_specs
 from .models.physics.state import make_state_from_profiles
 from .models.physics.zm_conv_intr import zm_conv_tend
-from .utils.config import FVConfig, ZMConfig
+from .utils.config import FVConfig, PhysConfig, ZMConfig
 from .utils.device import resolve_device
 
 DT = 1800.0
@@ -167,3 +178,37 @@ def build_zm_step(ncol: int, pver: int, dtype=torch.float32, device="cuda"):
         return o.state1, o.pbuf
 
     return step, pstate, pbuf, forcing0
+
+
+def build_coupled(im: int = 144, jm: int = 96, km: int = 26,
+                  dtype=torch.float32, device="cuda",
+                  fv_cfg: FVConfig | None = None):
+    """Returns (model, step, state0, sst) for bench.py's coupled
+    configuration (bench.py:306-319): AtmModel.create(im, jm, km,
+    dt=1800, phys_cfg=PhysConfig(radiation_scheme="gray"),
+    zm_cfg=ZMConfig()) with FVConfig()'s auto splits unless `fv_cfg` is
+    given; the initial state is hs_initial_state(pert=1) with q = 1e-6
+    everywhere but vapour, q[0] = 1e-2 (delp / max delp)^2, zero phis,
+    through atm_init; sst is aquaplanet_sst of the columns' latitudes.
+
+    step(state, first_step=False) -> (state, cam_out, diags) makes the
+    CamIn with bulk_surface_fluxes from the state's physics export and
+    runs atm_step. Raises where `device` is CUDA and no card is present."""
+    dev = resolve_device(device)
+    model = AtmModel.create(
+        im, jm, km, dt=DT, fv_cfg=fv_cfg or FVConfig(),
+        phys_cfg=PhysConfig(radiation_scheme="gray"), zm_cfg=ZMConfig(),
+        dtype=dtype, device=dev)
+    pcnst = model.registry.pcnst
+    dyn0 = hs_initial_state(model.grid, model.coord, pert=1.0, nq=pcnst)
+    q = torch.full_like(dyn0.q, 1e-6)
+    q[0] = 1e-2 * (dyn0.delp / dyn0.delp.max()) ** 2
+    state0 = atm_init(model, dyn0.replace(q=q),
+                      torch.zeros((jm, im), dtype=dtype, device=dev))
+    sst = aquaplanet_sst(state0.phys.lat)
+
+    def step(state, first_step: bool = False):
+        cam_in = bulk_surface_fluxes(state.phys, sst, pcnst)
+        return atm_step(model, state, cam_in, first_step=first_step)
+
+    return model, step, state0, sst

@@ -4,7 +4,8 @@ Twin of `cam_nor_physics_tpu.models.physics.physics_buffer`: fields with
 'global' (persists across steps, the restart payload) or 'physpkg'
 (scratch within one physics step) lifetime (reference
 zm_conv_intr.F90:101-172). The buffer is treated as immutable: `set` and
-`update` return a new buffer.
+`update` return a new buffer. `global_fields` and `reset_physpkg` come
+with the driver.
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ class PhysicsBuffer:
 
     def get(self, name: str):
         return self.fields[name]
+
+    def has(self, name: str) -> bool:
+        return name in self.fields
 
     def set(self, name: str, value) -> "PhysicsBuffer":
         if name not in self.fields:

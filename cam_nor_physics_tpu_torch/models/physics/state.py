@@ -1,16 +1,19 @@
-"""Physics data model: state, per-parameterization tendencies, update.
+"""Physics data model: state, tendencies, per-parameterization tendencies.
 
-Twin of the parts of `cam_nor_physics_tpu.models.physics.state` that ZM
-deep convection reaches (reference physics_types.F90):
-  - `PhysicsState` (physics_state, :62-121) and `PhysicsPtend`
-    (physics_ptend, :137-173) as dataclasses of tensors; the ptend's
-    activation flags (ls/lu/lv/lq) and level range are plain Python values;
-  - `ptend_init`, `ptend_sum`, `physics_update` (with `refresh=False`),
-    `refresh_dse`, `set_state_pdry` and `make_state_from_profiles`.
+Twin of `cam_nor_physics_tpu.models.physics.state` (reference
+physics_types.F90):
+  - `PhysicsState` (physics_state, :62-121), `PhysicsTend` (physics_tend,
+    :124-133) and `PhysicsPtend` (physics_ptend, :137-173) as dataclasses
+    of tensors; the ptend's activation flags (ls/lu/lv/lq) and level range
+    are plain Python values;
+  - `ptend_init`, `ptend_sum`, `ptend_scale`, `qmin_vector`,
+    `physics_update` (with `refresh=False`), `tend_update`
+    (physics_update's tendency accumulator), `refresh_dse`,
+    `set_state_pdry`, `set_wet_to_dry`, `set_dry_to_wet`,
+    `physics_dme_adjust` and `make_state_from_profiles`.
 
 States are treated as immutable: every update returns a new state. Level
-k=0 is the model top. Wet/dry conversion, physics_dme_adjust and
-physics_state_check come with the coupled step.
+k=0 is the model top. physics_state_check comes with the driver.
 """
 
 from __future__ import annotations
@@ -75,11 +78,48 @@ class PhysicsState:
     def pcnst(self) -> int:
         return self.q.shape[2]
 
+    @property
+    def exner(self):
+        """(surface interface pressure / pmid) ** kappa."""
+        return (self.pint[:, -1:] / self.pmid) ** c.CAPPA
+
     def replace(self, **kw) -> "PhysicsState":
         return replace(self, **kw)
 
+    def contiguous(self) -> "PhysicsState":
+        """The state with every tensor contiguous (the ZM tail kernel and
+        the dycore's kernels take contiguous tensors only)."""
+        return replace(self, **{f.name: getattr(self, f.name).contiguous()
+                                for f in fields(self)})
+
 
 STATE_FIELDS = tuple(f.name for f in fields(PhysicsState))
+
+
+@dataclass
+class PhysicsTend:
+    """Tendencies accumulated over a physics step (physics_tend)."""
+
+    dtdt: torch.Tensor
+    dudt: torch.Tensor
+    dvdt: torch.Tensor
+    flx_net: torch.Tensor
+    te_tnd: torch.Tensor
+    tw_tnd: torch.Tensor
+
+    @classmethod
+    def zeros(cls, ncol: int, pver: int, dtype=torch.float64,
+              device="cpu") -> "PhysicsTend":
+        z2 = torch.zeros((ncol, pver), dtype=dtype, device=device)
+        z1 = torch.zeros((ncol,), dtype=dtype, device=device)
+        return cls(dtdt=z2, dudt=z2, dvdt=z2, flx_net=z1, te_tnd=z1,
+                   tw_tnd=z1)
+
+    def replace(self, **kw) -> "PhysicsTend":
+        return replace(self, **kw)
+
+
+TEND_FIELDS = tuple(f.name for f in fields(PhysicsTend))
 
 
 @dataclass
@@ -158,6 +198,21 @@ def ptend_sum(a: PhysicsPtend, b: PhysicsPtend,
         bot_level=max(a.bot_level, b.bot_level))
 
 
+def ptend_scale(p: PhysicsPtend, fac) -> PhysicsPtend:
+    """physics_ptend_scale (physics_types.F90:900-963): every tendency and
+    boundary flux times fac."""
+    return p.replace(**{f: getattr(p, f) * fac for f in PTEND_FIELDS})
+
+
+def qmin_vector(registry: ConstituentRegistry, like):
+    """The registry's qmin values as a (pcnst,) tensor of `like`'s dtype
+    and device, made by fills (no host-to-device copy, so a CUDA graph
+    can capture it)."""
+    return torch.stack([torch.full((), cn.qmin, dtype=like.dtype,
+                                   device=like.device)
+                        for cn in registry.constituents])
+
+
 def _level_mask(pver: int, top: int, bot: int, dtype, device="cpu"):
     """1.0 on levels [top, bot] inclusive."""
     k = torch.arange(pver, device=device)
@@ -181,8 +236,8 @@ def physics_update(state: PhysicsState, ptend: PhysicsPtend, dt: float,
     210-497), in the reference's order: u, v -> q (qneg3 floors, number
     clamps, cldliq/ice min-nz for deep convection) -> t from s -> the
     geopotential and dry-static-energy refresh when heat or vapor changed
-    (deferred with refresh=False). The JAX twin's optional PhysicsTend
-    accumulator is not ported; this returns the state only."""
+    (deferred with refresh=False). Returns the state; the JAX twin's
+    PhysicsTend accumulator is `tend_update`."""
     if not ptend.any_active:
         return state
 
@@ -233,6 +288,25 @@ def physics_update(state: PhysicsState, ptend: PhysicsPtend, dt: float,
     return state
 
 
+def tend_update(tend: PhysicsTend, ptend: PhysicsPtend) -> PhysicsTend:
+    """The tendency accumulator of the JAX package's physics_update
+    (physics_types.F90:210-497): adds the ptend's active u, v and s/cp
+    tendencies over its level range to `tend`. The port keeps it apart
+    from physics_update, which returns the state alone."""
+    if not (ptend.ls or ptend.lu or ptend.lv):
+        return tend
+    s = ptend.s
+    mask = _level_mask(s.shape[1], ptend.top_level, ptend.bot_level,
+                       s.dtype, s.device)[None, :]
+    if ptend.lu:
+        tend = tend.replace(dudt=tend.dudt + ptend.u * mask)
+    if ptend.lv:
+        tend = tend.replace(dvdt=tend.dvdt + ptend.v * mask)
+    if ptend.ls:
+        tend = tend.replace(dtdt=tend.dtdt + ptend.s / c.CPAIR * mask)
+    return tend
+
+
 def set_state_pdry(state: PhysicsState) -> PhysicsState:
     """Dry-pressure companion fields (set_state_pdry, physics_types.F90:
     1925-1961): pdeldry = pdel*(1 - qv)."""
@@ -246,6 +320,67 @@ def set_state_pdry(state: PhysicsState) -> PhysicsState:
         pdeldry=pdeldry, rpdeldry=1.0 / pdeldry, pintdry=pintdry,
         psdry=psdry, pmiddry=pmiddry, lnpmiddry=torch.log(pmiddry),
         lnpintdry=torch.log(pintdry))
+
+
+def _scale_by_type(q, fac, registry: ConstituentRegistry, mixtype: str):
+    """q with the tracers of `mixtype` times fac (ncol, pver), the others
+    as they are."""
+    return torch.stack([q[:, :, m] * fac if cn.mixtype == mixtype
+                        else q[:, :, m]
+                        for m, cn in enumerate(registry.constituents)], -1)
+
+
+def set_wet_to_dry(state: PhysicsState,
+                   registry: ConstituentRegistry) -> PhysicsState:
+    """DRY-type constituents from the moist dycore's wet basis to their
+    dry basis (set_wet_to_dry, physics_types.F90:1968-1985); wet-type ones,
+    water vapour among them, stay wet."""
+    return state.replace(q=_scale_by_type(
+        state.q, state.pdel / state.pdeldry, registry, "dry"))
+
+
+def set_dry_to_wet(state: PhysicsState,
+                   registry: ConstituentRegistry) -> PhysicsState:
+    """Inverse of set_wet_to_dry (physics_types.F90:1988-2005)."""
+    return state.replace(q=_scale_by_type(
+        state.q, state.pdeldry / state.pdel, registry, "dry"))
+
+
+def physics_dme_adjust(state: PhysicsState, qini,
+                       registry: ConstituentRegistry) -> PhysicsState:
+    """Dry-mass/energy adjustment after physics (physics_dme_adjust,
+    physics_types.F90:1213-1794). The FV dycore is moist: layer masses
+    scale by fdq = 1 + qv - qini, wet constituents are rescaled to keep
+    their mass, and the pressure fields are rebuilt. The "tht" form adds
+    the uniform column temperature correction that restores
+    sum(pdel (cp T + (Lv + Li) qv)). qini: the vapour mixing ratio (wet)
+    at the start of physics."""
+    qv = state.q[:, :, 0]
+    fdq = 1.0 + qv - qini
+    pdel_new = state.pdel * fdq
+    q_new = torch.stack([state.q[:, :, m] / fdq if cn.mixtype == "wet"
+                         else state.q[:, :, m]
+                         for m, cn in enumerate(registry.constituents)], -1)
+
+    pint_top = state.pint[:, :1]
+    pint_new = torch.cat([pint_top, pint_top + torch.cumsum(pdel_new, -1)],
+                         -1)
+    ps_new = pint_new[:, -1]
+    lnpint_new = torch.log(pint_new)
+    pmid_new = pdel_new / (lnpint_new[:, 1:] - lnpint_new[:, :-1])
+
+    e0 = torch.sum(state.pdel * (c.CPAIR * state.t +
+                                 (c.LATVAP + c.LATICE) * qv), -1)
+    e1 = torch.sum(pdel_new * (c.CPAIR * state.t +
+                               (c.LATVAP + c.LATICE) * q_new[:, :, 0]), -1)
+    corr = (e0 - e1) / (c.CPAIR * torch.sum(pdel_new, -1))
+    t_new = state.t + corr[:, None]
+
+    state = state.replace(
+        t=t_new, q=q_new, ps=ps_new, pint=pint_new, lnpint=lnpint_new,
+        pdel=pdel_new, rpdel=1.0 / pdel_new, pmid=pmid_new,
+        lnpmid=torch.log(pmid_new))
+    return refresh_dse(state)
 
 
 def make_state_from_profiles(pint, t, u, v, q, phis, lat=None, lon=None,

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -122,6 +123,19 @@ def build(names=None) -> dict:
     if errors:
         raise RuntimeError("\n".join(errors))
     return times
+
+
+_GLOBAL = re.compile(r"__global__\s+void\s+"
+                     r"(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*)?"
+                     r"(\w+)\s*\(")
+
+
+def kernel_names() -> frozenset:
+    """The names of the device kernels that csrc/ defines (each
+    `__global__` function's)."""
+    return frozenset(name for f in sorted(CSRC.iterdir())
+                     if f.suffix in (".cu", ".cuh")
+                     for name in _GLOBAL.findall(f.read_text()))
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -1,6 +1,6 @@
-"""Negative-tracer repair: qneg3 and the vertical borrowing filler.
+"""Negative-tracer repair: qneg3, qneg4 and the vertical borrowing filler.
 
-PyTorch twin of `cam_nor_physics_tpu.ops.fill` (qneg3, fillz).
+PyTorch twin of `cam_nor_physics_tpu.ops.fill` (qneg3, qneg4, fillz).
 """
 
 from __future__ import annotations
@@ -15,6 +15,14 @@ def qneg3(q, qmin=0.0):
     bad = q < qmin
     worst = torch.min(torch.where(bad, q, torch.inf))
     return torch.where(bad, qmin, q), worst, torch.sum(bad)
+
+
+def qneg4(cflx, qbot, pdel_bot, dt, gravit):
+    """Surface-flux limiter (qneg4 semantics, physpkg.F90:1647): a
+    negative surface flux may remove at most the lowest layer's tracer
+    mass over dt. Returns the limited flux."""
+    max_removal = qbot * pdel_bot / (gravit * dt)
+    return torch.maximum(cflx, -max_removal)
 
 
 def fillz(q, dp):

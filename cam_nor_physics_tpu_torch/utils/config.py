@@ -1,11 +1,14 @@
-"""FV dycore and ZM deep-convection configuration.
+"""FV dycore, ZM deep-convection and physics-package configuration.
 
-The port's copies of `FVConfig` and `ZMConfig` from
+The port's copies of `FVConfig`, `ZMConfig` and `PhysConfig` from
 `cam_nor_physics_tpu.utils.config`, with the same fields and defaults except
 the Pallas switches (`FVConfig.use_pallas`, `ZMConfig.use_pallas` and
 `ZMConfig.use_pallas_tail`): here the kernels are chosen by the device of
 the tensors (CUDA tensors launch the hand-written kernels, CPU tensors take
-their plain PyTorch versions), so there is no switch.
+their plain PyTorch versions), so there is no switch. `PhysConfig` raises
+for a `cam_physpkg` other than "cam6", which the JAX class accepts and
+ignores. `GridConfig`, `ModelConfig` and the TOML loaders come with the
+driver.
 """
 
 from __future__ import annotations
@@ -188,3 +191,65 @@ class ZMConfig:
     def tentrm(self) -> float:
         """Initial test-parcel entrainment rate = -dmpdz."""
         return -self.dmpdz
+
+
+@dataclass(frozen=True)
+class PhysConfig:
+    """Physics package control flags (phys_ctl_nl equivalent, reference
+    phys_control.F90:33-117). physpkg raises NotImplementedError for a
+    non-empty `aero_modes` and for `raytau0 > 0` (their schemes are not
+    ported); `cam_physpkg` other than "cam6" raises here."""
+
+    cam_physpkg: str = "cam6"
+    deep_scheme: str = "ZM"
+    shallow_scheme: str = "CLUBB_SGS"
+    eddy_scheme: str = "CLUBB_SGS"
+    microp_scheme: str = "MG"
+    macrop_scheme: str = "CLUBB_SGS"
+    radiation_scheme: str = "rrtmg"
+    srf_flux_avg: int = 0
+    cld_macmic_num_steps: int = 1   # macro/micro substeps per physics step
+    micro_do_icesupersat: bool = False
+    use_subcol_microp: bool = False
+    state_debug_checks: bool = True
+    history_amwg: bool = True
+    history_verbose: bool = False
+    history_aerosol: bool = False
+    history_budget: bool = False
+    history_budget_histfile_num: int = 1
+    history_waccm: bool = False
+    do_clubb_sgs: bool = True
+    use_gw_oro: bool = True
+    use_gw_front: bool = False
+    use_gw_convect: bool = False
+    # TEM circulation diagnostics in d_p_coupling (dp_coupling.F90:274-279)
+    do_circulation_diags: bool = False
+    # QBO zonal-mean wind forcing input (qbo_use_forcing, :318-320)
+    qbo_use_forcing: bool = False
+    use_hetfrz_classnuc: bool = False
+    waccmx_opt: str = "off"
+    fv_am_correction: bool = False  # set by the dycore (dyn_comp.F90:374)
+    use_oslo_aero: bool = False
+    prog_modal_aero: bool = True
+    # snapshot hooks (cam_take_snapshot_before/after, phys_control.F90:
+    # 111-114): tphysbc/tphysac record the state before and after each
+    # parameterization into the diagnostics
+    cam_snapshot: bool = False
+    # Rayleigh friction (physpkg.F90:2177-2185); raytau0 <= 0 disables
+    rayk0: int = 2
+    raykrange: float = 0.0
+    raytau0: float = 0.0          # e-folding time at model top (days)
+    # modal aerosol optics modes (rad_constituents role)
+    aero_modes: tuple = ()
+
+    def __post_init__(self) -> None:
+        if self.cam_physpkg != "cam6":
+            raise NotImplementedError(
+                f"PhysConfig.cam_physpkg={self.cam_physpkg!r}: only the "
+                f"cam6 physics sequence is implemented")
+
+    def cam_physpkg_is(self, name: str) -> bool:
+        return self.cam_physpkg == name
+
+    def waccmx_is(self, name: str) -> bool:
+        return self.waccmx_opt == name

@@ -108,7 +108,29 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
     once, with the launch counts set to 0 just before and read just
     after: the probe exactly once, every kernel of the fused path at
     least once; prints its JSON line;
-13. prints the kernels JSON line (ten kernels), the card's name and power
+13. drives the coupled atm_step at f19 in the bench's coupled
+    configuration (entry.build_coupled: gray radiation, ZM, vertical
+    diffusion, the FV dycore with FVConfig()'s splits, aquaplanet bulk
+    fluxes), float32: the first step and 3 more, eager, with the launch
+    counts set to 0 before each step and read after it: K1-K4,
+    tracer_div3d, te_map_remap and zm_tail each exactly as one HS step
+    and one ZM step launch them, transport3d and vort_flux3d never;
+    every tensor of the state finite and the dry-air mass (cos-lat
+    weighted delp (1 - q), tests/test_atm_comp.py:48-65) within 1e-5 of
+    the step before; the energy fixer's EFIX range printed per step, and
+    for the same 4 steps in float64 through the kernels; the first step
+    and one more in float64 through the
+    kernels and through their plain versions (all seven sites routed),
+    each dycore and physics field within 1e-9 of its max, with the count
+    of columns whose ZM trigger or level indices differ printed; a CUDA
+    graph of 8 prog_only steps (bench.chain_graph: its first replay
+    bitwise equal to 8 eager steps, launches counted at capture only);
+    times a step per dispatch (full and prog_only are one computation in
+    eager PyTorch), as a graph, the bench's phase table, the device
+    kernels a step (the port's and PyTorch's) and the device's busy share
+    under torch.profiler; then one step at f09 (nspltrac 2: two trac2d
+    calls) with exact launch counts, finite fields and the drift gate;
+14. prints the kernels JSON line (ten kernels), the card's name and power
     limit, then {"ok": true, "device": {...}} last. Every phase prints its
     wall time.
 
@@ -118,6 +140,7 @@ checkout of the repo, or when any phase fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import sys
@@ -188,7 +211,10 @@ FUSED = ("k1", "k2", "k3", "k4")
 PROBE_CALLS = 200          # back-to-back probe calls a timing turn
 PROBE_ROUNDS = 3           # rounds of its six interleaved turns
 GRAPH_K = 8                # steps per CUDA-graph replay, as the bench's chunk
-PROFILE_TRIES = 3          # profiler windows run before giving up
+COUPLED_STEPS = 3          # coupled steps after the first, counted
+COUPLED_F64_STEPS = 2      # float64 coupled steps, kernels vs plain
+COUPLED_TOL_F64 = 1e-9     # float64 coupled step, kernels vs plain
+COUPLED_TIMED = 3          # coupled steps timed per dispatch
 BEYOND = ("f09", "f05")    # the bench's grids beyond f19
 # repetitions of each kernel (and of its plain version) timed there
 BEYOND_REPS = {"f09": (20, 3), "f05": (10, 2)}
@@ -691,9 +717,8 @@ class Smoke:
         recorded): the column passes and row kernels against K2's and K4's
         two DFT products, and the products' rate on their own work (16 km
         jm nf im operations, a multiply and an add a term)."""
-        torch = self.torch
-        times, _ = kernel_times(torch, lambda: self.kernel(name)(*a, **kw),
-                                reps)
+        from cam_nor_physics_tpu_torch.bench import kernel_times
+        times, _ = kernel_times(lambda: self.kernel(name)(*a, **kw), reps)
         mean_ms = {n: us / c / 1e3 for n, (c, us) in times.items()}
         dft_ms = sum(t for n, t in mean_ms.items() if "dft_" in n)
         level_ms = sum(t for n, t in mean_ms.items() if "dft_" not in n)
@@ -717,7 +742,8 @@ class Smoke:
         call of fn; torch.profiler, the mean over the launches it
         recorded), beside the CUDA-event time that carries the wrapper's
         host path; logs it and returns it."""
-        times, _ = kernel_times(self.torch, lambda: fn(*a, **kw), reps)
+        from cam_nor_physics_tpu_torch.bench import kernel_times
+        times, _ = kernel_times(lambda: fn(*a, **kw), reps)
         mine = [(c, us) for n, (c, us) in times.items() if key in n]
         if not mine:
             raise RuntimeError(f"{label}: the profiler recorded no {key}")
@@ -789,7 +815,7 @@ class Smoke:
         ms, plain_ms, library_ms = (float(np.median(turns[n])) for n in
                                     ("kernel", "plain", "library"))
         # the device's share: each call's kernel duration by the profiler
-        dev = {n: device_us(torch, lambda f=f, a=a: f(*a), PROBE_CALLS)
+        dev = {n: device_us(lambda f=f, a=a: f(*a), PROBE_CALLS)
                for n, (f, a) in calls.items()}
         nbytes = 2 * x.numel() * x.element_size()
         bound, bound_by = self.bound(nbytes, x.numel())
@@ -1272,54 +1298,260 @@ def run_zm_grid(torch, sm: Smoke, gname: str) -> None:
                  5)
 
 
-def kernel_times(torch, fn, reps=1):
-    """One warm-up call of fn, then `reps` calls under torch.profiler:
-    ({device kernel name: [launches recorded, µs]}, wall seconds). The
-    profiler drops launches in short windows, at times all of them: a
-    window that recorded no device kernel is run again, up to
-    PROFILE_TRIES windows in all."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(1, PROFILE_TRIES + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
+class CoupledSmoke:
+    """Phase 13: the coupled atm_step (entry.build_coupled) on the card."""
+
+    def __init__(self, torch, sm: Smoke, card: str):
+        from cam_nor_physics_tpu_torch.models.physics import zm_conv_intr
+        from cam_nor_physics_tpu_torch.ops import zm_tail_kernels
+        self.torch, self.sm, self.card = torch, sm, card
+        self.intr, self.tk = zm_conv_intr, zm_tail_kernels
+
+    @contextmanager
+    def plain(self):
+        """All seven kernel sites of the coupled step at their plain
+        versions."""
+        saved = self.intr.zm_tail
+        self.intr.zm_tail = self.tk.zm_tail_ref
+        try:
+            with self.sm.routed(self.sm.plain):
+                yield
+        finally:
+            self.intr.zm_tail = saved
+
+    def expected(self, model) -> dict:
+        """The launches of one coupled step: one HS large step's (K1-K4
+        ns times, tracer_div3d n2 times, te_map_remap nv times) and one ZM
+        step's."""
+        g = model.grid
+        ns, nspltrac, nv = model.fv_cfg.resolved_splits(model.dt, g.im, g.jm)
+        n2 = (nspltrac + nv - 1) // nv
+        nsplit = (ns + n2 * nv - 1) // (n2 * nv)
+        lpc = self.sm.sk.LAUNCHES_PER_CALL
+        out = {k: nsplit * n2 * nv * self.sm.ck.launches_per_call(k)
+               for k in FUSED}
+        out.update(tracer_div3d=n2 * nv * lpc["tracer_div3d"],
+                   te_map_remap=nv, zm_tail=1, transport3d=0, vort_flux3d=0,
+                   probe=0)
+        return out
+
+    @staticmethod
+    def dry_mass(model, state):
+        """Cos-lat weighted dry-air mass (tests/test_atm_comp.py:48-65)."""
+        g = model.grid
+        w = g.cosp.double().clone()
+        w[0] = w[-1] = g.acap / g.im
+        d = state.dyn
+        return float((w[:, None] * d.delp.double() *
+                      (1.0 - d.q[0].double())).sum())
+
+    def counted_steps(self, label, model, step, state, nsteps):
+        """The first step and `nsteps` more, eager, each with the counts
+        set to 0 before it and read after it; finite state and the
+        dry-mass drift of each step. Returns the state and the steps'
+        host times."""
+        torch, sm = self.torch, self.sm
+        from cam_nor_physics_tpu_torch.bench import tensors
+        want = self.expected(model)
+        times = []
+        for i in range(nsteps + 1):
+            m0 = self.dry_mass(model, state)
+            sm.zero_counts()
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        by_name = defaultdict(lambda: [0, 0.0])
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[e.name][0] += 1
-                by_name[e.name][1] += e.time_range.elapsed_us()
-        if by_name:
-            return by_name, wall
-        log(f"profiler: no device kernel recorded in window {attempt} of "
-            f"{PROFILE_TRIES}")
-    raise RuntimeError("the profiler recorded no device time")
+            t0 = time.perf_counter()
+            state, cam_out, diags = step(state, first_step=i == 0)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            got = sm.counts()
+            drift = abs(self.dry_mass(model, state) - m0) / m0
+            log(f"coupled {label} step {i + 1}"
+                f"{' (first_step)' if i == 0 else ''}: launches {got}, "
+                f"dry-mass drift {drift:.3e} (tol {DRIFT_TOL:.0e}), "
+                f"EFIX {self.efix_range(diags)} W/m2, "
+                f"{1e3 * times[-1]:.1f} ms [{self.card}]")
+            if got != want:
+                raise RuntimeError(f"coupled {label} step {i + 1} launched "
+                                   f"{got}, expected {want}")
+            if drift > DRIFT_TOL:
+                raise RuntimeError(f"coupled {label}: dry-mass drift "
+                                   f"{drift:.3e} > {DRIFT_TOL}")
+            bad = [j for j, t in enumerate(tensors((state, cam_out, diags)))
+                   if t.is_floating_point()
+                   and not bool(torch.isfinite(t).all())]
+            if bad:
+                raise RuntimeError(f"coupled {label}: {len(bad)} non-finite "
+                                   f"tensors after step {i + 1}")
+        return state, times
+
+    @staticmethod
+    def efix_range(diags) -> str:
+        """[min, max] of the energy fixer's column heating (EFIX)."""
+        e = diags["EFIX"].double()
+        return f"[{float(e.min()):.6e}, {float(e.max()):.6e}]"
+
+    def parity64(self):
+        """The first step and one more in float64 through the kernels and
+        through the plain versions, from the same state: each dycore and
+        physics field within COUPLED_TOL_F64 of its max; the columns whose
+        ZM trigger or level indices differ, counted. The kernels' run goes
+        on to the float32 run's COUPLED_STEPS + 1 steps for EFIX."""
+        torch = self.torch
+        from cam_nor_physics_tpu_torch.entry import build_coupled
+        model, step, s0, _ = build_coupled(IM, JM, KM, torch.float64,
+                                           DEVICE)
+
+        def run(nsteps):
+            s, kept, flips, efix = s0, None, [], []
+            for i in range(nsteps):
+                s, _, diags = step(s, first_step=i == 0)
+                efix.append(self.efix_range(diags))
+                if i < COUPLED_F64_STEPS:
+                    flips.append({k: s.pbuf.get(k).clone()
+                                  for k in ("ZM_IDEEP", "ZM_JT", "ZM_MAXG")})
+                    kept = s
+            return kept, flips, efix
+
+        got, kflips, efix = run(COUPLED_STEPS + 1)
+        log(f"coupled float64 through the kernels: EFIX by step {efix} "
+            f"W/m2")
+        with self.plain():
+            want, pflips, _ = run(COUPLED_F64_STEPS)
+        torch.cuda.synchronize()
+        flipped = [int(sum((a[k] != b[k]) for k in a).gt(0).sum())
+                   for a, b in zip(kflips, pflips)]
+        rel = {}
+        for grp in ("dyn", "phys"):
+            g, w = getattr(got, grp), getattr(want, grp)
+            for f in dataclasses.fields(w):
+                x, y = getattr(g, f.name), getattr(w, f.name)
+                scale = float(y.abs().max())
+                rel[f"{grp}.{f.name}"] = float((x - y).abs().max()) / \
+                    max(scale, 1e-300)
+        worst = max(rel, key=rel.get)
+        log(f"coupled float64, {COUPLED_F64_STEPS} steps, kernels vs plain "
+            f"versions: worst {worst} {rel[worst]:.3e} (tol "
+            f"{COUPLED_TOL_F64:.0e}); dyn "
+            + ", ".join(f"{k[4:]} {v:.2e}" for k, v in rel.items()
+                        if k.startswith("dyn."))
+            + f"; columns whose ZM trigger or level indices differ, by step: "
+            f"{flipped} of {IM * JM}")
+        if rel[worst] > COUPLED_TOL_F64:
+            raise RuntimeError(f"coupled float64: kernels disagree with the "
+                               f"plain versions: {worst} {rel[worst]:.3e}")
+
+    def graph(self, step, state):
+        """A CUDA graph of GRAPH_K prog_only steps (bench.chain_graph, its
+        first replay held bitwise to GRAPH_K eager steps), the launches it
+        counted at capture (GRAPH_K steps') and at a replay (none), and
+        the replay time a step."""
+        torch, sm = self.torch, self.sm
+        from cam_nor_physics_tpu_torch.bench import chain_graph
+
+        def prog_only(s):
+            return (step(s)[0],)
+
+        sm.zero_counts()
+        prog_only(state)
+        torch.cuda.synchronize()
+        one = sm.counts()
+        sm.zero_counts()
+        t0 = time.perf_counter()
+        g = chain_graph(prog_only, (state,), GRAPH_K)
+        check_s = time.perf_counter() - t0
+        captured = {n: c - GRAPH_K * one[n] for n, c in sm.counts().items()}
+        if captured != {n: GRAPH_K * c for n, c in one.items()}:
+            raise RuntimeError(f"coupled graph: capture counted {captured}, "
+                               f"one eager step {one}")
+        sm.zero_counts()
+        reps = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g.replay()
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t0) / GRAPH_K)
+        if any(sm.counts().values()):
+            raise RuntimeError(f"coupled graph: a replay counted "
+                               f"{sm.counts()}")
+        log(f"coupled graph: {GRAPH_K} prog_only steps captured, first "
+            f"replay bitwise equal to {GRAPH_K} eager steps (chain_graph, "
+            f"{check_s:.1f} s); launches at capture {captured}; replay "
+            f"per step " + ", ".join(f"{1e3 * t:.2f}" for t in reps)
+            + f" ms [{self.card}]")
+        del g
+        return min(reps)
 
 
-def device_us(torch, fn, reps):
+def run_coupled(torch, sm: Smoke, card: str) -> None:
+    """Phase 13: the coupled step at f19 on the card, and one at f09."""
+    from cam_nor_physics_tpu_torch import bench
+    from cam_nor_physics_tpu_torch.entry import build_coupled
+    cs = CoupledSmoke(torch, sm, card)
+    model, step, state, sst = build_coupled(IM, JM, KM, torch.float32,
+                                            DEVICE)
+    state, _ = cs.counted_steps("f19", model, step, state, COUPLED_STEPS)
+    cs.parity64()
+    torch.cuda.empty_cache()
+    t_graph = cs.graph(step, state)
+    torch.cuda.empty_cache()
+
+    def timed(fn):
+        nonlocal state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(COUPLED_TIMED):
+            state = fn(state)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / COUPLED_TIMED
+
+    # full and prog_only are one computation in eager PyTorch
+    t_step = timed(lambda s: step(s)[0])
+    phases = bench.coupled_phases(model, state, sst, 2, torch.device(DEVICE),
+                                  passes=1)
+    npts = IM * JM * KM
+    log(f"coupled step at {IM}x{JM}x{KM} float32 [{card}]: per dispatch "
+        f"{1e3 * t_step:.2f} ms (full = prog_only, the mean of "
+        f"{COUPLED_TIMED}); graph {1e3 * t_graph:.2f} ms -> "
+        f"{npts / t_graph:.6e} grid points/s; phase table (independent "
+        f"dispatches): " + ", ".join(f"{k} {1e3 * v:.2f} ms"
+                                     for k, v in phases.items()))
+    profile_call(f"coupled step (prog_only) {IM}x{JM}x{KM}",
+                 lambda: step(state), card)
+    del state
+    torch.cuda.empty_cache()
+    # f09: FVConfig()'s (8, 2, 1) splits run trac2d twice a step, the
+    # second time on the first's output
+    im, jm, km, _ = bench.GRIDS["f09"]
+    model, step, state, _ = build_coupled(im, jm, km, torch.float32, DEVICE)
+    cs.counted_steps("f09", model, step, state, 1)
+    del state
+    torch.cuda.empty_cache()
+
+
+def device_us(fn, reps):
     """Device µs a call of fn, which launches one kernel: the mean
     duration of the launches torch.profiler recorded in `reps` calls."""
-    times, _ = kernel_times(torch, fn, reps)
+    from cam_nor_physics_tpu_torch.bench import kernel_times
+    times, _ = kernel_times(fn, reps)
     return sum(us for _, us in times.values()) / sum(
         c for c, _ in times.values())
 
 
-def profile_call(torch, label, fn, card, top=6):
+def profile_call(label, fn, card, top=6):
     """Phase 9: one call of fn under torch.profiler (after a warm-up);
-    prints the wall time, the device kernels, the device's busy time and
-    share, and the `top` kernels by device time."""
-    by_name, wall = kernel_times(torch, fn)
+    prints the wall time, the device kernels (the port's and PyTorch's),
+    the device's busy time and share, and the `top` kernels by device
+    time."""
+    from cam_nor_physics_tpu_torch.bench import by_origin, kernel_times
+    by_name, wall = kernel_times(fn)
     busy_us = sum(us for _, us in by_name.values())
     share = 100.0 * busy_us / 1e6 / wall
     log(f"profile {label} [{card}]: wall {1e3 * wall:.2f} ms under the "
-        f"profiler, {sum(n for n, _ in by_name.values())} device kernels, "
-        f"device busy {busy_us / 1e3:.3f} ms ({share:.1f}% of the wall "
-        f"time, idle {100.0 - share:.1f}%)")
+        f"profiler, {sum(n for n, _ in by_name.values())} device kernels ("
+        + ", ".join(f"{k} {n} launches {us / 1e3:.3f} ms"
+                    for k, (n, us) in by_origin(by_name).items())
+        + f"), device busy {busy_us / 1e3:.3f} ms ({share:.1f}% of the "
+        f"wall time, idle {100.0 - share:.1f}%)")
     for name, (n, us) in sorted(by_name.items(),
                                 key=lambda x: -x[1][1])[:top]:
         log(f"    {us / 1e3:9.3f} ms  {n:6d} x  {name[:90]}")
@@ -1438,10 +1670,10 @@ def run(torch) -> dict:
     with phase("9 profiles at f19"):
         for impl, what in (("fft", "fused"), ("matmul", "unfused")):
             step, state0, grid, coord, phis = paths[impl]
-            profile_call(torch,
+            profile_call(
                          f"HS large step ({what}, {impl}) {IM}x{JM}x{KM}",
                          lambda: step(state0, grid, coord, phis), card)
-        profile_call(torch, f"ZM step {NCOL}x{KM}", zm["step"], card)
+        profile_call(f"ZM step {NCOL}x{KM}", zm["step"], card)
     del paths, calls, calls_fft, cases, runs, zm["step"]
 
     # ---- phase 10: the bench's CUDA graphs at f19, replays against eager
@@ -1485,6 +1717,10 @@ def run(torch) -> dict:
             raise RuntimeError(f"bench at f19: kernels not launched {idle}, "
                                f"probe launched {bench_launches['probe']} "
                                f"times (expected 1)")
+
+    # ---- phase 13: the coupled atm_step at f19 (and one step at f09)
+    with phase("13 coupled atm_step at f19"):
+        run_coupled(torch, sm, card)
 
     kernels = []
     for name, source, replaces in KERNELS:

@@ -16,7 +16,13 @@ and what the bench configuration adds to the HS step, on the CPU.
   2-step unfused test of test_torch_slice.py measures ~1e-12).
 - The bench on the CPU at BENCH_SMALL's 72x46x10, one iteration and one
   pass: bench.py's per-dispatch keys plus `impl` and `card`; the
-  environment it reads; BENCH_COUPLED and BENCH_ROOFLINE raise.
+  environment it reads; BENCH_ROOFLINE raises, and so does
+  BENCH_COUPLED with BENCH_MICROP (ZM microphysics is not ported).
+- The coupled bench (BENCH_COUPLED=1 BENCH_SMALL=1 BENCH_CPU=1,
+  BENCH_CHUNK=1) on the CPU, one step a shape and one pass: bench.py's
+  coupled keys plus `impl` and `card`, and the environment it reads.
+- The profile's split of device kernels into the port's (the __global__
+  functions of csrc/) and PyTorch's, on demangled profiler names.
 - The bench's state helpers (walk, clone, bitwise comparison) and
   wset_row's capture-safe scalar path, bitwise against the former
   host-tensor form.
@@ -261,12 +267,77 @@ def test_bench_refuses_unknown_grid():
         tbench.grid_from_env({"BENCH_GRID": "f10"})
 
 
-@pytest.mark.parametrize("var,names", [("BENCH_COUPLED", "Queue 1 items 2-4"),
+@pytest.mark.parametrize("var,names", [("BENCH_COUPLED", "microp"),
                                        ("BENCH_ROOFLINE", "roofline")])
 def test_bench_unported_modes_raise(var, names, monkeypatch):
     monkeypatch.setattr(tbench, "run", lambda **kw: pytest.fail("ran"))
     with pytest.raises(NotImplementedError, match=names):
-        tbench.main({var: "1", "BENCH_CPU": "1", "BENCH_SMALL": "1"})
+        tbench.main({var: "1", "BENCH_CPU": "1", "BENCH_SMALL": "1",
+                     "BENCH_MICROP": "1"})
+
+
+# bench.py's coupled record keys (bench.py:443-457)
+COUPLED_KEYS = {"metric", "value", "unit", "vs_baseline", "headline_shape",
+                "chunk", "grid", "device", "t_ms",
+                "t_ms_phases_independent_dispatch"}
+
+
+def test_coupled_bench_record_on_cpu():
+    """BENCH_COUPLED=1 BENCH_SMALL=1 BENCH_CPU=1 BENCH_CHUNK=1, one step
+    a loop shape and one pass: bench.py's coupled keys plus impl and card,
+    the five phases, and a headline that is the grid points over the
+    faster shape's step time."""
+    rec = tbench.run_coupled("small", "cpu", chunk=1, iters=1, passes=1)
+    assert set(rec) == COUPLED_KEYS | {"impl", "card"}
+    assert rec["grid"] == "72x46x10" and rec["device"] == "cpu"
+    assert rec["card"] is None and "plain" in rec["impl"]
+    assert rec["chunk"] == 1 and rec["headline_shape"] in ("full",
+                                                           "prog_only")
+    t = rec["t_ms"]
+    assert set(t) == {"full", "prog_only"} and min(t.values()) > 0.0
+    assert rec["value"] == pytest.approx(
+        72 * 46 * 10 / (min(t.values()) * 1e-3), rel=1e-12)
+    assert list(rec["t_ms_phases_independent_dispatch"]) == [
+        "bc_physics", "ac_physics", "p_d_coupling", "dyn", "d_p_coupling"]
+    json.dumps(rec)
+
+
+def test_coupled_bench_reads_benchpy_environment(monkeypatch, capsys):
+    seen = []
+
+    def fake(grid, device, chunk, microp):
+        seen.append((grid, device, chunk, microp))
+        return {"value": 2.0}
+    monkeypatch.setattr(tbench, "run_coupled", fake)
+    monkeypatch.setattr(tbench, "run", lambda **kw: pytest.fail("ran"))
+    assert tbench.main({"BENCH_COUPLED": "1", "BENCH_GRID": "f09",
+                        "BENCH_CHUNK": "4"}) == {"value": 2.0}
+    assert tbench.main({"BENCH_COUPLED": "1", "BENCH_SMALL": "1",
+                        "BENCH_CPU": "1", "BENCH_CHUNK": "1"}) == \
+        {"value": 2.0}
+    assert seen == [("f09", "cuda", 4, False), ("small", "cpu", 1, False)]
+    assert capsys.readouterr().out.count('{"value": 2.0}') == 2
+
+
+def test_profile_splits_port_and_pytorch_kernels():
+    names = cuda_build.kernel_names()
+    assert {"k1_winds_kernel", "k2_kick_kernel", "dft_forward_kernel",
+            "row_inner_kernel", "tp_q_flux_kernel", "te_map_kernel",
+            "zm_tail_kernel", "probe_kernel"} <= names
+    assert len(names) == 19
+    times = {
+        "void (anonymous namespace)::k1_winds_kernel<float>(float const*, "
+        "float const*, float const*, double, int, int)": [24, 100.0],
+        "void tpc::tp_flux_kernel<float>(float const*, float const*)":
+            [3, 10.0],
+        "zm_tail_kernel(TailArgs<double>, int, int, int, int)": [1, 5.0],
+        "void at::native::vectorized_elementwise_kernel<4, "
+        "at::native::CUDAFunctor_add<float>>(int, float*)": [500, 250.0],
+        "void at::native::reduce_kernel<512, 1>(float*)": [20, 40.0]}
+    assert tbench.by_origin(times) == {"port": [28, 115.0],
+                                       "PyTorch": [520, 290.0]}
+    assert tbench.kernel_ident("probe_kernel(float const*, float*, int)") \
+        == "probe_kernel"
 
 
 def test_state_helpers():

@@ -4,9 +4,12 @@
   jax, flax or the JAX package
   cam_nor_physics_tpu (the exact top-level name, so the port's own package
   does not match).
-- Entry points default to the CUDA device and raise where it is absent.
-- convert.py carries state, grid and coordinate, and the physics state and
-  buffer, across and back unchanged.
+- The scan covers every module of the coupled step, each by name.
+- Entry points default to the CUDA device and raise where it is absent:
+  the coupled step's (build_coupled, AtmModel.create, the coupled bench)
+  too.
+- convert.py carries state, grid and coordinate, the physics state and
+  buffer, and the coupled state, across and back unchanged.
 - The options the port does not implement raise NotImplementedError
   (ZMConfig.microp among them).
 """
@@ -21,8 +24,8 @@ import torch
 from cam_nor_physics_tpu.models.fv import grid as jgrid
 from cam_nor_physics_tpu.models.fv import vertical as jvert
 from cam_nor_physics_tpu_torch import convert
-from cam_nor_physics_tpu_torch.entry import (build_step, build_zm_step,
-                                             varied_zm_inputs)
+from cam_nor_physics_tpu_torch.entry import (build_coupled, build_step,
+                                             build_zm_step, varied_zm_inputs)
 from cam_nor_physics_tpu_torch.models.fv import dyn_comp as tdc
 from cam_nor_physics_tpu_torch.models.physics.constituents import \
     default_registry
@@ -61,6 +64,27 @@ def test_port_imports_nothing_of_jax():
     assert bad == {}
 
 
+# the coupled step's modules (each must exist and be scanned)
+COUPLED_MODULES = (
+    "utils/config.py", "ops/fill.py", "models/physics/state.py",
+    "models/physics/physics_buffer.py", "models/physics/check_energy.py",
+    "models/coupling/camsrfexch.py", "models/coupling/surface_fluxes.py",
+    "models/coupling/dp_coupling.py", "models/physics/dadadj.py",
+    "models/physics/convect_diagnostics.py",
+    "models/physics/cloud_fraction.py",
+    "models/physics/vertical_diffusion.py", "models/physics/radiation.py",
+    "models/physics/cam_diagnostics.py", "models/physics/physpkg.py",
+    "models/atm_comp.py", "bench.py", "convert.py", "entry.py")
+
+
+@pytest.mark.parametrize("module", COUPLED_MODULES)
+def test_coupled_modules_are_scanned(module):
+    path = REPO / "cam_nor_physics_tpu_torch" / module
+    assert path in _port_sources()
+    assert not _imported_roots(path) & FORBIDDEN
+    assert "torch" in _imported_roots(path) or module == "utils/config.py"
+
+
 def test_import_scan_catches_the_jax_package(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import cam_nor_physics_tpu_torch\n"
@@ -88,6 +112,39 @@ def test_zm_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="cuda"):
         convert.physstate_from_numpy({f: np.zeros(1)
                                       for f in convert.PHYS_STATE_FIELDS})
+
+
+def test_coupled_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from cam_nor_physics_tpu_torch import bench
+    from cam_nor_physics_tpu_torch.models.atm_comp import AtmModel
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_coupled(8, 6, 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        AtmModel.create(8, 6, 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.run_coupled("small")
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.main({"BENCH_COUPLED": "1", "BENCH_SMALL": "1"})
+
+
+def test_coupled_state_convert_round_trip():
+    _, step, state, _ = build_coupled(12, 8, 4, torch.float64, "cpu",
+                                      fv_cfg=FVConfig(nsplit=2, nspltrac=1))
+    state, _, _ = step(state, first_step=True)
+    fields = convert.atmstate_to_numpy(state)
+    assert fields["nstep"] == 1
+    back = convert.atmstate_from_numpy(fields, "cpu")
+    assert back.nstep.dtype == torch.int32 and back.pbuf.lifetimes == \
+        state.pbuf.lifetimes
+    again = convert.atmstate_to_numpy(back)
+    for grp in ("dyn", "phys"):
+        for f, a in fields[grp].items():
+            np.testing.assert_array_equal(again[grp][f], a, f)
+    for f, a in fields["pbuf"][0].items():
+        np.testing.assert_array_equal(again["pbuf"][0][f], a, f)
+    np.testing.assert_array_equal(again["phis"], fields["phis"])
 
 
 def test_zm_conv_tend_microp_raises():
