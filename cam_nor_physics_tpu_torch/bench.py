@@ -241,19 +241,21 @@ class ChainGraph:
     """`k` chained steps, carry(n+1) = step(*carry(n)), captured as one CUDA
     graph: bench.py's `lax.fori_loop` per dispatch.
 
-    `static` is a copy of `carry` that holds the graph's input buffers. The
-    graph runs the k steps and copies the last step's result into those
-    buffers, so each `replay()` advances `static` by k steps in place and
-    replays chain as bench.py's donated carries do; the copy-back is
-    inside the graph and inside the timed time. The step must have run
-    eagerly on the card before (libraries loaded, lazy tables built) and
-    may not synchronise with the host or copy host memory to the card.
-    Kernel wrappers count their launches once at capture, never at
-    replay."""
+    `static` is a copy of `carry` that holds the graph's input buffers (or
+    the caller's `static` carry itself, which several graphs may then
+    share). The graph runs the k steps and copies the last step's result
+    into those buffers, so each `replay()` advances `static` by k steps in
+    place and replays chain as bench.py's donated carries do; the
+    copy-back is inside the graph and inside the timed time. A result that
+    is its own input buffer (a tensor the step updated in place) needs no
+    copy. The step must have run eagerly on the card before (libraries
+    loaded, lazy tables built) and may not synchronise with the host or
+    copy host memory to the card. Kernel wrappers count their launches
+    once at capture, never at replay."""
 
-    def __init__(self, step, carry, k: int):
+    def __init__(self, step, carry, k: int, static=None):
         self.k = k
-        self.static = clone_tree(carry)
+        self.static = clone_tree(carry) if static is None else static
         ins = tensors(self.static)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):

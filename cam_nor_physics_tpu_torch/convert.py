@@ -6,7 +6,10 @@ scalars; `coord_to_numpy`/`coord_from_numpy` the HybridCoord;
 `physstate_*`, `pbuf_*` and `zmtend_to_numpy` the physics state, the physics
 buffer and the outputs of zm_conv_tend; `atmstate_*` the coupled state of
 atm_step (dycore state, physics export, physics buffer with its lifetimes,
-phis, nstep), `camin_*` and `camout_to_numpy` the surface exchange. The numpy side
+phis, nstep), `camin_*` and `camout_to_numpy` the surface exchange;
+`atmstate_named_leaves`/`atmstate_from_leaves` the coupled state's leaves
+in the order `jax.tree.flatten` gives the JAX AtmState's (the checkpoint
+layout both drivers write). The numpy side
 is a plain dict keyed by the field names both packages share, so a JAX
 object converts with {f: np.asarray(getattr(obj, f)) for f in FIELDS}.
 """
@@ -175,3 +178,38 @@ def camin_to_numpy(cam_in) -> dict:
 def camout_to_numpy(cam_out) -> dict:
     """{field: array} of a CamOut of either package."""
     return {f: _np(getattr(cam_out, f)) for f in CAMOUT_FIELDS}
+
+
+# ---- the coupled state's leaves (the checkpoint layout) ----
+
+def atmstate_named_leaves(state: AtmState) -> list:
+    """[(name, tensor)] of an AtmState in the JAX AtmState's
+    `jax.tree.flatten` order: dyn's u, v, pt, delp, q; phys's fields in
+    PhysicsState order; the pbuf's fields by sorted name (a dict's keys
+    flatten sorted); phis; nstep."""
+    out = [(f"dyn.{f}", getattr(state.dyn, f)) for f in STATE_FIELDS]
+    out += [(f"phys.{f}", getattr(state.phys, f))
+            for f in PHYS_STATE_FIELDS]
+    out += [(f"pbuf.{k}", state.pbuf.fields[k])
+            for k in sorted(state.pbuf.fields)]
+    return out + [("phis", state.phis), ("nstep", state.nstep)]
+
+
+def atmstate_from_leaves(template: AtmState, leaves) -> AtmState:
+    """The AtmState of `template`'s structure (its pbuf names, their
+    order and lifetimes) holding `leaves`, in atmstate_named_leaves'
+    order."""
+    leaves = list(leaves)
+    nd, nphys = len(STATE_FIELDS), len(PHYS_STATE_FIELDS)
+    names = sorted(template.pbuf.fields)
+    if len(leaves) != nd + nphys + len(names) + 2:
+        raise ValueError(f"{len(leaves)} leaves for an AtmState of "
+                         f"{nd + nphys + len(names) + 2}")
+    pb = dict(zip(names, leaves[nd + nphys:nd + nphys + len(names)]))
+    return AtmState(
+        dyn=DynState(**dict(zip(STATE_FIELDS, leaves[:nd]))),
+        phys=PhysicsState(**dict(zip(PHYS_STATE_FIELDS,
+                                     leaves[nd:nd + nphys]))),
+        pbuf=PhysicsBuffer(fields={k: pb[k] for k in template.pbuf.fields},
+                           lifetimes=dict(template.pbuf.lifetimes)),
+        phis=leaves[-2], nstep=leaves[-1])

@@ -4,8 +4,9 @@ Twin of `cam_nor_physics_tpu.models.physics.physics_buffer`: fields with
 'global' (persists across steps, the restart payload) or 'physpkg'
 (scratch within one physics step) lifetime (reference
 zm_conv_intr.F90:101-172). The buffer is treated as immutable: `set` and
-`update` return a new buffer. `global_fields` and `reset_physpkg` come
-with the driver.
+`update` return a new buffer. `global_fields` is the persistent subset
+(what a restart must carry); the driver's checkpoint holds the whole
+AtmState, as the JAX driver's does.
 """
 
 from __future__ import annotations
@@ -39,6 +40,18 @@ class PhysicsBuffer:
         for k, v in kv.items():
             out = out.set(k, v)
         return out
+
+    def global_fields(self) -> dict:
+        """The persistent ('global') subset: the restart payload."""
+        return {k: v for k, v in self.fields.items()
+                if self.lifetimes.get(k) == "global"}
+
+    def reset_physpkg(self) -> "PhysicsBuffer":
+        """The buffer with its per-step ('physpkg') fields zeroed (step
+        start)."""
+        return replace(self, fields={
+            k: (torch.zeros_like(v) if self.lifetimes.get(k) == "physpkg"
+                else v) for k, v in self.fields.items()})
 
 
 def pbuf_register(specs: Mapping[str, tuple], dtype=torch.float64,

@@ -22,7 +22,7 @@ Post-coupler (tphysac, physpkg.F90:1342-2506):
 
 Not ported, raising NotImplementedError: the modal aerosol branch (a
 non-empty PhysConfig.aero_modes) and Rayleigh friction (raytau0 > 0).
-snapshot_register comes with the history tapes.
+`snapshot_register` declares the snapshot payload on a history tape.
 """
 
 from __future__ import annotations
@@ -114,6 +114,45 @@ SNAPSHOT_SITES = (
     "rayleigh_before", "rayleigh_after",
     "dme_adjust_before", "dme_adjust_after",
 )
+
+
+_SNAP_STATE_FIELDS = ("T", "U", "V", "S", "PS")
+
+# after-sites whose parameterization exposes one ptend to snapshot (ZM
+# applies its tendencies internally, its payload is the ZMDT/ZMDQ family;
+# dme_adjust is a state adjustment, not a ptend)
+_PTEND_SITES = ("chkenergyfix_after", "dadadj_after",
+                "vertical_diffusion_after", "macmic_after",
+                "convect_deep_2_after", "radiation_after",
+                "rayleigh_after")
+
+
+def snapshot_register(reg, pcnst: int, tape: int = 1) -> None:
+    """Declare the snapshot payload on a history tape (the reference's
+    cam_snapshot_before_num/after_num tapes, phys_control.F90:111-114):
+    one instantaneous field per SNAPSHOT_SITES x state/ptend component.
+    `reg` is a utils.history.HistoryRegistry."""
+    units = {"T": "K", "U": "m/s", "V": "m/s", "S": "J/kg", "PS": "Pa"}
+
+    def add(name, unit, long_name, vdim="mid"):
+        reg.addfld(name, unit, long_name, vdim=vdim, avgflag="I")
+        reg.add_default(name, tape=tape)
+
+    for tag in SNAPSHOT_SITES:
+        for f in _SNAP_STATE_FIELDS:
+            add(f"SNAP_{tag}_{f}", units[f], f"snapshot {f} at {tag}",
+                vdim="srf" if f == "PS" else "mid")
+        for k in range(pcnst):
+            add(f"SNAP_{tag}_Q{k:02d}", "kg/kg",
+                f"snapshot constituent {k} at {tag}")
+        if tag in _PTEND_SITES:
+            for f in ("S", "U", "V"):
+                add(f"SNAP_{tag}_PTEND_{f}",
+                    "J/kg/s" if f == "S" else "m/s2",
+                    f"snapshot ptend {f} at {tag}")
+            for k in range(pcnst):
+                add(f"SNAP_{tag}_PTEND_Q{k:02d}", "kg/kg/s",
+                    f"snapshot ptend constituent {k} at {tag}")
 
 
 def _snap(diags: dict, phys_cfg: PhysConfig, tag: str, state,

@@ -10,10 +10,11 @@ physics_types.F90):
     `physics_update` (with `refresh=False`), `tend_update`
     (physics_update's tendency accumulator), `refresh_dse`,
     `set_state_pdry`, `set_wet_to_dry`, `set_dry_to_wet`,
-    `physics_dme_adjust` and `make_state_from_profiles`.
+    `physics_dme_adjust`, `physics_state_check` and
+    `make_state_from_profiles`.
 
 States are treated as immutable: every update returns a new state. Level
-k=0 is the model top. physics_state_check comes with the driver.
+k=0 is the model top.
 """
 
 from __future__ import annotations
@@ -381,6 +382,26 @@ def physics_dme_adjust(state: PhysicsState, qini,
         pdel=pdel_new, rpdel=1.0 / pdel_new, pmid=pmid_new,
         lnpmid=torch.log(pmid_new))
     return refresh_dse(state)
+
+
+def physics_state_check(state: PhysicsState, name: str = "") -> dict:
+    """Finite and range checks (physics_state_check, physics_types.F90:
+    501-694) as 0-d bool tensors, with their conjunction under "ok"; a
+    caller reads them on the host or feeds a sentinel, nothing aborts."""
+    checks = {
+        "t_finite": torch.isfinite(state.t).all(),
+        "t_range": ((state.t > 0.0) & (state.t < 1000.0)).all(),
+        "u_finite": torch.isfinite(state.u).all(),
+        "v_finite": torch.isfinite(state.v).all(),
+        "q_finite": torch.isfinite(state.q).all(),
+        "ps_range": ((state.ps > 1.0) & (state.ps < 2.0e5)).all(),
+        "pdel_pos": (state.pdel > 0.0).all(),
+    }
+    ok = torch.ones((), dtype=torch.bool, device=state.t.device)
+    for v in checks.values():
+        ok = ok & v
+    checks["ok"] = ok
+    return checks
 
 
 def make_state_from_profiles(pint, t, u, v, q, phis, lat=None, lon=None,

@@ -65,6 +65,19 @@ def _with_q(ptend, m, value):
     return ptend.replace(q=q)
 
 
+def _take_level(arr, idx):
+    """arr[i, idx[i]] with jnp.take_along_axis' index rules: a negative
+    index counts from the bottom, one outside the column gives NaN. Only a
+    column whose state is not finite has such an index (its plume levels
+    come out of NaN comparisons); a gather would raise there, on a card as
+    a device-side assert."""
+    nk = arr.shape[1]
+    idx = torch.where(idx < 0, idx + nk, idx)
+    got = torch.gather(arr, 1, idx.clamp(0, nk - 1)[:, None])[:, 0]
+    return torch.where((idx >= 0) & (idx < nk), got,
+                       torch.full_like(got, float("nan")))
+
+
 def zm_conv_tend(cfg: ZMConfig, registry: ConstituentRegistry,
                  state: PhysicsState, pbuf: PhysicsBuffer,
                  pblh, tpert, landfrac, ztodt: float,
@@ -101,12 +114,11 @@ def zm_conv_tend(cfg: ZMConfig, registry: ConstituentRegistry,
     diags["ZMDQ"] = out.qtnd
     diags["DLFZM"] = out.dlf
     diags["EURT"] = out.eurt[:, -1]
-    diags["PCONVT"] = torch.where(
-        out.ideep, torch.gather(state.pmid, 1, out.jt[:, None])[:, 0],
-        state.ps)
-    diags["PCONVB"] = torch.where(
-        out.ideep, torch.gather(state.pmid, 1, out.maxg[:, None])[:, 0],
-        state.ps)
+    diags["PCONVT"] = torch.where(out.ideep, _take_level(state.pmid, out.jt),
+                                  state.ps)
+    diags["PCONVB"] = torch.where(out.ideep,
+                                  _take_level(state.pmid, out.maxg),
+                                  state.ps)
 
     lq = (True,) + (False,) * (pcnst - 1)
     ptend_conv = ptend_init("zm_convr", ncol, pver, pcnst, ls=True, lq=lq,

@@ -7,13 +7,20 @@ the Pallas switches (`FVConfig.use_pallas`, `ZMConfig.use_pallas` and
 the tensors (CUDA tensors launch the hand-written kernels, CPU tensors take
 their plain PyTorch versions), so there is no switch. `PhysConfig` raises
 for a `cam_physpkg` other than "cam6", which the JAX class accepts and
-ignores. `GridConfig`, `ModelConfig` and the TOML loaders come with the
-driver.
+ignores. `GridConfig` and `ModelConfig` bundle them, and
+`config_from_dict`/`config_from_toml` build a ModelConfig from a nested
+dict or a TOML file; an unknown key raises KeyError (a Pallas switch is
+one here).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+import logging
+from dataclasses import dataclass, field
+from typing import Any
+
+log = logging.getLogger("cam_nor_torch")
 
 
 @dataclass(frozen=True)
@@ -253,3 +260,58 @@ class PhysConfig:
 
     def waccmx_is(self, name: str) -> bool:
         return self.waccmx_opt == name
+
+
+@dataclass(frozen=True)
+class GridConfig:
+    """Horizontal/vertical resolution and tracer count."""
+
+    im: int = 144      # longitudes
+    jm: int = 96       # latitudes (pole to pole, pole points included)
+    km: int = 26       # levels
+    pcnst: int = 3     # constituents (Q must be index 0, physpkg.F90:113)
+    dtime: float = 1800.0  # large (physics) timestep in seconds
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Top-level bundle of all subsystem configs."""
+
+    grid: GridConfig = field(default_factory=GridConfig)
+    fv: FVConfig = field(default_factory=FVConfig)
+    zm: ZMConfig = field(default_factory=ZMConfig)
+    phys: PhysConfig = field(default_factory=PhysConfig)
+
+    def echo(self) -> None:
+        """Log the whole configuration, as the reference's masterproc echo
+        does at init (dyn_comp.F90:376-401, zm_conv.F90:185-225)."""
+        for name, sub in (("grid", self.grid), ("fv", self.fv),
+                          ("zm", self.zm), ("phys", self.phys)):
+            for f in dataclasses.fields(sub):
+                log.info("config %s.%s = %r", name, f.name,
+                         getattr(sub, f.name))
+
+
+def _apply_overrides(cls: type, data: dict[str, Any]) -> Any:
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(data) - names
+    if unknown:
+        raise KeyError(f"unknown {cls.__name__} keys: {sorted(unknown)}")
+    return cls(**data)
+
+
+def config_from_dict(data: dict[str, Any]) -> ModelConfig:
+    """A ModelConfig from a nested dict (parsed TOML, YAML or JSON)."""
+    return ModelConfig(
+        grid=_apply_overrides(GridConfig, data.get("grid", {})),
+        fv=_apply_overrides(FVConfig, data.get("fv", {})),
+        zm=_apply_overrides(ZMConfig, data.get("zm", {})),
+        phys=_apply_overrides(PhysConfig, data.get("phys", {})),
+    )
+
+
+def config_from_toml(path: str) -> ModelConfig:
+    import tomllib
+
+    with open(path, "rb") as f:
+        return config_from_dict(tomllib.load(f))

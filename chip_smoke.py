@@ -7,7 +7,8 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
 
 1. names the card (torch and nvidia-smi: name, power limit);
 2. builds the six CUDA libraries from csrc/ (one nvcc per source,
-   together), and holds the probe kernel (the bench's health check) on
+   together) and the driver's two native writers from native/ (g++, at
+   the same time), and holds the probe kernel (the bench's health check) on
    one seeded (8, 128) block to exactly 2 x its input (float32, float64);
    times it, its plain version and torch.mul in turns (3 rounds of
    library, kernel, plain, plain, kernel, library; 200 calls a turn; the
@@ -130,7 +131,26 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
     kernels a step (the port's and PyTorch's) and the device's busy share
     under torch.profiler; then one step at f09 (nspltrac 2: two trac2d
     calls) with exact launch counts, finite fields and the drift gate;
-14. prints the kernels JSON line (ten kernels), the card's name and power
+14. drives the port's run driver (driver.run, run_coupled) at f19 in
+    float32 in entry.build_coupled's configuration, with the fixed CamIn
+    of bulk_surface_fluxes(state0.phys, sst) for run, the launch counts
+    set to 0 before each run and read after it: (a) 16 steps at chunk 1
+    with history, checkpoints and sentinels every 8 steps: both tapes
+    open with scipy, every field finite, ckpt_000008 and ckpt_000016
+    written, launches 16 coupled steps' exactly, both writers native;
+    (b) the same at chunk 8 (the first step eager, then CUDA graphs of 7
+    and 8 steps, each first replay held bitwise to the same steps run
+    eagerly; launches 1 + 2 x 15 steps'): the state and every tape array
+    bitwise equal to (a)'s; (c) a resume from (a)'s ckpt_000008 on a
+    zeroed template, 8 steps as one graph, bitwise equal to (a) after
+    step 16; then the same resume for 40 steps to time the replays and
+    the boundaries; (d) a NaN put into dyn.u of the step-8 state, chunk
+    8: BlowupError, and ABORT.json with exact true, failed_step 1 and
+    the last good checkpoint; (e) run_coupled for 4 steps with history
+    every 2: finite, dry-mass drift within 4 x 1e-5; prints the phase
+    tables, ms a step of both loop shapes beside phase 13's coupled step,
+    the tape and checkpoint sizes;
+15. prints the kernels JSON line (ten kernels), the card's name and power
     limit, then {"ok": true, "device": {...}} last. Every phase prints its
     wall time.
 
@@ -215,6 +235,9 @@ COUPLED_STEPS = 3          # coupled steps after the first, counted
 COUPLED_F64_STEPS = 2      # float64 coupled steps, kernels vs plain
 COUPLED_TOL_F64 = 1e-9     # float64 coupled step, kernels vs plain
 COUPLED_TIMED = 3          # coupled steps timed per dispatch
+DRIVER_STEPS = 16          # phase 14: steps of the driver's runs
+DRIVER_CHUNK = 8           # steps a CUDA graph in the driver's chunked loop
+DRIVER_LONG = 40           # steps of the resumed run that times replays
 BEYOND = ("f09", "f05")    # the bench's grids beyond f19
 # repetitions of each kernel (and of its plain version) timed there
 BEYOND_REPS = {"f09": (20, 3), "f05": (10, 2)}
@@ -1526,6 +1549,263 @@ def run_coupled(torch, sm: Smoke, card: str) -> None:
     cs.counted_steps("f09", model, step, state, 1)
     del state
     torch.cuda.empty_cache()
+    return t_step, t_graph
+
+
+class DriverSmoke:
+    """Phase 14: the port's run driver (driver.run, its chunked loop as
+    CUDA graphs, run_coupled) at f19 on the card, with its tapes and
+    checkpoints under build/driver_smoke (removed after the phase)."""
+
+    def __init__(self, torch, sm: Smoke, card: str):
+        from cam_nor_physics_tpu_torch import driver
+        self.torch, self.sm, self.card, self.drv = torch, sm, card, driver
+        self.cs = CoupledSmoke(torch, sm, card)
+        self.root = REPO / "cam_nor_physics_tpu_torch" / "build" / \
+            "driver_smoke"
+        self.writers = []      # (kind, native) of each writer a run made
+
+    @contextmanager
+    def recorded_writers(self):
+        """The driver's writer classes, each instance recorded with the
+        route it takes (native or not)."""
+        from cam_nor_physics_tpu_torch.utils import histio_native
+        drv, seen = self.drv, self.writers
+        saved = histio_native.AsyncHistoryWriter, drv.AsyncCheckpointWriter
+
+        class Hist(saved[0]):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                seen.append(("history", self.native))
+
+        class Ckpt(saved[1]):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                seen.append(("checkpoint", self.native))
+
+        histio_native.AsyncHistoryWriter, drv.AsyncCheckpointWriter = \
+            Hist, Ckpt
+        try:
+            yield
+        finally:
+            histio_native.AsyncHistoryWriter, drv.AsyncCheckpointWriter = \
+                saved
+
+    def counted(self, label, steps, fn):
+        """fn() with the launch counts set to 0 before and read after; they
+        must be `steps` coupled steps' (an eager step and a captured step
+        count one each, a replay none). Returns fn's result and the wall
+        time."""
+        torch, sm = self.torch, self.sm
+        sm.zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = sm.counts()
+        want = {n: steps * c for n, c in self.one.items()}
+        log(f"driver {label}: {wall:.2f} s wall, launches {got} "
+            f"({steps} coupled steps' worth) [{self.card}]")
+        if got != want:
+            raise RuntimeError(f"driver {label}: launched {got}, expected "
+                               f"{want}")
+        return out, wall
+
+    @staticmethod
+    def read_tape(path):
+        from scipy.io import netcdf_file
+        with netcdf_file(path, mmap=False) as nc:
+            return {k: np.array(v.data) for k, v in nc.variables.items()}
+
+    @staticmethod
+    def dir_bytes(path: Path) -> int:
+        return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+    def zeros_like(self, state):
+        from cam_nor_physics_tpu_torch import convert
+        return convert.atmstate_from_leaves(
+            state, [self.torch.zeros_like(t)
+                    for _, t in convert.atmstate_named_leaves(state)])
+
+    def run(self, coupled_ms) -> None:
+        import shutil
+        try:
+            with self.recorded_writers():
+                self._run(coupled_ms)
+        finally:
+            shutil.rmtree(self.root, ignore_errors=True)
+
+    def _run(self, coupled_ms) -> None:
+        import shutil
+        torch, drv = self.torch, self.drv
+        from cam_nor_physics_tpu_torch.bench import bitwise_equal, tensors
+        from cam_nor_physics_tpu_torch.entry import build_coupled
+        from cam_nor_physics_tpu_torch.models.coupling.surface_fluxes import \
+            bulk_surface_fluxes
+        from cam_nor_physics_tpu_torch.utils.checkpoint import \
+            restore_checkpoint
+        shutil.rmtree(self.root, ignore_errors=True)
+        model, _, state0, sst = build_coupled(IM, JM, KM, torch.float32,
+                                              DEVICE)
+        cam_in = bulk_surface_fluxes(state0.phys, sst, model.registry.pcnst)
+        self.one = self.cs.expected(model)
+        n, k = DRIVER_STEPS, DRIVER_CHUNK
+        half = n // 2
+        dirs = {x: self.root / x for x in ("a", "b", "c", "long", "e")}
+        io = dict(hist_every=half, ckpt_every=half, check_every=half)
+
+        # (a) chunk 1: every step eager
+        (st_a, tm_a), wall_a = self.counted(
+            "(a) chunk 1", n, lambda: drv.run(
+                model, state0, cam_in, n, out_dir=str(dirs["a"]), chunk=1,
+                **io))
+        tapes = {t: self.read_tape(dirs["a"] / t)
+                 for t in ("h0.0000.nc", "h0.0001.nc")}
+        bad = [f"{t} {v}" for t, d in tapes.items() for v, a in d.items()
+               if not np.isfinite(a).all()]
+        cks = [dirs["a"] / f"ckpt_{i:06d}" for i in (half, n)]
+        missing = [str(c) for c in cks if not (c / "state.npz").is_file()
+                   or not (c / "meta.json").is_file()]
+        if bad or missing or len(tapes["h0.0000.nc"]) < 150:
+            raise RuntimeError(f"driver (a): non-finite tape fields {bad}, "
+                               f"checkpoints missing {missing}")
+        tape_bytes = [(dirs["a"] / t).stat().st_size for t in tapes]
+        ckpt_bytes = [self.dir_bytes(c) for c in cks]
+        log(f"driver (a): tapes {list(tapes)} open with scipy, "
+            f"{len(tapes['h0.0000.nc'])} variables each, all finite, "
+            f"{tape_bytes} bytes; checkpoints {[c.name for c in cks]}, "
+            f"{ckpt_bytes} bytes")
+        log("driver (a) phase table:\n" + tm_a.table())
+
+        # (b) chunk 8: the first step eager, then CUDA graphs of 7 and 8
+        # steps, each captured once (its check runs the same steps eagerly)
+        lengths = {min(k - i % k, n - i) for i in range(1, n)
+                   if i == 1 or i % k == 0}
+        (st_b, tm_b), wall_b = self.counted(
+            f"(b) chunk {k}", 1 + 2 * sum(lengths), lambda: drv.run(
+                model, state0, cam_in, n, out_dir=str(dirs["b"]), chunk=k,
+                **io))
+        if not bitwise_equal(st_b, st_a):
+            raise RuntimeError("driver (b): the chunked run's state differs "
+                               "from the eager run's")
+        diff = [f"{t} {v}" for t, d in tapes.items()
+                for v, a in self.read_tape(dirs["b"] / t).items()
+                if a.tobytes() != d[v].tobytes()]
+        if diff:
+            raise RuntimeError(f"driver (b): tape arrays differ from (a)'s: "
+                               f"{diff[:10]}")
+        shutil.rmtree(dirs["b"], ignore_errors=True)
+        log(f"driver (b): CUDA graphs of {sorted(lengths)} steps, each "
+            f"first replay held bitwise to the same steps run eagerly; "
+            f"state after {n} steps and every array of both tapes bitwise "
+            f"equal to (a)'s")
+        log("driver (b) phase table:\n" + tm_b.table())
+
+        # (c) resume from (a)'s checkpoint at step 8, 8 steps in one graph
+        (st_c, _), _ = self.counted(
+            "(c) resume", 2 * k, lambda: drv.run(
+                model, self.zeros_like(state0), cam_in, n - half,
+                out_dir=str(dirs["c"]), chunk=k,
+                resume_from=str(cks[0])))
+        if int(st_c.nstep) != n or not bitwise_equal(st_c, st_a):
+            raise RuntimeError("driver (c): the run resumed from step "
+                               f"{half} differs from (a) after step {n}")
+        log(f"driver (c): resumed from {cks[0].name}, {n - half} steps as "
+            f"one graph, bitwise equal to (a) after step {n}")
+
+        # the chunked loop's replays and boundaries, timed: resumed from
+        # step 8 for DRIVER_LONG steps (one capture, then replays)
+        (_, tm_l), wall_l = self.counted(
+            f"resumed {DRIVER_LONG} steps", 2 * k, lambda: drv.run(
+                model, self.zeros_like(state0), cam_in, DRIVER_LONG,
+                out_dir=str(dirs["long"]), chunk=k, hist_every=k,
+                ckpt_every=2 * k, check_every=k, resume_from=str(cks[0])))
+        log(f"driver resumed {DRIVER_LONG} steps, chunk {k}, phase table:\n"
+            + tm_l.table())
+        shutil.rmtree(dirs["long"], ignore_errors=True)
+
+        # (d) a NaN in dyn.u of the step-8 state: the chunked run aborts
+        # at its check boundary and names step 1 exactly
+        bad_state = restore_checkpoint(str(cks[0]), self.zeros_like(state0))
+        bad_state.dyn.u[0, 4, 4] = float("nan")
+
+        def abort_run():
+            try:
+                drv.run(model, bad_state, cam_in, k, out_dir=str(dirs["a"]),
+                        chunk=k, check_every=k)
+            except drv.BlowupError as err:
+                return str(err)
+            raise RuntimeError("driver (d): no BlowupError on a NaN state")
+
+        reason, _ = self.counted("(d) abort", 2 * k, abort_run)
+        with open(dirs["a"] / "ABORT.json") as f:
+            rec = json.load(f)
+        want = {"failed_step": 1, "detected_step": k, "exact": True,
+                "failed_within": [0, 1]}
+        if any(rec.get(key) != v for key, v in want.items()) or not str(
+                rec.get("last_good_checkpoint")).endswith(cks[1].name):
+            raise RuntimeError(f"driver (d): ABORT.json {rec}, expected "
+                               f"{want} and last_good_checkpoint "
+                               f"{cks[1].name}")
+        log(f"driver (d): BlowupError ({reason}); ABORT.json {rec}")
+
+        # (e) run_coupled: the surface fluxes from the evolving state
+        m0 = self.cs.dry_mass(model, state0)
+        out_e, _ = self.counted(
+            "(e) run_coupled", 4, lambda: drv.run_coupled(
+                model, state0, sst, 4, out_dir=str(dirs["e"]), hist_every=2))
+        st_e, sst_e, _ = out_e
+        drift = abs(self.cs.dry_mass(model, st_e) - m0) / m0
+        nonfinite = [i for i, t in enumerate(tensors((st_e, sst_e)))
+                     if t.is_floating_point()
+                     and not bool(torch.isfinite(t).all())]
+        tape_e = self.read_tape(dirs["e"] / "h0.0001.nc")
+        if nonfinite or drift > 4 * DRIFT_TOL or not all(
+                np.isfinite(a).all() for a in tape_e.values()):
+            raise RuntimeError(f"driver (e): non-finite tensors {nonfinite} "
+                               f"or drift {drift:.3e} > {4 * DRIFT_TOL}")
+        log(f"driver (e): run_coupled 4 steps, finite, dry-mass drift "
+            f"{drift:.3e} (tol {4 * DRIFT_TOL:.0e}, 4 steps), tapes finite")
+
+        # the per-step payload and its accumulation into h0's buffers (the
+        # work the chunked loop's graph adds to each step), profiled
+        from cam_nor_physics_tpu_torch.bench import kernel_times
+        from cam_nor_physics_tpu_torch.models.atm_comp import atm_step
+        from cam_nor_physics_tpu_torch.models.physics.cam_diagnostics import \
+            amwg_core_fields
+        reg = drv._history_registry(amwg_core_fields() +
+                                    ["US", "VS", "PRECCMX"])
+        tapes = drv._HistoryTapes(reg, model, torch.float32, k, dirs["e"])
+        area = drv._grid_area(model.grid, torch.float32)
+        s1, cam_out, diags = atm_step(model, st_a, cam_in)
+        by_name, wall = kernel_times(lambda: tapes.accumulate(
+            drv._step_payload(s1, cam_in, cam_out, diags, area)))
+        tapes.close()
+        log(f"driver payload + outfld a step [{self.card}]: "
+            f"{sum(c for c, _ in by_name.values())} device kernels, "
+            f"{sum(us for _, us in by_name.values()) / 1e3:.3f} ms device, "
+            f"{1e3 * wall:.2f} ms wall under the profiler; "
+            f"{len(tapes.bufs[0])} fields on h0")
+        del s1, cam_out, diags, tapes
+
+        routes = sorted(set(self.writers))
+        if not self.writers or any(not native for _, native in routes):
+            raise RuntimeError(f"driver: writers {routes}, expected native")
+        steady = tm_l.totals["atm_step"] / (tm_l.counts["atm_step"] * k)
+        t_step, t_graph = coupled_ms
+        log(f"driver at {IM}x{JM}x{KM} float32 [{self.card}]: (a) chunk 1 "
+            f"{1e3 * wall_a / n:.2f} ms a step with IO "
+            f"(atm_step {1e3 * tm_a.totals['atm_step'] / n:.2f}); (b) "
+            f"chunk {k} {1e3 * wall_b / n:.2f} ms a step with the captures "
+            f"and IO; the chunked loop's replays {1e3 * steady:.2f} ms a "
+            f"step (history_write "
+            f"{1e3 * tm_l.totals['history_write'] / tm_l.counts['history_write']:.2f}"
+            f" ms, checkpoint "
+            f"{1e3 * tm_l.totals['checkpoint'] / tm_l.counts['checkpoint']:.2f}"
+            f" ms a boundary); the bench's coupled step "
+            f"{1e3 * t_step:.2f} ms per dispatch, {1e3 * t_graph:.2f} ms "
+            f"as a graph; writers {routes}")
 
 
 def device_us(fn, reps):
@@ -1574,8 +1854,23 @@ def run(torch) -> dict:
 
     # ---- phase 2: build, and the probe
     with phase("2 build"):
+        from concurrent.futures import ThreadPoolExecutor
+
+        from cam_nor_physics_tpu_torch.utils.histio_native import \
+            native_library
+
+        def timed_native(stem):
+            t = time.perf_counter()
+            native_library(stem)
+            return time.perf_counter() - t
+
         t0 = time.perf_counter()
-        times = cuda_build.build()
+        # the driver's native writers (g++) build beside the kernels (nvcc)
+        with ThreadPoolExecutor(2) as pool:
+            native = {f"{stem} (g++)": pool.submit(timed_native, stem)
+                      for stem in ("histio", "ckptio")}
+            times = cuda_build.build()
+            times.update({k: f.result() for k, f in native.items()})
         log(f"build: {time.perf_counter() - t0:.1f} s wall "
             + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
         for name in cuda_build.SOURCES:
@@ -1720,7 +2015,12 @@ def run(torch) -> dict:
 
     # ---- phase 13: the coupled atm_step at f19 (and one step at f09)
     with phase("13 coupled atm_step at f19"):
-        run_coupled(torch, sm, card)
+        coupled_ms = run_coupled(torch, sm, card)
+
+    # ---- phase 14: the run driver at f19
+    with phase("14 the run driver at f19"):
+        DriverSmoke(torch, sm, card).run(coupled_ms)
+        torch.cuda.empty_cache()
 
     kernels = []
     for name, source, replaces in KERNELS:

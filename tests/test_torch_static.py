@@ -4,10 +4,13 @@
   jax, flax or the JAX package
   cam_nor_physics_tpu (the exact top-level name, so the port's own package
   does not match).
-- The scan covers every module of the coupled step, each by name.
+- The scan covers every module of the coupled step and of the driver,
+  each by name.
+- No port module runs `make` or writes under native/: the native writers
+  are built from native/'s sources into the package's build/ directory.
 - Entry points default to the CUDA device and raise where it is absent:
   the coupled step's (build_coupled, AtmModel.create, the coupled bench)
-  too.
+  and the driver's (quick_run, cli.run_main) too.
 - convert.py carries state, grid and coordinate, the physics state and
   buffer, and the coupled state, across and back unchanged.
 - The options the port does not implement raise NotImplementedError
@@ -77,12 +80,56 @@ COUPLED_MODULES = (
     "models/atm_comp.py", "bench.py", "convert.py", "entry.py")
 
 
-@pytest.mark.parametrize("module", COUPLED_MODULES)
+# modules that need no torch themselves
+TORCH_FREE = ("utils/config.py", "cli.py", "utils/histio_native.py",
+              "utils/ckptio_native.py")
+
+# the driver's modules (each must exist and be scanned)
+DRIVER_MODULES = (
+    "driver.py", "cli.py", "utils/timing.py", "utils/history.py",
+    "utils/histio_native.py", "utils/ckptio_native.py",
+    "utils/checkpoint.py", "models/physics/check_tracers.py",
+    "ops/geopotential.py")
+
+
+@pytest.mark.parametrize("module", COUPLED_MODULES + DRIVER_MODULES)
 def test_coupled_modules_are_scanned(module):
     path = REPO / "cam_nor_physics_tpu_torch" / module
     assert path in _port_sources()
     assert not _imported_roots(path) & FORBIDDEN
-    assert "torch" in _imported_roots(path) or module == "utils/config.py"
+    assert "torch" in _imported_roots(path) or module in TORCH_FREE
+
+
+def _runs_make_or_writes_native(path):
+    """The string constants of a module (docstrings aside) that name
+    `make` or a path under native/."""
+    tree = ast.parse(path.read_text(), str(path))
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)}
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs:
+            v = node.value.strip()
+            if v == "make" or v.startswith("make ") or "native/" in v \
+                    or v.endswith(".so") and "native" in v:
+                bad.append(v)
+    return bad
+
+
+def test_port_runs_no_make_and_writes_nothing_under_native(tmp_path):
+    bad = {str(p.relative_to(REPO)): _runs_make_or_writes_native(p)
+           for p in _port_sources() if _runs_make_or_writes_native(p)}
+    assert bad == {}
+    from cam_nor_physics_tpu_torch.utils import histio_native
+    assert histio_native.BUILD == REPO / "cam_nor_physics_tpu_torch" / \
+        "build"
+    assert histio_native.NATIVE == REPO / "native"
+    probe = tmp_path / "probe.py"
+    probe.write_text("import subprocess\nsubprocess.run(['make', '-C', "
+                     "'native'])\n")
+    assert _runs_make_or_writes_native(probe) == ["make"]
 
 
 def test_import_scan_catches_the_jax_package(tmp_path):
@@ -127,6 +174,17 @@ def test_coupled_entry_points_raise_without_cuda():
         bench.run_coupled("small")
     with pytest.raises(RuntimeError, match="cuda"):
         bench.main({"BENCH_COUPLED": "1", "BENCH_SMALL": "1"})
+
+
+def test_driver_entry_points_raise_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from cam_nor_physics_tpu_torch.cli import run_main
+    from cam_nor_physics_tpu_torch.driver import quick_run
+    with pytest.raises(RuntimeError, match="cuda"):
+        quick_run(8, 6, 4, nsteps=1, out_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_main(["--nsteps", "1", "--out", str(tmp_path)])
 
 
 def test_coupled_state_convert_round_trip():
