@@ -31,8 +31,10 @@ Environment, as bench.py's:
   BENCH_PHASES=1         cd_step x ns, trac2d and te_map times on stderr
   BENCH_CPU=1            run on the CPU (the kernels' plain versions)
   BENCH_COUPLED=1        the coupled step instead (below)
-BENCH_ROOFLINE=1 raises NotImplementedError, and so does BENCH_MICROP=1
-with BENCH_COUPLED=1 (ZM's in-plume microphysics is not ported). The JSON
+  BENCH_MICROP=1         with BENCH_COUPLED=1: ZMConfig(microp=True), the
+                         in-plume microphysics (bench.py's production
+                         configuration; ZM's fused tail is off under it)
+BENCH_ROOFLINE=1 raises NotImplementedError. The JSON
 line carries bench.py's keys plus `impl` (what the headline measures) and
 `card` (nvidia-smi's name and power limit; null on the CPU).
 
@@ -85,6 +87,9 @@ METRIC = "grid-points/s per chip (FV dyn step + ZM physics step)"
 COUPLED_ITERS = {"small": 3, "f19": 20, "f09": 5, "f05": 3}
 COUPLED_METRIC = ("grid-points/s per chip (full coupled atm_step, "
                   "config-4b aquaplanet)")
+# bench.py's metric under BENCH_MICROP=1 (bench.py:443)
+COUPLED_METRIC_MICROP = ("grid-points/s per chip (full coupled atm_step, "
+                         "config-4b aquaplanet, in-plume microphysics ON)")
 COUPLED_IMPL = {
     "cuda": "torch+cuda f32 coupled atm_step: fused fft small step (K1-K4 "
             "CUDA), CUDA tracer_div3d, te_map_remap and ZM tail; physics, "
@@ -92,6 +97,15 @@ COUPLED_IMPL = {
             "per-dispatch loop (eager builds the diagnostics either way)",
     "cpu": "torch cpu f32 coupled atm_step: the kernels' plain PyTorch "
            "versions"}
+COUPLED_IMPL_MICROP = {
+    "cuda": "torch+cuda f32 coupled atm_step with ZM's in-plume "
+            "microphysics: fused fft small step (K1-K4 CUDA), CUDA "
+            "tracer_div3d and te_map_remap; ZM (its tail the plain "
+            "evaporation, momtran and convtran under microp, as in the "
+            "JAX package), physics, coupling and diagnostics in PyTorch; "
+            "full and prog_only: one per-dispatch loop",
+    "cpu": "torch cpu f32 coupled atm_step with ZM's in-plume "
+           "microphysics: the kernels' plain PyTorch versions"}
 IMPL = {"cuda": "torch+cuda f32: fused fft HS step (K1-K4 CUDA), CUDA "
                 "tracer_div3d and te_map_remap, CUDA ZM tail",
         "cpu": "torch cpu f32: the kernels' plain PyTorch versions (fused "
@@ -507,11 +521,8 @@ def run_coupled(grid: str = "f19", device="cuda", chunk: int = 8,
                 iters: int | None = None, passes: int = 3,
                 microp: bool = False) -> dict:
     """The coupled bench (BENCH_COUPLED=1) at `grid` on `device`; returns
-    the JSON record. `iters` overrides the grid's chained steps."""
-    if microp:
-        raise NotImplementedError(
-            "BENCH_MICROP=1: ZMConfig.microp (in-plume convective "
-            "microphysics) is not ported (ROADMAP.md Queue 1 item 5)")
+    the JSON record. `iters` overrides the grid's chained steps;
+    `microp` is BENCH_MICROP=1 (ZMConfig(microp=True))."""
     dev = resolve_device(device)
     im, jm, km, _ = GRIDS[grid]
     iters = COUPLED_ITERS[grid] if iters is None else iters
@@ -519,7 +530,8 @@ def run_coupled(grid: str = "f19", device="cuda", chunk: int = 8,
     card = card_label() if on_card else None
     check_probe(dev)
 
-    model, step, state, sst = build_coupled(im, jm, km, torch.float32, dev)
+    model, step, state, sst = build_coupled(im, jm, km, torch.float32, dev,
+                                            microp=microp)
 
     def prog_only(s):
         return (step(s)[0],)
@@ -555,7 +567,7 @@ def run_coupled(grid: str = "f19", device="cuda", chunk: int = 8,
         print(profile_line(kernel_times(lambda: prog_only(start)), t_step),
               file=sys.stderr)
     record = {
-        "metric": COUPLED_METRIC,
+        "metric": COUPLED_METRIC_MICROP if microp else COUPLED_METRIC,
         "value": npts / shapes[shape],
         "unit": "gridpoints/s",
         "vs_baseline": 1.0,
@@ -566,7 +578,7 @@ def run_coupled(grid: str = "f19", device="cuda", chunk: int = 8,
         "t_ms": {"full": t_step * 1e3, "prog_only": t_step * 1e3},
         "t_ms_phases_independent_dispatch":
             {k: v * 1e3 for k, v in phases.items()},
-        "impl": COUPLED_IMPL[dev.type],
+        "impl": (COUPLED_IMPL_MICROP if microp else COUPLED_IMPL)[dev.type],
         "card": card,
     }
     if t_chunked is not None:

@@ -29,6 +29,12 @@ diffusion and the FV dycore over an aquaplanet with bulk surface fluxes.
     model, step, state, sst = build_coupled(144, 96, 26)
     state, cam_out, diags = step(state, first_step=True)
     state, cam_out, diags = step(state)
+
+`build_coupled(..., microp=True)` is BENCH_MICROP=1's production
+configuration, ZMConfig(microp=True); `aerosol=True` adds one prognostic
+modal-aerosol mode (`accum_mode`: so4_a1 and pom_a1, the synthetic
+optics tables), whose NAER/DGNUMWET feed ZM's in-plume activation from
+the second step on.
 """
 
 from __future__ import annotations
@@ -43,7 +49,8 @@ from .models.fv.dyn_comp import dyn_run
 from .models.fv.grid import make_grid
 from .models.fv.held_suarez import hs_forcing, hs_initial_state
 from .models.fv.vertical import hybrid_coefficients
-from .models.physics.constituents import default_registry
+from .models.physics.constituents import Constituent, default_registry
+from .models.physics.modal_aer_opt import AeroMode, make_synthetic_table
 from .models.physics.physics_buffer import pbuf_register, zm_pbuf_specs
 from .models.physics.state import make_state_from_profiles
 from .models.physics.zm_conv_intr import zm_conv_tend
@@ -180,29 +187,60 @@ def build_zm_step(ncol: int, pver: int, dtype=torch.float32, device="cuda"):
     return step, pstate, pbuf, forcing0
 
 
+# the accumulation mode's species and their initial mixing ratios (kg/kg)
+AEROSOL_SPECIES = (("so4_a1", 2e-9), ("pom_a1", 1e-9))
+
+
+def accum_mode() -> AeroMode:
+    """One accumulation mode of sulfate and organic matter, with the
+    synthetic optics tables (tests/test_aero_integration.py's mode)."""
+    return AeroMode(name="accum", species_names=("so4_a1", "pom_a1"),
+                    species_density=(1770.0, 1000.0),
+                    species_refindex_sw=(complex(1.43, 1e-8),
+                                         complex(1.55, 5e-3)),
+                    species_refindex_lw=(complex(1.35, 0.2),
+                                         complex(1.5, 0.1)),
+                    table=make_synthetic_table())
+
+
 def build_coupled(im: int = 144, jm: int = 96, km: int = 26,
                   dtype=torch.float32, device="cuda",
-                  fv_cfg: FVConfig | None = None):
+                  fv_cfg: FVConfig | None = None, microp: bool = False,
+                  aerosol: bool = False):
     """Returns (model, step, state0, sst) for bench.py's coupled
     configuration (bench.py:306-319): AtmModel.create(im, jm, km,
     dt=1800, phys_cfg=PhysConfig(radiation_scheme="gray"),
-    zm_cfg=ZMConfig()) with FVConfig()'s auto splits unless `fv_cfg` is
-    given; the initial state is hs_initial_state(pert=1) with q = 1e-6
-    everywhere but vapour, q[0] = 1e-2 (delp / max delp)^2, zero phis,
-    through atm_init; sst is aquaplanet_sst of the columns' latitudes.
+    zm_cfg=ZMConfig(microp=microp)) with FVConfig()'s auto splits unless
+    `fv_cfg` is given; the initial state is hs_initial_state(pert=1) with
+    q = 1e-6 everywhere but vapour, q[0] = 1e-2 (delp / max delp)^2, zero
+    phis, through atm_init; sst is aquaplanet_sst of the columns'
+    latitudes. `aerosol=True` registers AEROSOL_SPECIES (uniform at their
+    mixing ratios) and PhysConfig.aero_modes=(accum_mode(),) with
+    prog_modal_aero.
 
     step(state, first_step=False) -> (state, cam_out, diags) makes the
     CamIn with bulk_surface_fluxes from the state's physics export and
     runs atm_step. Raises where `device` is CUDA and no card is present."""
     dev = resolve_device(device)
+    registry = default_registry()
+    phys_cfg = PhysConfig(radiation_scheme="gray")
+    if aerosol:
+        for name, _ in AEROSOL_SPECIES:
+            registry = registry.add(Constituent(name=name, longname=name,
+                                                qmin=0.0, mixtype="wet"))
+        phys_cfg = PhysConfig(radiation_scheme="gray",
+                              aero_modes=(accum_mode(),),
+                              prog_modal_aero=True)
     model = AtmModel.create(
-        im, jm, km, dt=DT, fv_cfg=fv_cfg or FVConfig(),
-        phys_cfg=PhysConfig(radiation_scheme="gray"), zm_cfg=ZMConfig(),
-        dtype=dtype, device=dev)
+        im, jm, km, dt=DT, registry=registry, fv_cfg=fv_cfg or FVConfig(),
+        phys_cfg=phys_cfg, zm_cfg=ZMConfig(microp=microp), dtype=dtype,
+        device=dev)
     pcnst = model.registry.pcnst
     dyn0 = hs_initial_state(model.grid, model.coord, pert=1.0, nq=pcnst)
     q = torch.full_like(dyn0.q, 1e-6)
     q[0] = 1e-2 * (dyn0.delp / dyn0.delp.max()) ** 2
+    for name, mmr in AEROSOL_SPECIES if aerosol else ():
+        q[registry.index(name)] = mmr
     state0 = atm_init(model, dyn0.replace(q=q),
                       torch.zeros((jm, im), dtype=dtype, device=dev))
     sst = aquaplanet_sst(state0.phys.lat)

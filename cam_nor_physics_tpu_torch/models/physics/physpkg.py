@@ -20,8 +20,12 @@ Post-coupler (tphysac, physpkg.F90:1342-2506):
   convect_deep_tend_2 -> radiation -> dry-mass/energy adjustment ->
   TEOUT for the next step's fixer
 
-Not ported, raising NotImplementedError: the modal aerosol branch (a
-non-empty PhysConfig.aero_modes) and Rayleigh friction (raytau0 > 0).
+With prognostic modal aerosol (non-empty PhysConfig.aero_modes,
+prog_modal_aero, not use_oslo_aero) tphysbc also runs calcsize, water
+uptake and the modal optics after ZM, filling the per-mode NAER /
+DGNUMWET / QAERWAT stacks and the AOD diagnostics; with microp, ZM's
+in-plume activation reads last step's NAER and DGNUMWET. Not ported,
+raising NotImplementedError: Rayleigh friction (raytau0 > 0).
 `snapshot_register` declares the snapshot payload on a history tape.
 """
 
@@ -31,7 +35,10 @@ from dataclasses import dataclass
 
 import torch
 
+import warnings
+
 from ...ops.fill import qneg3, qneg4
+from ...ops.saturation import qsat_water
 from ...utils import constants as c
 from ...utils.config import PhysConfig, ZMConfig
 from ..coupling.camsrfexch import CamIn, CamOut, cam_export
@@ -43,6 +50,9 @@ from .cloud_fraction import cldfrc
 from .constituents import ConstituentRegistry
 from .convect_diagnostics import convect_diagnostics_calc
 from .dadadj import dadadj_tend
+from .modal_aer_opt import modal_aero_optics_all
+from .modal_aero_wateruptake import (modal_aero_calcsize,
+                                     modal_aero_wateruptake)
 from .physics_buffer import PhysicsBuffer, zm_pbuf_specs
 from .radiation import radiation_tend
 from .state import (PhysicsState, PhysicsTend, physics_dme_adjust,
@@ -52,12 +62,12 @@ from .vertical_diffusion import vertical_diffusion_tend
 from .zm_conv_intr import zm_conv_tend, zm_conv_tend_2
 
 
-def physpkg_pbuf_specs(ncol: int, pver: int, pcnst: int = 1) -> dict:
+def physpkg_pbuf_specs(ncol: int, pver: int, nmodes: int = 1,
+                       pcnst: int = 1) -> dict:
     """The whole pbuf registration: the ZM set plus the driver's
-    persistent fields (phys_register, physpkg.F90:100-352). pcnst sizes
-    the moist budget snapshot; the per-mode aerosol stacks have one mode
-    (aerosol modes are not ported)."""
-    nmodes = 1
+    persistent fields (phys_register, physpkg.F90:100-352). nmodes sizes
+    the per-mode aerosol stacks (len(phys_cfg.aero_modes)); pcnst sizes
+    the moist budget snapshot."""
     specs = dict(zm_pbuf_specs(ncol, pver))
     specs.update({
         # pre-moist-processes T/q for the DTCOND/DC* family
@@ -82,7 +92,11 @@ def physpkg_pbuf_specs(ncol: int, pver: int, pcnst: int = 1) -> dict:
         "CLDLIQINI": ((ncol, pver), "physpkg"),
         "CLDICEINI": ((ncol, pver), "physpkg"),
         "RLIQBC": ((ncol,), "physpkg"),      # physpkg.F90:2894
-        # per-mode aerosol water uptake state for the modal optics
+        # per-mode aerosol water uptake state for the modal optics, as
+        # the reference's (pcols, pver, nmodes) fields (modal_aer_opt.F90:
+        # 652-663; filled by calcsize and wateruptake, physpkg.F90:
+        # 2899-2930); NAER, the per-mode number (1/kg), feeds ZM's
+        # in-plume activation
         "DGNUMDRY": ((ncol, pver, nmodes), "global"),
         "DGNUMWET": ((ncol, pver, nmodes), "global"),
         "QAERWAT": ((ncol, pver, nmodes), "global"),
@@ -203,10 +217,6 @@ def tphysbc(phys_cfg: PhysConfig, zm_cfg: ZMConfig,
     """Pre-coupler physics (tphysbc, physpkg.F90:2508-2942). nstep is a
     Python int: 0 (the first step) has no TEOUT, so no energy fixer and
     no dynamics tendencies."""
-    if phys_cfg.aero_modes:
-        raise NotImplementedError(
-            "PhysConfig.aero_modes: the modal aerosol optics and water "
-            "uptake are not ported yet (ROADMAP.md Queue 1 item 7)")
     ncol, pver, pcnst = state.ncol, state.pver, state.pcnst
     dtype, dev = state.t.dtype, state.t.device
     diags = {}
@@ -267,9 +277,21 @@ def tphysbc(phys_cfg: PhysConfig, zm_cfg: ZMConfig,
     _snap(diags, phys_cfg, "convect_deep_before", state)
     # ---- deep convection (physpkg.F90:2813-2868 -> zm_conv_tend); the
     # ZM tail kernel takes contiguous tensors ----
+    modal = (phys_cfg.prog_modal_aero and not phys_cfg.use_oslo_aero
+             and bool(phys_cfg.aero_modes))
+    aero = None
+    if zm_cfg.microp and modal:
+        # the modal aerosol for the in-plume activation (zm_aero_init
+        # role, zm_conv_intr.F90:1032-1410): last step's NAER/DGNUMWET
+        # stacks, filled by the calcsize branch below
+        aero = dict(num=pbuf.get("NAER"), dgnum=pbuf.get("DGNUMWET"),
+                    hygro=tuple(float(sum(m.species_hygro) /
+                                      len(m.species_hygro))
+                                if m.species_hygro else 0.1
+                                for m in phys_cfg.aero_modes))
     zm_out = zm_conv_tend(zm_cfg, registry, state.contiguous(), pbuf,
                           pbuf.get("PBLH"), pbuf.get("TPERT"),
-                          cam_in.landfrac, ztodt)
+                          cam_in.landfrac, ztodt, aero=aero)
     state, pbuf = zm_out.state1, zm_out.pbuf
     diags.update(zm_out.diagnostics)
     prec_dp = pbuf.get("PREC_DP")
@@ -285,10 +307,78 @@ def tphysbc(phys_cfg: PhysConfig, zm_cfg: ZMConfig,
     diags.update(convect_diagnostics_calc(state, pbuf))
     pbuf = pbuf.set("RLIQBC", zm_out.rliq)               # (:2894-2895)
 
+    # ---- modal aerosol sizes, water uptake and optics diagnostics
+    # (physpkg.F90:2899-2930, skipped for oslo) ----
+    if modal:
+        pbuf = _modal_aerosol(phys_cfg.aero_modes, registry, state, pbuf,
+                              diags)
+
     # ---- export to the surface models (physpkg.F90:2933-2940) ----
     cam_out = cam_export(state, prec_dp, snow_dp)
     return PhysRunOut(state=state, pbuf=pbuf, tend=tend, cam_out=cam_out,
                       diagnostics=diags)
+
+
+# modes already warned of for their missing species_hygro
+_WARNED_HYGRO: set = set()
+
+
+def _modal_aerosol(modes, registry, state, pbuf, diags):
+    """calcsize and wateruptake per mode (modal_aero_calcsize_diag and
+    modal_aero_wateruptake_dr, physpkg.F90:2906-2913 /
+    modal_aer_opt.F90:697-704) into the DGNUMDRY / DGNUMWET / QAERWAT /
+    WETDENS_AP / NAER stacks, and the modal optics' AOD diagnostics into
+    `diags`. Returns the pbuf.
+
+    A mode without species_hygro takes 0.1 per species (weakly
+    hygroscopic, dust/BC-like), with a warning; the JAX package warns at
+    every call, here once per mode, as an eager step would warn at every
+    step."""
+    mass = state.pdeldry / c.GRAVIT          # dry layer mass (:545)
+    _, qs = qsat_water(state.t, state.pmid)
+    rh = torch.clamp(state.q[:, :, 0] / torch.clamp(qs, min=1.0e-12),
+                     0.0, 1.0)
+    specmmr_by_mode, dg_dry, dg_wet, qw, wdens, naer_m = \
+        [], [], [], [], [], []
+    for mode in modes:
+        specmmr = [state.q[:, :, registry.index(n)]
+                   for n in mode.species_names]
+        specmmr_by_mode.append(specmmr)
+        num = (state.q[:, :, registry.index(mode.num_name)]
+               if mode.num_name else None)
+        dgnum, naer, _ = modal_aero_calcsize(
+            specmmr, mode.species_density, mode.sigma_logr, mode.dgnum,
+            mode.dgnumlo, mode.dgnumhi, num)
+        if mode.species_hygro:
+            hygro = mode.species_hygro
+        else:
+            if mode.name not in _WARNED_HYGRO:
+                _WARNED_HYGRO.add(mode.name)
+                warnings.warn(
+                    f"aerosol mode '{mode.name}' has no species_hygro; "
+                    "defaulting hygroscopicity to 0.1 per species",
+                    stacklevel=3)
+            hygro = (0.1,) * len(specmmr)
+        wu = modal_aero_wateruptake(
+            specmmr, mode.species_density, hygro, mode.sigma_logr, dgnum,
+            naer, rh, mode.rhcrystal, mode.rhdeliques)
+        dg_dry.append(dgnum)
+        dg_wet.append(wu["dgnumwet"])
+        qw.append(wu["qaerwat"])
+        wdens.append(wu["wetdens"])
+        naer_m.append(naer)
+    dgnumwet_m = torch.stack(dg_wet, -1)
+    qaerwat_m = torch.stack(qw, -1)
+    pbuf = pbuf.update(DGNUMDRY=torch.stack(dg_dry, -1),
+                       DGNUMWET=dgnumwet_m, QAERWAT=qaerwat_m,
+                       WETDENS_AP=torch.stack(wdens, -1),
+                       NAER=torch.stack(naer_m, -1))
+    sw_tot, lw_tau, aero_diags = modal_aero_optics_all(
+        modes, specmmr_by_mode, dgnumwet_m, qaerwat_m, mass)
+    diags.update(aero_diags)
+    diags["AER_TAU_SW"] = sw_tot["tau"]
+    diags["AER_TAU_LW"] = lw_tau
+    return pbuf
 
 
 def tphysac(phys_cfg: PhysConfig, registry: ConstituentRegistry,

@@ -1,7 +1,7 @@
 """Zhang-McFarlane deep convection core (NorESM "tht" variant).
 
-Twin of `cam_nor_physics_tpu.models.physics.zm_conv` at `microp=False`, in
-the (ncol, pver) layout (reference zm_conv.F90). Every column is computed
+Twin of `cam_nor_physics_tpu.models.physics.zm_conv`, in the (ncol, pver)
+layout (reference zm_conv.F90). Every column is computed
 and non-triggered columns are masked at the end; level recursions are
 Python loops over levels on (ncol,) rows (`_scan`, the JAX package's
 `lax.scan`), so a call issues thousands of small launches on a card and
@@ -13,9 +13,12 @@ number of excluded top levels. Units follow the reference internals:
 pressure in hPa (mb), heights in m including surface elevation, mass
 fluxes normalized by the cloud-base flux until scaled by `mb` (mb/s).
 
-The in-plume microphysics (`zm_mphy`, the microp branches of cldprp and
-zm_convr) and the PBL-mixed launch parcel are not ported: `zm_convr`
-raises NotImplementedError for cfg.microp and cfg.parcel_pbl.
+With cfg.microp the in-plume two-moment microphysics (`zm_mphy`, one more
+level scan) runs inside cldprp's plume iteration, twice: the second pass
+re-ascends with the first pass's freezing heat in the hu budget. Every
+mask of it is a tensor, so a microp step too reads no device value on the
+host and is captured as a CUDA graph. cfg.parcel_pbl launches the parcel
+from the PBL-mixed layer instead of the level of largest MSE.
 """
 
 from __future__ import annotations
@@ -29,6 +32,11 @@ from ...ops.saturation import qsat_hpa
 from ...ops.thermo import enthalpy, entropy, ienthalpy, ientropy
 from ...utils import constants as c
 from ...utils.config import ZMConfig
+from .zm_microphysics import (AIMM, BIMM, COOPER_A, COOPER_B, KK_A,
+                              KK_ACC, M_ACT, M_ICE0, NACT_LND, NACT_OCN,
+                              NI_MAX, QI0_SNOW, RHO_LIQ, T_BERG_PEAK,
+                              T_BERG_WIDTH, T_HOM, TAU_BERG, TAU_SNOW,
+                              activated_number)
 from .zm_transport import _safe_div
 
 CP = c.CPAIR
@@ -162,16 +170,22 @@ class BuoyanOut:
     pl: torch.Tensor       # parcel LCL pressure (ncol,) hPa
 
 
-def _parcel_dilute(cfg: ZMConfig, klaunch, p, z, t, q, tpert, dmpdz):
+def _parcel_dilute(cfg: ZMConfig, klaunch, p, z, t, q, tpert, dmpdz,
+                   pbl=None):
     """Entraining-plume parcel ascent (parcel_dilute, zm_conv.F90:
-    4824-5277), tht path, launched from the environment at klaunch (the
-    JAX twin's tl0/ql0/pl0 serve only the PBL-mixed parcel, which is not
-    ported). Returns (tp, qstp, tpv, tl, pl, lcl)."""
+    4824-5277), tht path, launched at klaunch. With cfg.parcel_pbl, `pbl`
+    is the PBL-mixed parcel (tl0, ql0, pl0): its enthalpy and total water
+    start the ascent, and its temperature and pressure stand in where no
+    LCL is found. Returns (tp, qstp, tpv, tl, pl, lcl)."""
     ncol, pver = t.shape
     t_launch = _take_col(t, klaunch)
     p_launch = _take_col(p, klaunch)
-    qtp0 = _take_col(q, klaunch)
-    sp0 = enthalpy(t_launch, p_launch, qtp0, _take_col(z, klaunch))
+    if cfg.parcel_pbl:
+        tl0, qtp0, pl0 = pbl
+        sp0 = enthalpy(tl0, pl0, qtp0, torch.zeros_like(tl0))
+    else:
+        qtp0 = _take_col(q, klaunch)
+        sp0 = enthalpy(t_launch, p_launch, qtp0, _take_col(z, klaunch))
     mp0 = torch.ones((ncol,), dtype=t.dtype, device=t.device)
     _, qs_launch = qsat_hpa(t_launch, p_launch)
 
@@ -213,7 +227,7 @@ def _parcel_dilute(cfg: ZMConfig, klaunch, p, z, t, q, tpert, dmpdz):
                             torch.where(above_all, qs_inv, q))
         return _parcel_finish(cfg, klaunch, p, z, t, q, tpert, t_launch,
                               qs_launch, qtp0, smix, qtmix, tmix, qsmix,
-                              dzdp_l)
+                              dzdp_l, pbl)
 
     xs = dict(p=p, z=z, t=t, q=q, p_b=_below(p), z_b=_below(z),
               t_b=_below(t), q_b=_below(q), dmpdz=dmpdz)
@@ -257,7 +271,8 @@ def _parcel_dilute(cfg: ZMConfig, klaunch, p, z, t, q, tpert, dmpdz):
         ascent_step, dict(sp=z1, qtp=z1, mp=z1, tmix_b=t_launch), xs,
         reverse=True)
     return _parcel_finish(cfg, klaunch, p, z, t, q, tpert, t_launch,
-                          qs_launch, qtp0, smix, qtmix, tmix, qsmix, dzdp_l)
+                          qs_launch, qtp0, smix, qtmix, tmix, qsmix, dzdp_l,
+                          pbl)
 
 
 def _precip_terms(cy, xsh2o, tmix, qsmix, qtmix):
@@ -280,9 +295,11 @@ def _precip_terms(cy, xsh2o, tmix, qsmix, qtmix):
 
 
 def _parcel_finish(cfg: ZMConfig, klaunch, p, z, t, q, tpert, t_launch,
-                   qs_launch, qtp0, smix, qtmix, tmix, qsmix, dzdp_l):
+                   qs_launch, qtp0, smix, qtmix, tmix, qsmix, dzdp_l,
+                   pbl=None):
     """LCL detection + precipitation/freezing adjustment on the ascent
-    profiles (zm_conv.F90:5100-5270); shared tail of both parcel forms."""
+    profiles (zm_conv.F90:5100-5270); shared tail of both parcel forms.
+    `pbl` as in _parcel_dilute."""
     ncol, pver = t.shape
     lwmax = 1.0e-3
     nit_lheat = 2
@@ -309,7 +326,7 @@ def _parcel_finish(cfg: ZMConfig, klaunch, p, z, t, q, tpert, t_launch,
     qxskp1 = at(qtmix_b) - at(qsmix_b)
     dqxsdp = _safe_div(qxsk - qxskp1, dp_lcl)
     pl = torch.where(found, at(p_b_full) - _safe_div(qxskp1, dqxsdp),
-                     p_launch)
+                     pbl[2] if cfg.parcel_pbl else p_launch)
     zl = torch.where(found, at(z_b_full) - _safe_div(qxskp1, dqxsdp) *
                      at(dzdp_l), torch.zeros_like(pl))
     dsdp = _safe_div(at(smix) - at(smix_bf), dp_lcl)
@@ -318,7 +335,8 @@ def _parcel_finish(cfg: ZMConfig, klaunch, p, z, t, q, tpert, t_launch,
     qtlcl = at(qtmix_b) + dqtdp * (pl - at(p_b_full))
     tl_inv, _, _ = ienthalpy(slcl, pl, qtlcl, zl, at(tmix),
                              solver=cfg.inversion_solver)
-    tl = torch.where(found & ~torch.isnan(tl_inv), tl_inv, t_launch)
+    tl = torch.where(found & ~torch.isnan(tl_inv), tl_inv,
+                     pbl[0] if cfg.parcel_pbl else t_launch)
 
     # ---- precipitation / freezing adjustment (zm_conv.F90:5160-5270) ----
     smix_ent = entropy(tmix, p, qtmix)
@@ -417,8 +435,8 @@ def buoyan_dilute(cfg: ZMConfig, msg: int, q, t, p, z, pf, zi_, zs,
     """Dilute CAPE/CIN (buoyan_dilute, zm_conv.F90:4425-4819). p/pf in
     hPa, z/zi_ heights incl. surface elevation zs (m), pblt the 0-based
     PBL-top level (float), dmpdz (ncol, pver) entrainment rate (/m).
-    zi_ and zs serve the PBL-mixed parcel (parcel_pbl), which is not
-    ported."""
+    zi_ (above the surface) and zs serve the PBL-mixed parcel
+    (cfg.parcel_pbl)."""
     ncol, pver = t.shape
     karr = _karr(pver, t)
     pblt_i = torch.round(pblt).long()
@@ -429,15 +447,36 @@ def buoyan_dilute(cfg: ZMConfig, msg: int, q, t, p, z, pf, zi_, zs,
            + (1.0 + q / EPS1) / (1.0 + q) * GRAV * z
            + (RL - (c.CPLIQ - c.CPWV) * (t - TFREEZ)) * q)
 
-    # launch at max MSE between the PBL top and lon; Fortran scans
-    # bottom-up with strict >, so ties pick the lowest level
-    mask = (karr >= _c(pblt_i)) & (karr <= _c(lon))
-    hmn_m = torch.where(mask, hmn, -torch.inf)
-    vmax = hmn_m.amax(1)
-    mx = torch.where(hmn_m == _c(vmax), karr, -1).amax(1)
-    mx = torch.where(mask.any(1), mx, lon)
+    pbl = None
+    if cfg.parcel_pbl:
+        # PBL-mixed parcel (zm_conv.F90:4639-4702): the pressure-weighted
+        # mean MSE and q of the layers below parcel_dz above the surface
+        pbl_dz = _take_col(z, pblt_i) - zs
+        parcel_dz = torch.maximum(zi_[:, pver - 1],
+                                  cfg.parcel_hscale * pbl_dz)
+        dp_lev = pf[:, 1:] - pf[:, :-1]
+        zi_top = zi_[:, :-1]
+        zi_bot = zi_[:, 1:]
+        in_mix = zi_bot <= _c(parcel_dz)
+        frac = torch.where(karr == pver - 1, 1.0, torch.clamp(
+            _safe_div(_c(parcel_dz) - zi_bot, zi_top - zi_bot), max=1.0))
+        w = torch.where(in_mix, dp_lev * frac, 0.0)
+        wsum = w.sum(1)
+        hpar = (hmn * w).sum(1) / torch.clamp(wsum, min=1e-30)
+        qpar = (q * w).sum(1) / torch.clamp(wsum, min=1e-30)
+        mx, _ = _first_true_from_top(in_mix, pver - 1)
+        tl0 = (hpar - RL * qpar - GRAV * (parcel_dz + zs)) / CP
+        pbl = (tl0, qpar, _take_col(p, mx))
+    else:
+        # launch at max MSE between the PBL top and lon; Fortran scans
+        # bottom-up with strict >, so ties pick the lowest level
+        mask = (karr >= _c(pblt_i)) & (karr <= _c(lon))
+        hmn_m = torch.where(mask, hmn, -torch.inf)
+        vmax = hmn_m.amax(1)
+        mx = torch.where(hmn_m == _c(vmax), karr, -1).amax(1)
+        mx = torch.where(mask.any(1), mx, lon)
     tp, qstp, tpv, tl, pl, lcl = _parcel_dilute(cfg, mx, p, z, t, q, tpert,
-                                                dmpdz)
+                                                dmpdz, pbl)
 
     plge600 = pl >= cfg.plclmin   # zm_conv.F90:4755
 
@@ -482,7 +521,217 @@ def buoyan_dilute(cfg: ZMConfig, msg: int, q, t, p, z, pf, zi_, zs,
 
 
 # =============================================================================
-# cldprp  (zm_conv.F90:3024-4026), microp off
+# in-plume two-moment updraft microphysics (the zm_mphy call inside
+# cldprp's iteration, zm_conv.F90:3782-3793)
+# =============================================================================
+
+@dataclass
+class ZMMphyOut:
+    """Per-level updraft microphysics state (the loc_conv role), in
+    cldprp's normalized units."""
+
+    qliq: torch.Tensor     # in-plume cloud liquid (kg/kg)
+    qice: torch.Tensor     # in-plume cloud ice
+    qnl: torch.Tensor      # in-plume droplet number (1/kg)
+    qni: torch.Tensor      # in-plume crystal number
+    qcde: torch.Tensor     # detrainable liquid (q1q2: dl = du qcde(k+1))
+    qide: torch.Tensor     # detrainable ice
+    qncde: torch.Tensor    # detrainable droplet number
+    qnide: torch.Tensor    # detrainable crystal number
+    rprd: torch.Tensor     # rain production (cu units)
+    sprd: torch.Tensor     # snow production (cu units)
+    frz: torch.Tensor      # liquid->ice freezing rate (cu units)
+    wu: torch.Tensor       # updraft vertical velocity (m/s)
+    rates: dict            # per-process rates (conv% family, the JAX keys)
+
+
+def zm_mphy(cfg: ZMConfig, su, qu, mu, du, eu, cmel, cmei, dz, zf_top, p,
+            t, q, jt, jb, active, landfrac, aero=None) -> ZMMphyOut:
+    """In-plume two-moment updraft microphysics (the zm_mphy call inside
+    cldprp, zm_conv.F90:3782-3793; the JAX package's formulation of the
+    Song & Zhang 2011 scheme, run inside the plume ascent).
+
+    One bottom-up level scan carrying the four condensate fluxes (mu ql,
+    mu qi, mu nl, mu ni) and the updraft w^2. Per level the reference's ql
+    budget differencing (zm_conv.F90:3848-3857) for two phases and two
+    numbers, G_x = mu(k+1) x(k+1) - dz du x(k+1) + dz src_x(k), then the
+    processes on the in-plume mixing ratios over the residence time
+    dz/max(wu, 0.5): Bigg immersion, Cooper contact/deposition, WBF and
+    homogeneous freezing (-> frz), KK2000 autoconversion and accretion
+    (-> rprd), ice to snow above a threshold (-> sprd). w^2 follows
+    d(w^2)/dz = 2 B/3 - 2 (eu/mu) w^2 with B = g (Tu - T)/T. `aero` is the
+    modal activation bundle (activated_number); without it the land and
+    ocean activation constants apply."""
+    ncol, pver = t.shape
+    karr = _karr(pver, t)
+    eps = 1.0e-12
+
+    # plume temperature from the updraft s (tug, zm_conv.F90:3712-3718)
+    tug = su - (GRAV / CP) * zf_top / (1.0 + CPVIR * qu)
+    rho = p * 100.0 / (c.RAIR * t)                   # p in mb
+    if aero is not None:
+        nact = activated_number(aero)
+    else:
+        nact = _c(NACT_LND * landfrac + NACT_OCN * (1.0 - landfrac)).expand(
+            ncol, pver)
+    in_plume = (karr >= _c(jt)) & (karr < _c(jb)) & _c(active)
+
+    xs = dict(tug=tug, t=t, dz=dz, mu=mu, du=du, eu=eu, cmel=cmel,
+              cmei=cmei, rho=rho, nact=nact, inp=in_plume.to(t.dtype))
+    z4 = torch.zeros_like(t[:, 0])
+    carry0 = dict(f_ql=z4, f_qi=z4, f_nl=z4, f_ni=z4, w2=z4, mu_b=z4)
+
+    def step(cy, x, k):
+        live = x["inp"] > 0.5
+        mu_k = x["mu"]
+        pos = mu_k > 0.0
+        mu_s = torch.clamp(mu_k, min=eps)
+
+        # updraft w^2 (buoyancy - entrainment drag)
+        buoy = GRAV * (x["tug"] - x["t"]) / torch.clamp(x["t"], min=1.0)
+        lam = x["eu"] / mu_s
+        w2 = torch.clamp(cy["w2"] + 2.0 * x["dz"] *
+                         ((1.0 / 3.0) * buoy - lam * cy["w2"]), min=0.0)
+        wu = torch.sqrt(w2)
+        tau = x["dz"] / torch.clamp(wu, min=0.5)
+
+        # budget step (reference differencing) for all four species: the
+        # flux from below, less the detrainment of the level-below value,
+        # plus the level source (flux units)
+        def g(x_b, src):
+            return cy["mu_b"] * x_b - x["dz"] * x["du"] * x_b + \
+                x["dz"] * src
+
+        has_b = cy["mu_b"] > 0
+        mu_bs = torch.clamp(cy["mu_b"], min=eps)
+        ql_b, qi_b, nl_b, ni_b = (
+            torch.where(has_b, _safe_div(cy[f], mu_bs), 0.0)
+            for f in ("f_ql", "f_qi", "f_nl", "f_ni"))
+
+        cmel_p = torch.clamp(x["cmel"], min=0.0)
+        cmei_p = torch.clamp(x["cmei"], min=0.0)
+        Gl = g(ql_b, cmel_p)
+        Gi = g(qi_b, cmei_p)
+        # activation: new liquid at the activation radius; deposition ice
+        # at the fresh-crystal size
+        Gnl = g(nl_b, cmel_p / M_ACT)
+        Gni = g(ni_b, cmei_p / M_ICE0)
+
+        ql_u = torch.where(pos, torch.clamp(Gl, min=0.0) / mu_s, 0.0)
+        qi_u = torch.where(pos, torch.clamp(Gi, min=0.0) / mu_s, 0.0)
+        nl_u = torch.where(pos, torch.minimum(
+            torch.clamp(Gnl, min=0.0) / mu_s, x["nact"]), 0.0)
+        ni_u = torch.where(pos, torch.clamp(Gni, min=0.0) / mu_s, 0.0)
+
+        # the activation-number source in mixing-ratio units (ACTIV_N; the
+        # budget took it in through Gnl)
+        dn_act = torch.where(pos, x["dz"] * cmel_p / M_ACT / mu_s, 0.0)
+
+        # ---- freezing: Bigg immersion + Cooper + WBF + homogeneous ----
+        cold = x["tug"] < TFREEZ
+        dT = torch.clamp(TFREEZ - x["tug"], 0.0, 40.0)
+        frz_imm = BIMM * torch.expm1(AIMM * dT) * x["rho"] * ql_u * ql_u / \
+            torch.clamp(nl_u * RHO_LIQ * M_ACT, min=eps) * M_ACT
+        frz_imm = torch.where(cold, frz_imm, 0.0)
+        dq_imm = torch.minimum(ql_u, frz_imm * tau)
+        dq_frz = dq_imm
+        n_cooper = torch.clamp(COOPER_A * torch.exp(COOPER_B * dT) /
+                               x["rho"], max=NI_MAX)
+        n_cooper = torch.where(cold, n_cooper, 0.0)
+        dn_nuc = torch.clamp(n_cooper - ni_u, min=0.0)
+        dq_nuc = torch.minimum(torch.clamp(ql_u - dq_frz, min=0.0),
+                               dn_nuc * M_ICE0)
+        dn_nuc = dq_nuc / M_ICE0
+        dq_ct = dq_nuc
+        dq_frz = dq_frz + dq_nuc
+        # Wegener-Bergeron-Findeisen: where ice already exists in mixed
+        # phase, deposition grows it at the liquid's expense (a liquid->
+        # ice transfer releasing latice like freezing), with a Gaussian
+        # efficiency peaking near -15 C
+        eff_berg = torch.exp(-((x["tug"] - T_BERG_PEAK) / T_BERG_WIDTH) ** 2)
+        eff_berg = torch.where(cold & (qi_u > 1.0e-10), eff_berg, 0.0)
+        dq_berg = torch.minimum(torch.clamp(ql_u - dq_frz, min=0.0),
+                                eff_berg * ql_u / TAU_BERG * tau)
+        dq_frz = dq_frz + dq_berg
+        hom = x["tug"] <= T_HOM
+        dq_hom = torch.where(hom, torch.clamp(ql_u - dq_frz, min=0.0), 0.0)
+        dq_frz = torch.where(hom, ql_u, dq_frz)
+        frac_frz = dq_frz / torch.clamp(ql_u, min=eps)
+        dn_l = torch.minimum(nl_u * frac_frz, nl_u)
+        dn_i = dn_l + torch.clamp(dn_nuc - dn_l, min=0.0)
+        # droplet-number loss split for FHTIM_N/FHTCT_N
+        dn_imm_n = dn_l * dq_imm / torch.clamp(dq_frz, min=eps)
+        dn_ct_n = dn_nuc
+        ql_u = ql_u - dq_frz
+        qi_u = qi_u + dq_frz
+        nl_u = nl_u - dn_l
+        ni_u = ni_u + dn_i
+
+        # ---- autoconversion + accretion (KK2000) ----
+        nc_cm3 = torch.clamp(nl_u * x["rho"] * 1.0e-6, min=1.0)
+        auto = KK_A * torch.clamp(ql_u, min=0.0) ** 2.47 * nc_cm3 ** (-1.79)
+        dq_auto = torch.minimum(ql_u, auto * tau)
+        dq_rain = dq_auto
+        frac_rain = dq_rain / torch.clamp(ql_u, min=eps)
+        dn_auto_n = nl_u * frac_rain
+        nl_u = nl_u * (1.0 - frac_rain)
+        ql_u = ql_u - dq_rain
+        accr = KK_ACC * (torch.clamp(ql_u, min=0.0) *
+                         torch.clamp(dq_rain, min=0.0)) ** 1.15
+        dq_accr = torch.minimum(ql_u, accr * tau)
+        frac_accr = dq_accr / torch.clamp(ql_u, min=eps)
+        dn_accr_n = nl_u * frac_accr
+        nl_u = nl_u * (1.0 - frac_accr)
+        ql_u = ql_u - dq_accr
+        dq_rain = dq_rain + dq_accr
+
+        # ---- ice -> snow ----
+        conv = torch.clamp(qi_u - QI0_SNOW, min=0.0) / TAU_SNOW
+        dq_snow = torch.minimum(qi_u, conv * tau)
+        frac_snow = dq_snow / torch.clamp(qi_u, min=eps)
+        ni_u = ni_u * (1.0 - frac_snow)
+        qi_u = qi_u - dq_snow
+
+        lp = live & pos
+        dz_s = torch.clamp(x["dz"], min=eps)
+
+        def sel(v):
+            return torch.where(lp, v, 0.0)
+
+        def rate(dq):
+            return torch.where(lp, dq * mu_k / dz_s, 0.0)
+
+        new_cy = dict(f_ql=sel(ql_u * mu_k), f_qi=sel(qi_u * mu_k),
+                      f_nl=sel(nl_u * mu_k), f_ni=sel(ni_u * mu_k),
+                      w2=torch.where(live, w2, 0.0), mu_b=mu_k)
+        # frz carries the whole latent-ice release of the level: droplet
+        # freezing plus direct vapour->ice deposition (the cmei share of
+        # the new condensate); the hu and q1q2 budgets heat by latice frz
+        return new_cy, (sel(ql_u), sel(qi_u), sel(nl_u), sel(ni_u),
+                        rate(dq_rain), rate(dq_snow),
+                        rate(dq_frz) + sel(cmei_p),
+                        torch.where(live, wu, 0.0),
+                        rate(dq_auto), rate(dq_accr), rate(dq_imm),
+                        rate(dq_ct), rate(dq_hom), rate(dq_berg),
+                        rate(dn_act), rate(dn_auto_n), rate(dn_accr_n),
+                        rate(dn_imm_n), rate(dn_ct_n))
+
+    _, (qliq, qice, qnl, qni, rprd, sprd, frz, wu, *rs) = _scan(
+        step, carry0, xs, reverse=True)
+    rates = dict(zip(MPHY_RATE_KEYS, rs))
+    return ZMMphyOut(qliq=qliq, qice=qice, qnl=qnl, qni=qni, qcde=qliq,
+                     qide=qice, qncde=qnl, qnide=qni, rprd=rprd, sprd=sprd,
+                     frz=frz, wu=wu, rates=rates)
+
+
+# the per-process rates of zm_mphy, in its output order (the JAX keys)
+MPHY_RATE_KEYS = ("AUTOL_M", "ACCRL_M", "FHTIM_M", "FHTCT_M", "HMPI_M",
+                  "BERGN_M", "ACTIV_N", "AUTOL_N", "ACCRL_N", "FHTIM_N",
+                  "FHTCT_N")
+
+
+# =============================================================================
+# cldprp  (zm_conv.F90:3024-4026)
 # =============================================================================
 
 @dataclass
@@ -511,14 +760,34 @@ class CldprpOut:
     jlcl: torch.Tensor
     j0: torch.Tensor
     jd: torch.Tensor
+    # --- the microp extension (zeros, and mrates {}, when it is off) ---
+    qide: torch.Tensor     # detrainable ice (q1q2: di = du qide(k+1))
+    qncde: torch.Tensor    # detrainable droplet number
+    qnide: torch.Tensor    # detrainable crystal number
+    sprd: torch.Tensor     # snow production (cu units until zm_convr scales)
+    frz: torch.Tensor      # freezing rate (cu units)
+    qliq: torch.Tensor     # in-plume liquid
+    qice: torch.Tensor     # in-plume ice
+    qnl: torch.Tensor
+    qni: torch.Tensor
+    wu: torch.Tensor       # updraft vertical velocity (m/s)
+    dcape: torch.Tensor    # (ncol,) freezing-CAPE increment
+    mrates: dict           # per-process rates
 
 
 def cldprp(cfg: ZMConfig, msg: int, q, t, p, z, s, zf, shat, qhat, jb, lel,
-           landfrac, eu_only: bool = False):
-    """Updraft/downdraft plume properties (cldprp, zm_conv.F90:3024-4026),
-    microp off. Mass fluxes normalized by the cloud-base flux; eu/du/ed in
-    1/m. `eu_only=True` returns just the final entrainment profile eu (all
-    the second_call diagnosis consumes of the first call)."""
+           landfrac, eu_only: bool = False, aero: dict | None = None):
+    """Updraft/downdraft plume properties (cldprp, zm_conv.F90:3024-4026).
+    Mass fluxes normalized by the cloud-base flux; eu/du/ed in 1/m.
+    `eu_only=True` returns just the final entrainment profile eu (all the
+    second_call diagnosis consumes of the first call).
+
+    With cfg.microp the updraft window opens at lel, and the plume is
+    computed twice: the first pass runs zm_mphy for its freezing rate,
+    the second re-ascends with that heat in the hu budget and gives the
+    freezing-CAPE increment dcape against the first pass's virtual
+    temperature. Under eu_only the two passes run too, as eu depends on
+    the freezing. `aero` is zm_mphy's activation bundle."""
     ncol, pver = t.shape
     karr = _karr(pver, t)
     small = 1.0e-20
@@ -620,7 +889,10 @@ def cldprp(cfg: ZMConfig, msg: int, q, t, p, z, s, zf, shat, qhat, jb, lel,
     eps = torch.where(in_j0jb2, _c(eps0), torch.where(in_jtj0, f, 0.0))
     active = eps0 > 0.0
 
-    # updraft mass flux profile (zm_conv.F90:3547-3569)
+    # updraft mass flux profile (zm_conv.F90:3547-3569); with microp the
+    # window opens at lel instead of the initial jt (the reference's
+    # tmplel, :3545-3560) and the ascent below decides the final jt
+    microp = bool(cfg.microp)
     zf_jb = _take_col(zf, jb)
     zuef = zf[:, :-1] - _c(zf_jb)
     eps_b = _below(eps)
@@ -629,7 +901,8 @@ def cldprp(cfg: ZMConfig, msg: int, q, t, p, z, s, zf, shat, qhat, jb, lel,
     rmue = inv_eps0 * (torch.exp(eps_b * zuef) - 1.0) / safe_zuef
     mu_f = inv_eps0 * (torch.exp(eps * zuef) - 1.0) / safe_zuef
 
-    in_upd = (karr >= _c(jt0)) & (karr < _c(jb)) & _c(active)
+    in_upd = (karr >= _c(lel if microp else jt0)) & (karr < _c(jb)) & \
+        _c(active)
     mu0 = torch.where(in_upd, mu_f, 0.0)
     at_jb = karr == _c(jb)
     mu0 = torch.where(at_jb & _c(active), 1.0, mu0)
@@ -649,134 +922,232 @@ def cldprp(cfg: ZMConfig, msg: int, q, t, p, z, s, zf, shat, qhat, jb, lel,
     su_dflt = torch.where((karr >= _c(jt0)) & (karr <= _c(jb)),
                           _c(_take_col(s, jb)) +
                           _c(tiedke_msk) / (1.0 + CPVIR * q), s)
-
-    # hu ascent with mu < 0.02 cutoff (zm_conv.F90:3571-3599), bottom-up
-    def hu_step(cy, x, k):
-        inw = (k <= jb - 1) & (k >= lel) & active
-        weak = x["mu"] < 0.02
-        mu_k = torch.where(inw & weak, 0.0, x["mu"])
-        eu_k = torch.where(inw & weak, 0.0, x["eu"])
-        du_k = torch.where(inw & weak, cy["mu_b"] / x["dz"], x["du"])
-        hu_full = _safe_div(cy["mu_b"], mu_k) * cy["hu_b"] + \
-            _safe_div(x["dz"], mu_k) * (eu_k * x["hmn"] - du_k * x["hsat"])
-        hu_k = torch.where(inw, torch.where(weak, x["hmn"], hu_full),
-                           x["hu0"])
-        at_base = k == jb
-        mu_out = torch.where(at_base, x["mu"], mu_k)
-        hu_out = torch.where(at_base, x["hu0"], hu_k)
-        new_cy = dict(mu_b=mu_out,
-                      hu_b=torch.where(inw | at_base, hu_out, cy["hu_b"]))
-        return new_cy, (mu_out, torch.where(at_base, x["eu"], eu_k),
-                        torch.where(at_base, x["du"], du_k), hu_out)
-
-    _, (mu, eu, du, hu) = _scan(
-        hu_step, dict(mu_b=torch.zeros_like(hu_jb), hu_b=hu_jb),
-        dict(mu=mu0, eu=eu0, du=du0, dz=dz, hmn=hmn, hsat=hsat, hu0=hu0),
-        reverse=True)
-
-    # jt detection (zm_conv.F90:3606-3629): first k from the bottom in
-    # [lel-1, jb-2] matching either condition
-    hu_at_jb = _take_col(hu, jb)
-    in_det = (karr <= _c(jb) - 2) & (karr >= _c(lel) - 1)
-    cond1 = (hu <= hsthat) & (_below(hu) > _below(hsthat)) & (mu >= 0.02)
-    cond2 = (hu > _c(hu_at_jb)) | (mu < 0.02)
-    anyc = in_det & (cond1 | cond2)
-    jt_cand = torch.where(cond1,
-                          torch.where(hu - hsthat < -2000.0, karr + 1, karr),
-                          karr + 1)
-    det_k, det_found = _first_true_from_bottom(anyc, 0)
-    jt = torch.where(det_found, _take_col(jt_cand, det_k), jt0)
-
-    # zero the region above jt (zm_conv.F90:3633-3648)
-    above_jt = (karr >= _c(lel)) & (karr <= _c(jt)) & _c(active)
-    mu_below2 = _below(mu)
-    at_jt = (karr == _c(jt)) & _c(active)
-    mu = torch.where(above_jt, 0.0, mu)
-    eu = torch.where(above_jt | at_jt, 0.0, eu)
-    hu = torch.where(above_jt, hmn, hu)
-    du = torch.where(above_jt, 0.0, du)
-    du = torch.where(at_jt, mu_below2 / dz, du)
-    if eu_only:
-        return eu
-
-    # tu initialisation (zm_conv.F90:3652-3657) with environment qu
-    tu = (hu - GRAV * zf_top - (1.0 + DCOL * TFREEZ) * RL * q) / \
-        (CP * (1.0 + (CPVIR - DCOL * (RL / CP)) * q))
-
-    # su/qu ascent + jlcl detection (zm_conv.F90:3659-3706), bottom-up
-    def suqu_step(cy, x, k):
-        at_base = (k == jb) & active
-        tu_base = (x["hu"] - GRAV * x["zf"] -
-                   (1.0 + DCOL * TFREEZ) * RL * q_mx) / \
-            (CP * (1.0 + (CPVIR - DCOL * (RL / CP)) * q_mx))
-        su_base = (x["hu"] - (1.0 - DCOL * (tu_base - TFREEZ)) * RL *
-                   q_mx) / ((1.0 + CPVIR * q_mx) * CP)
-        not_done = cy["done"] < 0.5
-        inw = not_done & (k > jt) & (k < jb) & active
-        su_k = _safe_div(cy["mu_b"], x["mu"]) * cy["su_b"] + \
-            _safe_div(x["dz"], x["mu"]) * (x["eu"] - x["du"]) * x["s"]
-        qu_k = _safe_div(cy["mu_b"], x["mu"]) * cy["qu_b"] + \
-            _safe_div(x["dz"], x["mu"]) * (x["eu"] * x["q"] -
-                                           x["du"] * x["qst"])
-        tu_k = su_k - GRAV / ((1.0 + 0.85 * qu_k) * CP) * x["zf"]
-        _, qstu = qsat_hpa(tu_k, 0.5 * (x["p"] + x["pm1"]))
-        sat = inw & (qu_k >= qstu)
-        su_out = torch.where(at_base, su_base,
-                             torch.where(inw, su_k, x["su0"]))
-        qu_out = torch.where(at_base, q_mx, torch.where(inw, qu_k, x["q"]))
-        tu_out = torch.where(at_base, tu_base,
-                             torch.where(inw, tu_k, x["tu0"]))
-        done = torch.where(sat, 1.0, cy["done"])
-        jlcl = torch.where(sat & not_done, k, cy["jlcl"])
-        new_cy = dict(
-            su_b=torch.where(at_base | inw, su_out, cy["su_b"]),
-            qu_b=torch.where(at_base | inw, qu_out, cy["qu_b"]),
-            mu_b=x["mu"], done=done, jlcl=jlcl)
-        return new_cy, (su_out, qu_out, tu_out)
-
     zc = torch.zeros_like(hu_jb)
-    cyS, (su, qu, tu) = _scan(
-        suqu_step, dict(su_b=zc, qu_b=zc, mu_b=zc, done=zc, jlcl=lel),
-        dict(mu=mu, eu=eu, du=du, dz=dz, s=s, q=q, qst=qst, hu=hu,
-             zf=zf_top, p=p, pm1=p_b3, tu0=tu, su0=su_dflt), reverse=True)
-    jlcl = cyS["jlcl"]
 
-    # saturated portion jt < k <= jlcl (zm_conv.F90:3708-3722)
-    in_sat = (karr > _c(jt)) & (karr <= _c(jlcl)) & _c(active)
-    qu_sat = qsthat + gamhat * (hu - hsthat) / \
-        ((1.0 - DCOL * (tu - TFREEZ)) * RL * (1.0 + gamhat))
-    su_sat = shat + (hu - hsthat) / ((1.0 + CPVIR * qu_sat) * CP *
-                                     (1.0 + gamhat))
-    tu_sat = su_sat - GRAV / ((1.0 + CPVIR * qu_sat) * CP) * zf_top
-    qu = torch.where(in_sat, qu_sat, qu)
-    su = torch.where(in_sat, su_sat, su)
-    tu = torch.where(in_sat, tu_sat, tu)
+    # ---- plume iteration (zm_conv.F90:3526-3874): one pass without
+    # microphysics; two with it (pass 1 computes the plume and its
+    # freezing rate, pass 2 re-ascends with the freezing heat in hu) ----
+    frz = torch.zeros_like(t)
+    # dcape's reference profile: the environment's interface virtual
+    # temperature everywhere (zm_conv.F90:3304-3307), overwritten inside
+    # pass 1's plume window; levels only pass 2's window reaches
+    # difference against the environment
+    tvuo = (shat - GRAV / mcp * zf_top) * (1.0 + c.ZVIR * qhat) \
+        if microp else None
+    dcape = zc
+    jto = mp = None
+    for itr in range(2 if microp else 1):
+        totfrz = (frz * dz).sum(1)
 
-    # condensation in the updraft (zm_conv.F90:3730-3759)
-    in_cu = (karr >= _c(jt)) & (karr < _c(jb)) & _c(active)
-    cu = ((mu * su - _below(mu) * _below(su)) / dz - (eu - du) * s) / \
-        (RL / CP) * ((1.0 + CPVIR * qu) / (1.0 - DCOL * (tu - TFREEZ)))
-    cu = torch.where(in_cu & (karr != _c(jt)), torch.clamp(cu, min=0.0), 0.0)
+        # hu ascent with mu < 0.02 cutoff (zm_conv.F90:3571-3599), bottom-up
+        def hu_step(cy, x, k):
+            inw = (k <= jb - 1) & (k >= lel) & active
+            weak = x["mu"] < 0.02
+            mu_k = torch.where(inw & weak, 0.0, x["mu"])
+            eu_k = torch.where(inw & weak, 0.0, x["eu"])
+            du_k = torch.where(inw & weak, cy["mu_b"] / x["dz"], x["du"])
+            if microp:
+                # freezing heat enters the plume MSE budget; detrainment
+                # carries hu itself (zm_conv.F90:3588-3591)
+                hu_full = (cy["mu_b"] * cy["hu_b"] + x["dz"] *
+                           (eu_k * x["hmn"] + c.LATICE * x["frz"])) / \
+                    torch.clamp(mu_k + x["dz"] * du_k, min=1e-30)
+            else:
+                hu_full = _safe_div(cy["mu_b"], mu_k) * cy["hu_b"] + \
+                    _safe_div(x["dz"], mu_k) * (eu_k * x["hmn"] -
+                                                du_k * x["hsat"])
+            hu_k = torch.where(inw, torch.where(weak, x["hmn"], hu_full),
+                               x["hu0"])
+            at_base = k == jb
+            mu_out = torch.where(at_base, x["mu"], mu_k)
+            hu_out = torch.where(at_base, x["hu0"], hu_k)
+            new_cy = dict(mu_b=mu_out,
+                          hu_b=torch.where(inw | at_base, hu_out,
+                                           cy["hu_b"]))
+            return new_cy, (mu_out, torch.where(at_base, x["eu"], eu_k),
+                            torch.where(at_base, x["du"], du_k), hu_out)
 
-    # liquid water + rain production (zm_conv.F90:3953-3975), bottom-up
-    def ql_step(cy, x, k):
-        inw = (k >= jt) & (k < jb) & active & (x["mu"] >= 0.0)
-        pos = x["mu"] > 0.0
-        ql1 = _safe_div(cy["mu_b"] * cy["ql_b"] - x["dz"] * x["du"] *
-                        cy["ql_b"] + x["dz"] * x["cu"], x["mu"])
-        ql_k = torch.where(inw & pos, ql1 / (1.0 + x["dz"] * c0mask), 0.0)
-        totpcp = cy["totpcp"] + torch.where(
-            inw, x["dz"] * (x["cu"] - x["du"] * cy["ql_b"]), 0.0)
-        rprd_k = torch.where(inw, c0mask * x["mu"] * ql_k, 0.0)
-        new_cy = dict(ql_b=torch.where(inw, ql_k,
-                                       torch.where(k == jb, 0.0, cy["ql_b"])),
-                      mu_b=x["mu"], totpcp=totpcp)
-        return new_cy, (ql_k, rprd_k)
+        xsH = dict(mu=mu0, eu=eu0, du=du0, dz=dz, hmn=hmn, hsat=hsat,
+                   hu0=hu0)
+        if microp:
+            xsH["frz"] = frz
+        _, (mu, eu, du, hu) = _scan(
+            hu_step, dict(mu_b=torch.zeros_like(hu_jb), hu_b=hu_jb), xsH,
+            reverse=True)
 
-    cyQ, (ql, rprd) = _scan(ql_step, dict(ql_b=zc, mu_b=zc, totpcp=zc),
-                            dict(mu=mu, du=du, cu=cu, dz=dz), reverse=True)
-    totpcp = torch.clamp(cyQ["totpcp"], min=0.0)
-    qcde = ql
+        # jt detection (zm_conv.F90:3606-3629): first k from the bottom in
+        # [lel-1, jb-2] matching either condition; a plume whose column
+        # has freezing heat (totfrz > 0) is not stopped by the hu
+        # overshoot (:3622)
+        hu_at_jb = _take_col(hu, jb)
+        in_det = (karr <= _c(jb) - 2) & (karr >= _c(lel) - 1)
+        cond1 = (hu <= hsthat) & (_below(hu) > _below(hsthat)) & (mu >= 0.02)
+        cond2 = ((hu > _c(hu_at_jb)) & _c(totfrz <= 0.0)) | (mu < 0.02)
+        anyc = in_det & (cond1 | cond2)
+        jt_cand = torch.where(cond1,
+                              torch.where(hu - hsthat < -2000.0, karr + 1,
+                                          karr),
+                              karr + 1)
+        det_k, det_found = _first_true_from_bottom(anyc, 0)
+        jt = torch.where(det_found, _take_col(jt_cand, det_k), jt0)
+
+        # zero the region above jt (zm_conv.F90:3633-3648)
+        above_jt = (karr >= _c(lel)) & (karr <= _c(jt)) & _c(active)
+        mu_below2 = _below(mu)
+        at_jt = (karr == _c(jt)) & _c(active)
+        mu = torch.where(above_jt, 0.0, mu)
+        eu = torch.where(above_jt | at_jt, 0.0, eu)
+        hu = torch.where(above_jt, hmn, hu)
+        du = torch.where(above_jt, 0.0, du)
+        du = torch.where(at_jt, mu_below2 / dz, du)
+        if eu_only and not microp:
+            return eu
+
+        # tu initialisation (zm_conv.F90:3652-3657) with environment qu
+        tu = (hu - GRAV * zf_top - (1.0 + DCOL * TFREEZ) * RL * q) / \
+            (CP * (1.0 + (CPVIR - DCOL * (RL / CP)) * q))
+
+        # su/qu ascent + jlcl detection (zm_conv.F90:3659-3706), bottom-up
+        def suqu_step(cy, x, k):
+            at_base = (k == jb) & active
+            tu_base = (x["hu"] - GRAV * x["zf"] -
+                       (1.0 + DCOL * TFREEZ) * RL * q_mx) / \
+                (CP * (1.0 + (CPVIR - DCOL * (RL / CP)) * q_mx))
+            su_base = (x["hu"] - (1.0 - DCOL * (tu_base - TFREEZ)) * RL *
+                       q_mx) / ((1.0 + CPVIR * q_mx) * CP)
+            not_done = cy["done"] < 0.5
+            inw = not_done & (k > jt) & (k < jb) & active
+            su_k = _safe_div(cy["mu_b"], x["mu"]) * cy["su_b"] + \
+                _safe_div(x["dz"], x["mu"]) * (x["eu"] - x["du"]) * x["s"]
+            qu_k = _safe_div(cy["mu_b"], x["mu"]) * cy["qu_b"] + \
+                _safe_div(x["dz"], x["mu"]) * (x["eu"] * x["q"] -
+                                               x["du"] * x["qst"])
+            tu_k = su_k - GRAV / ((1.0 + 0.85 * qu_k) * CP) * x["zf"]
+            _, qstu = qsat_hpa(tu_k, 0.5 * (x["p"] + x["pm1"]))
+            sat = inw & (qu_k >= qstu)
+            su_out = torch.where(at_base, su_base,
+                                 torch.where(inw, su_k, x["su0"]))
+            qu_out = torch.where(at_base, q_mx,
+                                 torch.where(inw, qu_k, x["q"]))
+            tu_out = torch.where(at_base, tu_base,
+                                 torch.where(inw, tu_k, x["tu0"]))
+            done = torch.where(sat, 1.0, cy["done"])
+            jlcl = torch.where(sat & not_done, k, cy["jlcl"])
+            new_cy = dict(
+                su_b=torch.where(at_base | inw, su_out, cy["su_b"]),
+                qu_b=torch.where(at_base | inw, qu_out, cy["qu_b"]),
+                mu_b=x["mu"], done=done, jlcl=jlcl)
+            return new_cy, (su_out, qu_out, tu_out)
+
+        cyS, (su, qu, tu) = _scan(
+            suqu_step, dict(su_b=zc, qu_b=zc, mu_b=zc, done=zc, jlcl=lel),
+            dict(mu=mu, eu=eu, du=du, dz=dz, s=s, q=q, qst=qst, hu=hu,
+                 zf=zf_top, p=p, pm1=p_b3, tu0=tu, su0=su_dflt),
+            reverse=True)
+        jlcl = cyS["jlcl"]
+
+        # saturated portion jt < k <= jlcl (zm_conv.F90:3708-3722)
+        in_sat = (karr > _c(jt)) & (karr <= _c(jlcl)) & _c(active)
+        qu_sat = qsthat + gamhat * (hu - hsthat) / \
+            ((1.0 - DCOL * (tu - TFREEZ)) * RL * (1.0 + gamhat))
+        su_sat = shat + (hu - hsthat) / ((1.0 + CPVIR * qu_sat) * CP *
+                                         (1.0 + gamhat))
+        tu_sat = su_sat - GRAV / ((1.0 + CPVIR * qu_sat) * CP) * zf_top
+        qu = torch.where(in_sat, qu_sat, qu)
+        su = torch.where(in_sat, su_sat, su)
+        tu = torch.where(in_sat, tu_sat, tu)
+
+        # condensation in the updraft (zm_conv.F90:3730-3759); microp
+        # bounds it at jlcl (tmplel, :3725-3729) and takes the freezing
+        # term out of the vapour condensation
+        if microp:
+            in_cu = (karr >= _c(jt)) & (karr <= _c(jlcl)) & _c(active)
+            cu = ((mu * su - _below(mu) * _below(su)) / dz - eu * s +
+                  du * su) / (RL / CP) * \
+                ((1.0 + CPVIR * qu) / (1.0 - DCOL * (tu - TFREEZ))) - \
+                c.LATICE * frz / RL
+        else:
+            in_cu = (karr >= _c(jt)) & (karr < _c(jb)) & _c(active)
+            cu = ((mu * su - _below(mu) * _below(su)) / dz -
+                  (eu - du) * s) / (RL / CP) * \
+                ((1.0 + CPVIR * qu) / (1.0 - DCOL * (tu - TFREEZ)))
+        cu = torch.where(in_cu & (karr != _c(jt)), torch.clamp(cu, min=0.0),
+                         0.0)
+
+        if microp:
+            # ice fraction of the new condensate from the in-plume T of
+            # the level below (tug, zm_conv.F90:3710-3737)
+            tug_b = _below(su - (GRAV / CP) * zf_top / (1.0 + CPVIR * qu))
+            fice = torch.where(tug_b > TFREEZ, 0.0,
+                               torch.where(tug_b < 233.15, 1.0,
+                                           (TFREEZ - tug_b) / 40.0))
+            fice = torch.where(karr == pver - 1, 0.0, fice)
+            mp = zm_mphy(cfg, su, qu, mu, du, eu, cu * (1.0 - fice),
+                         cu * fice, dz, zf_top, p, t, q, jt, jb, active,
+                         landfrac, aero=aero)
+            frz = mp.frz
+            ql = mp.qliq + mp.qice
+            if itr == 0:
+                jto = jt
+                # virtual T of the plume without freezing (dcape's
+                # reference, zm_conv.F90:3822-3824)
+                in_dc = (karr > _c(jt)) & (karr <= _c(jlcl)) & _c(active)
+                tvuo = torch.where(in_dc, (su - GRAV / CP * zf_top) *
+                                   (1.0 + 0.608 * qu), tvuo)
+            else:
+                # a top lower than pass 1's: no frz or cu in [jto, jt]
+                # (zm_conv.F90:3804-3810)
+                fix = _c((jt > jto) & active) & (karr <= _c(jt)) & \
+                    (karr >= _c(jto))
+                frz = torch.where(fix, 0.0, frz)
+                cu = torch.where(fix, 0.0, cu)
+                # freezing-CAPE increment (zm_conv.F90:3822-3836)
+                in_dc2 = (karr > _c(torch.maximum(jt, jto))) & \
+                    (karr <= _c(jlcl)) & _c(active)
+                tvu = torch.where(
+                    in_dc2, (su - GRAV / (CP * (1.0 + CPVIR * qu)) * zf_top)
+                    * (1.0 + 0.608 * qu), 0.0)
+                dcape = torch.where(in_dc2, RGAS * (tvu - tvuo) *
+                                    torch.log(p / p_b3), 0.0).sum(1)
+            # totpcp with the two-phase detrainment (zm_conv.F90:3814-3820)
+            det_b = _below(mp.qcde + mp.qide)
+            in_tp = (karr >= _c(jt)) & (karr < _c(jb)) & _c(active) & \
+                (mu >= 0.0)
+            totpcp = torch.where(in_tp, dz * (cu - du * det_b), 0.0).sum(1)
+            # rprd is the total production, sprd its snow part; after the
+            # downdraft evaporation below rprd can drop under sprd, as in
+            # the reference (:4190)
+            rprd = mp.rprd + mp.sprd
+            qcde = mp.qcde
+        else:
+            # liquid water + rain production (zm_conv.F90:3953-3975),
+            # bottom-up
+            def ql_step(cy, x, k):
+                inw = (k >= jt) & (k < jb) & active & (x["mu"] >= 0.0)
+                pos = x["mu"] > 0.0
+                ql1 = _safe_div(cy["mu_b"] * cy["ql_b"] - x["dz"] * x["du"] *
+                                cy["ql_b"] + x["dz"] * x["cu"], x["mu"])
+                ql_k = torch.where(inw & pos, ql1 / (1.0 + x["dz"] * c0mask),
+                                   0.0)
+                totpcp = cy["totpcp"] + torch.where(
+                    inw, x["dz"] * (x["cu"] - x["du"] * cy["ql_b"]), 0.0)
+                rprd_k = torch.where(inw, c0mask * x["mu"] * ql_k, 0.0)
+                new_cy = dict(ql_b=torch.where(
+                    inw, ql_k, torch.where(k == jb, 0.0, cy["ql_b"])),
+                    mu_b=x["mu"], totpcp=totpcp)
+                return new_cy, (ql_k, rprd_k)
+
+            cyQ, (ql, rprd) = _scan(ql_step,
+                                    dict(ql_b=zc, mu_b=zc, totpcp=zc),
+                                    dict(mu=mu, du=du, cu=cu, dz=dz),
+                                    reverse=True)
+            totpcp = cyQ["totpcp"]
+            qcde = ql
+    if eu_only:
+        # microp: eu is final after both passes; the downdraft, the
+        # evaporation and pflx below do not feed it
+        return eu
+    totpcp = torch.clamp(totpcp, min=0.0)
 
     # ---- downdraft (zm_conv.F90:4030-4106) ----
     alfa = cfg.alfadet
@@ -888,10 +1259,19 @@ def cldprp(cfg: ZMConfig, msg: int, q, t, p, z, s, zf, shat, qhat, jb, lel,
     pflx = torch.cat([torch.zeros_like(rprd[:, :1]),
                       _cumsum_lvl(rprd * dz)], 1)
 
+    if microp:
+        ext = dict(qide=mp.qide, qncde=mp.qncde, qnide=mp.qnide,
+                   sprd=mp.sprd, frz=frz, qliq=mp.qliq, qice=mp.qice,
+                   qnl=mp.qnl, qni=mp.qni, wu=mp.wu, mrates=mp.rates)
+    else:
+        z2 = torch.zeros_like(t)
+        ext = dict(qide=z2, qncde=z2, qnide=z2, sprd=z2, frz=z2, qliq=z2,
+                   qice=z2, qnl=z2, qni=z2, wu=z2, mrates={})
     return CldprpOut(mu=mu, eu=eu, du=du, md=md, ed=ed, sd=sd, qd=qd,
                      mc=mu + md, qu=qu, su=su, qst=qst, hmn=hmn, hsat=hsat,
                      ql=ql, qcde=qcde, cu=cu, evp=evp, cmeg=cmeg, rprd=rprd,
-                     pflx=pflx, jt=jt, jlcl=jlcl, j0=j0, jd=jd)
+                     pflx=pflx, jt=jt, jlcl=jlcl, j0=j0, jd=jd, dcape=dcape,
+                     **ext)
 
 
 # =============================================================================
@@ -988,10 +1368,15 @@ def closure(cfg: ZMConfig, msg: int, q, t, p, z, s, tp, qs, qu, su, mc, du,
 # =============================================================================
 
 def q1q2_pjr(msg: int, q, qs, qu, su, du, qhat, shat, dp, mu, md, sd, qd, ql,
-             dsubcld, jt, mx, dl_evp_cu):
+             dsubcld, jt, mx, dl_evp_cu, microp_extra=None):
     """Heating/drying tendencies from the mass-flux profiles (q1q2_pjr,
-    zm_conv.F90:4262-4421), microp off; dl_evp_cu = (evp, cu). Returns
-    (dqdt, dsdt, dl), units /s (dsdt in normalized dry static energy)."""
+    zm_conv.F90:4262-4421); dl_evp_cu = (evp, cu). `microp_extra`, with
+    microp: (frz, qide, qncde, qnide) in the mb-scaled 1/mb units, adding
+    the freezing heat latice/cp frz to dsdt (:4378) and the ice and number
+    detrainment di/dnl/dni = du (qide/qncde/qnide)(k+1) (:4392-4396).
+    Returns (dqdt, dsdt, dl, (di, dnl, dni)), units /s (dsdt in
+    normalized dry static energy); the extras are zeros without
+    microp_extra."""
     evp, cu = dl_evp_cu
     pver = q.shape[1]
     karr = _karr(pver, q)
@@ -1010,6 +1395,13 @@ def q1q2_pjr(msg: int, q, qs, qu, su, du, qhat, shat, dp, mu, md, sd, qd, ql,
                               md_b * (qd_b - qhat_b) - md * (qd - qhat)) / dp,
                        0.0)
     dl = torch.where(in_main, du * ql_b, 0.0)
+    if microp_extra is not None:
+        frz, qide, qncde, qnide = microp_extra
+        dsdt = dsdt + torch.where(in_main, c.LATICE / CP * frz, 0.0)
+        di, dnl, dni = (torch.where(in_main, du * _below(x), 0.0)
+                        for x in (qide, qncde, qnide))
+    else:
+        di = dnl = dni = torch.zeros_like(dl)
 
     # subcloud layer (zm_conv.F90:4396-4415): value at mx, copied downward
     dsub = torch.where(dsubcld <= 0, 1e-30, dsubcld)
@@ -1024,7 +1416,7 @@ def q1q2_pjr(msg: int, q, qs, qu, su, du, qhat, shat, dp, mu, md, sd, qd, ql,
     below = karr >= _c(mx)
     dsdt = torch.where(below, _c(dsdt_sub), dsdt)
     dqdt = torch.where(below, _c(dqdt_sub), dqdt)
-    return dqdt, dsdt, dl
+    return dqdt, dsdt, dl, (di, dnl, dni)
 
 
 # =============================================================================
@@ -1034,8 +1426,8 @@ def q1q2_pjr(msg: int, q, qs, qu, su, du, qhat, shat, dp, mu, md, sd, qd, ql,
 @dataclass
 class ZMConvOut:
     """Outputs of the ZM deep convection core (full columns). The microp
-    fields of the JAX twin (dif ... mrates) are zeros or empty at
-    microp=False and are kept so both packages carry the same fields."""
+    fields (dif ... mrates) are zeros, and mrates {}, when microp is
+    off."""
 
     qtnd: torch.Tensor     # specific humidity tendency (kg/kg/s)
     heat: torch.Tensor     # heating rate (J/kg/s)
@@ -1064,36 +1456,34 @@ class ZMConvOut:
     ql: torch.Tensor       # updraft cloud water
     rliq: torch.Tensor     # reserved liquid (m/s)
     rice: torch.Tensor
-    dif: torch.Tensor
-    dnlf: torch.Tensor
-    dnif: torch.Tensor
-    sprd: torch.Tensor
-    frz: torch.Tensor
-    qliq: torch.Tensor
+    dif: torch.Tensor      # detrained cloud-ice tendency (kg/kg/s)
+    dnlf: torch.Tensor     # detrained droplet-number tendency (1/kg/s)
+    dnif: torch.Tensor     # detrained crystal-number tendency (1/kg/s)
+    sprd: torch.Tensor     # snow production (kg/kg/s; part of rprd)
+    frz: torch.Tensor      # freezing rate (kg/kg/s; its heat is in heat)
+    qliq: torch.Tensor     # in-plume liquid
     qice: torch.Tensor
     qnl: torch.Tensor
     qni: torch.Tensor
-    wu: torch.Tensor
-    dcape: torch.Tensor
-    mrates: dict
+    wu: torch.Tensor       # updraft vertical velocity (m/s)
+    dcape: torch.Tensor    # (ncol,) freezing-CAPE increment
+    mrates: dict           # per-process rates, mb-scaled (kg/kg/s family)
 
 
 ZMCONV_FIELDS = tuple(f.name for f in fields(ZMConvOut))
 
 
 def zm_convr(cfg: ZMConfig, msg: int, t, qh, pap, paph, dpp, zm_, geos, zi_,
-             pblh, tpert, landfrac, delt) -> ZMConvOut:
+             pblh, tpert, landfrac, delt,
+             aero: dict | None = None) -> ZMConvOut:
     """Main ZM driver (zm_convr, zm_conv.F90:231-1709), tht path
     (second_call / retrigger / use_cin per config). Inputs are SI (Pa, m,
     K); `delt` is the reference's half step (the interface passes
-    0.5*ztodt). Raises NotImplementedError for cfg.microp and
-    cfg.parcel_pbl."""
-    if cfg.microp:
-        raise NotImplementedError("ZMConfig.microp (in-plume convective "
-                                  "microphysics) is not ported")
-    if cfg.parcel_pbl:
-        raise NotImplementedError("ZMConfig.parcel_pbl (the PBL-mixed "
-                                  "launch parcel) is not ported")
+    0.5*ztodt). With cfg.microp the in-plume microphysics runs inside
+    cldprp: freezing heat in the plume budget, the dcape closure boost,
+    the vapour fixer, and the ice and number detrainment streams
+    (zm_conv.F90:3526-3874, 4378-4396); `aero` is its modal activation
+    bundle (zm_aero_t role)."""
     ncol, pver = t.shape
     karr = _karr(pver, t)
 
@@ -1133,7 +1523,7 @@ def zm_convr(cfg: ZMConfig, msg: int, t, qh, pap, paph, dpp, zm_, geos, zi_,
     # under second_call only eu of this first plume call survives
     # (zm_conv.F90:1046-1078)
     c1 = cldprp(cfg, msg, q, t, p, z, s, zf, shat, qhat, b1.mx, b1.lel,
-                landfrac, eu_only=cfg.second_call)
+                landfrac, eu_only=cfg.second_call, aero=aero)
     eurt = torch.zeros_like(t)
 
     if cfg.second_call:
@@ -1151,7 +1541,7 @@ def zm_convr(cfg: ZMConfig, msg: int, t, qh, pap, paph, dpp, zm_, geos, zi_,
         if cfg.retrigger:
             ideep = trigger(b2.cape, b2.cin)
         cld = cldprp(cfg, msg, q, t, p, z, s, zf, shat, qhat, b2.mx, b2.lel,
-                     landfrac)
+                     landfrac, aero=aero)
         bu = b2
         eurt = -dmpdz2
     else:
@@ -1175,8 +1565,12 @@ def zm_convr(cfg: ZMConfig, msg: int, t, qh, pap, paph, dpp, zm_, geos, zi_,
     cmeg = cld.cmeg * fac_mb
     rprdg = cld.rprd * fac_mb
     evpg = cld.evp * fac_mb
+    sprdg = cld.sprd * fac_mb          # (zm_conv.F90:1264-1271)
+    frzg = cld.frz * fac_mb
 
-    cape = bu.cape
+    # the freezing-CAPE increment boosts the closure on the triggered
+    # (the reference's gathered) columns (capeg += dcape, :1242-1246)
+    cape = bu.cape + cld.dcape * mask.to(t.dtype) if cfg.microp else bu.cape
     mb = closure(cfg, msg, q, t, p, z, s, bu.tp, cld.qst, cld.qu, cld.su,
                  cld.mc, du, cld.mu, cld.md, cld.qd, cld.sd, qhat, shat, dp,
                  bu.qstp, zf, cld.ql, dsubcld, cape, bu.tl, bu.lcl, bu.lel,
@@ -1203,12 +1597,16 @@ def zm_convr(cfg: ZMConfig, msg: int, t, qh, pap, paph, dpp, zm_, geos, zi_,
     rprdg = rprdg * mbk
     cu = cu * mbk
     evpg = evpg * mbk
+    sprdg = sprdg * mbk                # (zm_conv.F90:1310-1316)
+    frzg = frzg * mbk
     pflxg = torch.cat([torch.zeros_like(mbk),
                        cld.pflx[:, 1:] * mbk * 100.0 / GRAV], 1)
 
-    dqdt, dsdt, dlg = q1q2_pjr(msg, q, cld.qst, cld.qu, cld.su, du, qhat,
-                               shat, dp, mu, md, cld.sd, cld.qd, cld.qcde,
-                               dsubcld, jt, mx, (evpg, cu))
+    dqdt, dsdt, dlg, (dig, dnlg, dnig) = q1q2_pjr(
+        msg, q, cld.qst, cld.qu, cld.su, du, qhat, shat, dp, mu, md, cld.sd,
+        cld.qd, cld.qcde, dsubcld, jt, mx, (evpg, cu),
+        microp_extra=((frzg, cld.qide, cld.qncde, cld.qnide) if cfg.microp
+                      else None))
     dqdt = dqdt * maskf
     dsdt = dsdt * maskf
     dlg = dlg * maskf
@@ -1223,16 +1621,37 @@ def zm_convr(cfg: ZMConfig, msg: int, t, qh, pap, paph, dpp, zm_, geos, zi_,
     pflxg = pflxg * maskf
     qlg = cld.ql * maskf
 
+    if cfg.microp:
+        dig, dnlg, dnig = dig * maskf, dnlg * maskf, dnig * maskf
+        sprdg, frzg = sprdg * maskf, frzg * maskf
+        # vapour-negativity fixer (zm_conv.F90:1400-1470, the JAX
+        # package's local form): where the projected q would go negative,
+        # cap dqdt with latent-heat compensation and take the condensate
+        # out of the same level's precipitation production, snow last
+        # (rprdg may be negative, downdraft evaporation exceeding
+        # production; red never removes from such levels)
+        q_proj = qh + 2.0 * delt * dqdt
+        deficit = torch.where(q_proj < 0.0,
+                              (dqdt + 0.5 * qh / delt) / 0.9999, 0.0)
+        dqdt = dqdt - deficit
+        dsdt = dsdt + deficit * RL / CP
+        red = torch.clamp(torch.minimum(-deficit, rprdg), min=0.0)
+        rain_avail = torch.clamp(rprdg - sprdg, min=0.0)
+        from_snow = torch.clamp(red - rain_avail, min=0.0)
+        rprdg = rprdg - red
+        sprdg = sprdg - from_snow
+        dsdt = dsdt - from_snow * c.LATICE / CP
+        dl_all = dlg + dig        # the detrained ice counts too (:1516)
+    else:
+        dl_all = dlg
+
     # precipitation from the column moisture change (zm_conv.F90:1495-1640)
     q_new = qh + 2.0 * delt * dqdt
-    prec = (-dpp * (q_new - qh) - dpp * dlg * 2.0 * delt).sum(1)
+    prec = (-dpp * (q_new - qh) - dpp * dl_all * 2.0 * delt).sum(1)
     prec = RGRAV * torch.clamp(prec, min=0.0) / (2.0 * delt) / 1000.0
     # reserved liquid/ice (zm_conv.F90:1645-1652)
-    rliq = (dlg * dpp / GRAV).sum(1) / 1000.0
-    z2 = torch.zeros_like(t)
-    z1 = torch.zeros_like(prec)
-
-    return ZMConvOut(
+    rliq = (dl_all * dpp / GRAV).sum(1) / 1000.0
+    out = dict(
         qtnd=dqdt, heat=dsdt * CP, prec=prec,
         jctop=torch.where(mask, jt, pver - 1),
         jcbot=torch.where(mask, mx, 0),
@@ -1240,9 +1659,20 @@ def zm_convr(cfg: ZMConfig, msg: int, t, qh, pap, paph, dpp, zm_, geos, zi_,
         mcon=torch.cat([mc * maskf, torch.zeros_like(mbk)], 1),
         dlf=dlg, pflx=pflxg, cme=cmeg, zdu=du, rprd=rprdg, mu=mu, eu=eu,
         du=du, md=md, ed=ed, dp=dp, dsubcld=dsubcld, jt=jt, maxg=mx,
-        ideep=mask, eurt=eurt, ql=qlg, rliq=rliq, rice=z1,
-        dif=z2, dnlf=z2, dnif=z2, sprd=z2, frz=z2, qliq=z2, qice=z2,
-        qnl=z2, qni=z2, wu=z2, dcape=z1, mrates={})
+        ideep=mask, eurt=eurt, ql=qlg, rliq=rliq)
+    if not cfg.microp:
+        z2 = torch.zeros_like(t)
+        return ZMConvOut(**out, rice=torch.zeros_like(prec), dif=z2,
+                         dnlf=z2, dnif=z2, sprd=z2, frz=z2, qliq=z2,
+                         qice=z2, qnl=z2, qni=z2, wu=z2,
+                         dcape=torch.zeros_like(prec), mrates={})
+    maskc = mask.to(t.dtype)
+    return ZMConvOut(
+        **out, rice=(dig * dpp / GRAV).sum(1) / 1000.0, dif=dig, dnlf=dnlg,
+        dnif=dnig, sprd=sprdg, frz=frzg, qliq=cld.qliq * maskf,
+        qice=cld.qice * maskf, qnl=cld.qnl * maskf, qni=cld.qni * maskf,
+        wu=cld.wu * maskf, dcape=cld.dcape * maskc,
+        mrates={k: v * fac_mb * mbk * maskf for k, v in cld.mrates.items()})
 
 
 # =============================================================================
@@ -1257,18 +1687,23 @@ def zm_conv_evap(cfg: ZMConfig, t, pmid, pdel, q, landfrac, prdprec, cldfrc,
                  deltat, prec_in, prdsnow=None):
     """Sundqvist evaporation of convective precipitation with snow
     production and melt (zm_conv_evap, zm_conv.F90:1712-1972), tht
-    humidity fix, the old_snow path (snow diagnosed from the temperature
-    partition). The in-plume snow path (`prdsnow`, microp) is not ported.
+    humidity fix. Two snow formulations, keyed on `prdsnow` as in the
+    reference (:1789-1794): None is the old_snow path (snow diagnosed from
+    the temperature partition, its production heating +latice applied
+    here); with `prdsnow` (microp's sprd profile) snow production comes
+    from the in-plume scheme, whose latent-ice heat already entered
+    through frz, so only the melt and evaporation cooling applies here
+    (:1919-1941, 1957-1961), and the melt is partial, limited so that it
+    cannot cool T below tmelt (:1828-1847).
 
     A descent from k=0 carrying the rain and snow fluxes and the column
     evaporation. prec_in in m/s; returns the dict of EVAP_KEYS: heating
     and moistening tendencies, interface fluxes (kg/m2/s), surface
-    prec/snow (m/s) and net production terms. This is the plain version
-    of the evaporation part of the fused ZM tail kernel."""
-    if prdsnow is not None:
-        raise NotImplementedError("zm_conv_evap(prdsnow=...): the microp "
-                                  "snow path is not ported")
+    prec/snow (m/s) and net production terms. The old_snow path is the
+    plain version of the evaporation part of the fused ZM tail kernel."""
     pver = t.shape[1]
+    old_snow = prdsnow is None
+    omsm = 0.9999
     prec = prec_in * 1000.0   # kg/m2/s
     _, qs = qsat_blend(t, pmid)
     _, fsnow_conv = cldfrc_fice(t)
@@ -1284,8 +1719,22 @@ def zm_conv_evap(cfg: ZMConfig, t, pmid, pdel, q, landfrac, prdprec, cldfrc,
         t_k, q_k, qs_k, pdel_k = t[:, k], q[:, k], qs[:, k], pdel[:, k]
         prdprec_k, cldfrc_k = prdprec[:, k], cldfrc[:, k]
         melt = t_k > TFREEZ
-        flxsntm = torch.where(melt, 0.0, flxsnow_k)
-        snowmlt = torch.where(melt, flxsnow_k * GRAV / pdel_k, 0.0)
+        if old_snow:
+            flxsntm = torch.where(melt, 0.0, flxsnow_k)
+            snowmlt = torch.where(melt, flxsnow_k * GRAV / pdel_k, 0.0)
+        else:
+            # partial melt, limited so that the cooling cannot push T
+            # below tmelt (zm_conv.F90:1828-1847)
+            pot = flxsnow_k * GRAV / pdel_k
+            full_cool = -c.LATICE / CP * pot * deltat
+            frac = torch.where(
+                t_k + full_cool <= TFREEZ,
+                torch.clamp((t_k - TFREEZ) * CP / c.LATICE / deltat /
+                            torch.clamp(pot, min=1e-30), 0.0, 1.0),
+                1.0) * omsm
+            frac = torch.where(melt, frac, 0.0)
+            flxsntm = flxsnow_k * (1.0 - frac)
+            snowmlt = frac * pot
 
         # tht humidity-basis fix (zm_conv.F90:1853-1860)
         evplimit = torch.clamp(1.0 - q_k / (1.0 + q_k) / qs_k, min=0.0)
@@ -1294,6 +1743,8 @@ def zm_conv_evap(cfg: ZMConfig, t, pmid, pdel, q, landfrac, prdprec, cldfrc,
         evplimit2 = torch.minimum(evplimit2,
                                   (prec - evpvint) * GRAV / pdel_k)
         evpprec = torch.minimum(evplimit2, evpprec)
+        if not old_snow:
+            evpprec = torch.clamp(evpprec, min=0.0) * omsm   # (:1904-1907)
 
         flx_nz = torch.where(flxprec_k == 0, 1e-30, flxprec_k)
         work1 = torch.where(flxprec_k > 0.0,
@@ -1301,14 +1752,25 @@ def zm_conv_evap(cfg: ZMConfig, t, pmid, pdel, q, landfrac, prdprec, cldfrc,
         evpsnow = evpprec * work1
         evpvint = evpvint + evpprec * pdel_k / GRAV
         ntprprd = prdprec_k - evpprec
-        work1b = torch.where(flxprec_k > 0.0,
-                             torch.clamp(flxsnow_k / flx_nz, 0.0, 1.0), 0.0)
-        work2 = torch.maximum(fsnow_conv[:, k], work1b)
-        work2 = torch.where(snowmlt > 0.0, 0.0, work2)
-        ntsnprd = prdprec_k * work2 - evpsnow - snowmlt
-        outs["tend_s_snwprd"].append(prdprec_k * work2 * c.LATICE)
-        outs["tend_s_snwevmlt"].append(-(evpsnow + snowmlt) * c.LATICE)
-        outs["tend_s"].append(-evpprec * c.LATVAP + ntsnprd * c.LATICE)
+        if old_snow:
+            work1b = torch.where(flxprec_k > 0.0,
+                                 torch.clamp(flxsnow_k / flx_nz, 0.0, 1.0),
+                                 0.0)
+            work2 = torch.maximum(fsnow_conv[:, k], work1b)
+            work2 = torch.where(snowmlt > 0.0, 0.0, work2)
+            ntsnprd = prdprec_k * work2 - evpsnow - snowmlt
+            outs["tend_s_snwprd"].append(prdprec_k * work2 * c.LATICE)
+            outs["tend_s_snwevmlt"].append(-(evpsnow + snowmlt) * c.LATICE)
+            outs["tend_s"].append(-evpprec * c.LATVAP + ntsnprd * c.LATICE)
+        else:
+            # snow production from the in-plume scheme; its +latice heat
+            # already entered through frz (zm_conv.F90:1936-1941)
+            snk = torch.minimum(flxsnow_k * GRAV / pdel_k, evpsnow + snowmlt)
+            ntsnprd = prdsnow[:, k] - snk
+            tend_s_snwevmlt = -snk * c.LATICE
+            outs["tend_s_snwprd"].append(prdsnow[:, k] * c.LATICE)
+            outs["tend_s_snwevmlt"].append(tend_s_snwevmlt)
+            outs["tend_s"].append(-evpprec * c.LATVAP + tend_s_snwevmlt)
         outs["tend_q"].append(evpprec)
         outs["ntprprd"].append(ntprprd)
         outs["ntsnprd"].append(ntsnprd)

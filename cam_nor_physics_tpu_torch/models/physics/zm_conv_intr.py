@@ -1,19 +1,24 @@
 """ZM convection CAM interface — zm_conv_tend / zm_conv_tend_2.
 
 Twin of `cam_nor_physics_tpu.models.physics.zm_conv_intr` (reference
-zm_conv_intr.F90:390-1028) at microp=False: runs the ZM core on a
-PhysicsState, applies its tendencies through physics_update in the
-reference's order (deep convection -> evaporation -> momentum transport
--> convtran1), stores the mass fluxes and precipitation in the physics
-buffer, and returns the summed ptend with the diagnostics.
+zm_conv_intr.F90:390-1028): runs the ZM core on a PhysicsState, applies
+its tendencies through physics_update in the reference's order (deep
+convection -> evaporation -> momentum transport -> convtran1), stores the
+mass fluxes and precipitation in the physics buffer, and returns the
+summed ptend with the diagnostics. With microp the in-plume
+microphysics' detrainment and in-plume fields go to the pbuf and its
+outfld family to the diagnostics, and the evaporation takes its snow
+production (prdsnow).
 
 The tail (evaporation, momentum transport, convtran1) runs as ONE fused
 CUDA kernel (`ops.zm_tail_kernels.zm_tail`) when the state lies on a CUDA
 device and the JAX package's structural conditions hold: some tracer is
 in convtran1, neither Q nor ZM_ORG is among them, and microp is off (the
-conv/evap/org updates then never touch u, v or the transported tracers).
-Otherwise the separate plain zm_conv_evap, momtran and convtran run, as
-in the JAX package; that choice is made before any launch.
+conv/evap/org updates then never touch u, v or the transported tracers;
+the tail has no prdsnow path, in the kernel as in the JAX package's
+Pallas tail). Otherwise the separate plain zm_conv_evap, momtran and
+convtran run, as in the JAX package; that choice is made before any
+launch.
 """
 
 from __future__ import annotations
@@ -80,13 +85,12 @@ def _take_level(arr, idx):
 
 def zm_conv_tend(cfg: ZMConfig, registry: ConstituentRegistry,
                  state: PhysicsState, pbuf: PhysicsBuffer,
-                 pblh, tpert, landfrac, ztodt: float,
-                 msg: int = 0) -> ZMTendOut:
+                 pblh, tpert, landfrac, ztodt: float, msg: int = 0,
+                 aero: dict | None = None) -> ZMTendOut:
     """Deep-convection tendency driver (zm_conv_tend, zm_conv_intr.F90:
-    390-951). Raises NotImplementedError for cfg.microp."""
-    if cfg.microp:
-        raise NotImplementedError("ZMConfig.microp (in-plume convective "
-                                  "microphysics) is not ported")
+    390-951). `aero` is the modal aerosol bundle for the in-plume
+    activation when microp is on (zm_aero_init role, :1032-1410); None
+    takes the land/ocean activation constants."""
     ncol, pver, pcnst = state.ncol, state.pver, state.pcnst
     dtype, dev = state.t.dtype, state.t.device
     diags = {}
@@ -101,7 +105,7 @@ def zm_conv_tend(cfg: ZMConfig, registry: ConstituentRegistry,
     # ---- zm_convr on the current state (intr:662-673; delt = ztodt/2) ----
     out = zm_convr(cfg, msg, state.t, state.q[:, :, 0], state.pmid,
                    state.pint, state.pdel, state.zm, state.phis, state.zi,
-                   pblh, tpert, landfrac, 0.5 * ztodt)
+                   pblh, tpert, landfrac, 0.5 * ztodt, aero=aero)
 
     maskf = out.ideep.to(dtype)
     diags["CAPE"] = out.cape
@@ -120,6 +124,24 @@ def zm_conv_tend(cfg: ZMConfig, registry: ConstituentRegistry,
                                   _take_level(state.pmid, out.maxg),
                                   state.ps)
 
+    # convective microphysics: the scheme ran in-plume inside cldprp
+    # (out.heat holds its latice frz heating, q1q2 :4378); its outputs
+    # go to the pbuf and the zm_conv_micro_outfld family
+    # (zm_conv_intr.F90:1292-1390)
+    if cfg.microp:
+        pbuf = pbuf.update(DNLFZM=out.dnlf, DNIFZM=out.dnif,
+                           DP_CLDLIQ=out.qliq, DP_CLDICE=out.qice)
+        diags.update(
+            DNLFZM=out.dnlf, DNIFZM=out.dnif, ZMSPRD=out.sprd,
+            ZMFRZ=out.frz * c.LATICE / c.CPAIR,       # conv%frz (K/s)
+            ZMNLIQ=out.qnl, ZMNICE=out.qni, ZMDCAPE=out.dcape,
+            DIFZM=out.dif, CLDLIQZM=out.qliq, CLDICEZM=out.qice,
+            ICIMRDP=out.qice, QNLZM=out.qnl, QNIZM=out.qni, WUZM=out.wu,
+            FRZZM=out.frz, CLIQSNUM=(out.qliq > 0.0).to(dtype),
+            CICESNUM=(out.qice > 0.0).to(dtype),
+            WUZMSNUM=(out.wu > 0.0).to(dtype))
+        diags.update(out.mrates)
+
     lq = (True,) + (False,) * (pcnst - 1)
     ptend_conv = ptend_init("zm_convr", ncol, pver, pcnst, ls=True, lq=lq,
                             dtype=dtype, device=dev)
@@ -136,7 +158,7 @@ def zm_conv_tend(cfg: ZMConfig, registry: ConstituentRegistry,
     doconv = registry.mask("is_convtran1")
     tr_idx = [m for m in range(pcnst) if doconv[m]]
     fused_tail = (state.t.is_cuda and len(tr_idx) > 0 and 0 not in tr_idx
-                  and ix_org not in tr_idx)
+                  and ix_org not in tr_idx and not cfg.microp)
     cld = pbuf.get("CLD")
     if fused_tail:
         # the tracers gathered and scattered by stacking slices, not by a
@@ -154,7 +176,7 @@ def zm_conv_tend(cfg: ZMConfig, registry: ConstituentRegistry,
     else:
         ev = zm_conv_evap(cfg, state1.t, state1.pmid, state1.pdel,
                           state1.q[:, :, 0], landfrac, out.rprd, cld, ztodt,
-                          out.prec)
+                          out.prec, prdsnow=out.sprd if cfg.microp else None)
     ptend_evap = ptend_init("zm_conv_evap", ncol, pver, pcnst, ls=True,
                             lq=lq, dtype=dtype, device=dev)
     ptend_evap = _with_q(ptend_evap.replace(s=ev["tend_s"]), 0, ev["tend_q"])

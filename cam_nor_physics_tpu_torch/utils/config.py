@@ -138,8 +138,10 @@ class ZMConfig:
 
     Namelist knobs from the reference zm_conv_intr.F90:66-81,188-192;
     hard-wired "tht" switches and tunables from zm_conv.F90:75-103.
-    Defaults are the CAM6/NorESM production values. `microp=True` is not
-    ported: zm_conv_tend raises NotImplementedError for it.
+    Defaults are the CAM6/NorESM production values. `microp=True` runs
+    the in-plume two-moment microphysics inside cldprp (bench.py's
+    production configuration, BENCH_MICROP=1); `parcel_pbl=True`
+    launches the parcel from the PBL-mixed layer.
     """
 
     # namelist tunables
@@ -203,9 +205,12 @@ class ZMConfig:
 @dataclass(frozen=True)
 class PhysConfig:
     """Physics package control flags (phys_ctl_nl equivalent, reference
-    phys_control.F90:33-117). physpkg raises NotImplementedError for a
-    non-empty `aero_modes` and for `raytau0 > 0` (their schemes are not
-    ported); `cam_physpkg` other than "cam6" raises here."""
+    phys_control.F90:33-117). A non-empty `aero_modes` (with
+    prog_modal_aero and not use_oslo_aero) runs the modal aerosol sizes,
+    water uptake and optics in tphysbc and feeds ZM's in-plume
+    activation; physpkg raises NotImplementedError for `raytau0 > 0`
+    (Rayleigh friction is not ported); `cam_physpkg` other than "cam6"
+    raises here."""
 
     cam_physpkg: str = "cam6"
     deep_scheme: str = "ZM"
@@ -246,7 +251,8 @@ class PhysConfig:
     rayk0: int = 2
     raykrange: float = 0.0
     raytau0: float = 0.0          # e-folding time at model top (days)
-    # modal aerosol optics modes (rad_constituents role)
+    # modal aerosol optics modes (rad_constituents role): a tuple of
+    # modal_aer_opt.AeroMode
     aero_modes: tuple = ()
 
     def __post_init__(self) -> None:

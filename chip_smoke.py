@@ -150,7 +150,24 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
     every 2: finite, dry-mass drift within 4 x 1e-5; prints the phase
     tables, ms a step of both loop shapes beside phase 13's coupled step,
     the tape and checkpoint sizes;
-15. prints the kernels JSON line (ten kernels), the card's name and power
+15. drives the coupled step with ZM's in-plume microphysics
+    (entry.build_coupled(microp=True), bench.py's BENCH_MICROP=1) at f19,
+    float32: the first step and 3 more with exact launch counts (those of
+    item 13 but zm_tail 0: the plain tail runs under microp, as in the
+    JAX package), finite tensors, the drift gate, ZMFRZ and ZMDCAPE
+    finite and not all zero; the first step and one more in float64
+    through the kernels and the plain versions, within 1e-9, with ZM
+    trigger and index flips counted; one profiled step (device kernels by
+    origin, busy share); two steps of the aerosol configuration
+    (aerosol=True: one modal mode): NAER, DGNUMWET and the AOD family
+    finite and positive, the first step's droplet number 0 (the
+    registration's zero NAER), the second's different from the run
+    without aerosol; the driver with microp, 16 steps at chunk 1 and at
+    chunk 8 (two captures, each first replay held bitwise to eager
+    steps): launches exact, state and both tapes bitwise equal, the
+    microp fields on the tape and finite; ms a step per dispatch and as
+    the 8-step graph's first replay;
+16. prints the kernels JSON line (ten kernels), the card's name and power
     limit, then {"ok": true, "device": {...}} last. Every phase prints its
     wall time.
 
@@ -1345,7 +1362,8 @@ class CoupledSmoke:
     def expected(self, model) -> dict:
         """The launches of one coupled step: one HS large step's (K1-K4
         ns times, tracer_div3d n2 times, te_map_remap nv times) and one ZM
-        step's."""
+        step's (its tail kernel once; never under microp, where the plain
+        tail runs, as in the JAX package)."""
         g = model.grid
         ns, nspltrac, nv = model.fv_cfg.resolved_splits(model.dt, g.im, g.jm)
         n2 = (nspltrac + nv - 1) // nv
@@ -1354,8 +1372,8 @@ class CoupledSmoke:
         out = {k: nsplit * n2 * nv * self.sm.ck.launches_per_call(k)
                for k in FUSED}
         out.update(tracer_div3d=n2 * nv * lpc["tracer_div3d"],
-                   te_map_remap=nv, zm_tail=1, transport3d=0, vort_flux3d=0,
-                   probe=0)
+                   te_map_remap=nv, zm_tail=0 if model.zm_cfg.microp else 1,
+                   transport3d=0, vort_flux3d=0, probe=0)
         return out
 
     @staticmethod
@@ -1368,15 +1386,15 @@ class CoupledSmoke:
         return float((w[:, None] * d.delp.double() *
                       (1.0 - d.q[0].double())).sum())
 
-    def counted_steps(self, label, model, step, state, nsteps):
+    def counted_steps(self, label, model, step, state, nsteps, keep=()):
         """The first step and `nsteps` more, eager, each with the counts
         set to 0 before it and read after it; finite state and the
-        dry-mass drift of each step. Returns the state and the steps'
-        host times."""
+        dry-mass drift of each step. Returns the state, the steps' host
+        times and, per step, copies of the diagnostics named in `keep`."""
         torch, sm = self.torch, self.sm
         from cam_nor_physics_tpu_torch.bench import tensors
         want = self.expected(model)
-        times = []
+        times, kept = [], []
         for i in range(nsteps + 1):
             m0 = self.dry_mass(model, state)
             sm.zero_counts()
@@ -1404,7 +1422,8 @@ class CoupledSmoke:
             if bad:
                 raise RuntimeError(f"coupled {label}: {len(bad)} non-finite "
                                    f"tensors after step {i + 1}")
-        return state, times
+            kept.append({k: diags[k].clone() for k in keep})
+        return state, times, kept
 
     @staticmethod
     def efix_range(diags) -> str:
@@ -1412,16 +1431,18 @@ class CoupledSmoke:
         e = diags["EFIX"].double()
         return f"[{float(e.min()):.6e}, {float(e.max()):.6e}]"
 
-    def parity64(self):
+    def parity64(self, microp=False):
         """The first step and one more in float64 through the kernels and
         through the plain versions, from the same state: each dycore and
         physics field within COUPLED_TOL_F64 of its max; the columns whose
-        ZM trigger or level indices differ, counted. The kernels' run goes
-        on to the float32 run's COUPLED_STEPS + 1 steps for EFIX."""
+        ZM trigger or level indices differ, counted. Without microp the
+        kernels' run goes on to the float32 run's COUPLED_STEPS + 1 steps
+        for EFIX."""
         torch = self.torch
         from cam_nor_physics_tpu_torch.entry import build_coupled
         model, step, s0, _ = build_coupled(IM, JM, KM, torch.float64,
-                                           DEVICE)
+                                           DEVICE, microp=microp)
+        tag = "coupled microp" if microp else "coupled"
 
         def run(nsteps):
             s, kept, flips, efix = s0, None, [], []
@@ -1434,8 +1455,9 @@ class CoupledSmoke:
                     kept = s
             return kept, flips, efix
 
-        got, kflips, efix = run(COUPLED_STEPS + 1)
-        log(f"coupled float64 through the kernels: EFIX by step {efix} "
+        got, kflips, efix = run(COUPLED_F64_STEPS if microp
+                                else COUPLED_STEPS + 1)
+        log(f"{tag} float64 through the kernels: EFIX by step {efix} "
             f"W/m2")
         with self.plain():
             want, pflips, _ = run(COUPLED_F64_STEPS)
@@ -1451,7 +1473,7 @@ class CoupledSmoke:
                 rel[f"{grp}.{f.name}"] = float((x - y).abs().max()) / \
                     max(scale, 1e-300)
         worst = max(rel, key=rel.get)
-        log(f"coupled float64, {COUPLED_F64_STEPS} steps, kernels vs plain "
+        log(f"{tag} float64, {COUPLED_F64_STEPS} steps, kernels vs plain "
             f"versions: worst {worst} {rel[worst]:.3e} (tol "
             f"{COUPLED_TOL_F64:.0e}); dyn "
             + ", ".join(f"{k[4:]} {v:.2e}" for k, v in rel.items()
@@ -1459,7 +1481,7 @@ class CoupledSmoke:
             + f"; columns whose ZM trigger or level indices differ, by step: "
             f"{flipped} of {IM * JM}")
         if rel[worst] > COUPLED_TOL_F64:
-            raise RuntimeError(f"coupled float64: kernels disagree with the "
+            raise RuntimeError(f"{tag} float64: kernels disagree with the "
                                f"plain versions: {worst} {rel[worst]:.3e}")
 
     def graph(self, step, state):
@@ -1512,7 +1534,7 @@ def run_coupled(torch, sm: Smoke, card: str) -> None:
     cs = CoupledSmoke(torch, sm, card)
     model, step, state, sst = build_coupled(IM, JM, KM, torch.float32,
                                             DEVICE)
-    state, _ = cs.counted_steps("f19", model, step, state, COUPLED_STEPS)
+    state, _, _ = cs.counted_steps("f19", model, step, state, COUPLED_STEPS)
     cs.parity64()
     torch.cuda.empty_cache()
     t_graph = cs.graph(step, state)
@@ -1627,6 +1649,88 @@ class DriverSmoke:
         return convert.atmstate_from_leaves(
             state, [self.torch.zeros_like(t)
                     for _, t in convert.atmstate_named_leaves(state)])
+
+    def run_microp(self) -> float:
+        """Phase 15's driver runs with microp at f19: 16 steps at chunk 1
+        and at chunk 8 (the first step eager, then CUDA graphs of 7 and 8
+        steps, each first replay held bitwise to the same steps run
+        eagerly), history and sentinels every 8; launches exact; state
+        and every tape array bitwise equal; the microp family on the tape,
+        finite. Returns the 8-step graph's first replay, seconds a step
+        (the replays timed by a ChainGraph subclass)."""
+        import shutil
+        torch, drv = self.torch, self.drv
+        from cam_nor_physics_tpu_torch.bench import bitwise_equal
+        from cam_nor_physics_tpu_torch.entry import build_coupled
+        from cam_nor_physics_tpu_torch.models.coupling.surface_fluxes import \
+            bulk_surface_fluxes
+        root = self.root / "microp"
+        shutil.rmtree(root, ignore_errors=True)
+        model, _, state0, sst = build_coupled(IM, JM, KM, torch.float32,
+                                              DEVICE, microp=True)
+        cam_in = bulk_surface_fluxes(state0.phys, sst, model.registry.pcnst)
+        self.one = self.cs.expected(model)
+        n, k = DRIVER_STEPS, DRIVER_CHUNK
+        io = dict(hist_every=n // 2, check_every=n // 2)
+        timed = []
+        saved = drv.ChainGraph
+
+        class Timed(saved):
+            def __init__(self_g, *a, **kw):
+                t0 = time.perf_counter()
+                super().__init__(*a, **kw)
+                torch.cuda.synchronize()
+                timed.append(("capture", self_g.k,
+                              time.perf_counter() - t0))
+
+            def replay(self_g):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                super().replay()
+                torch.cuda.synchronize()
+                timed.append(("replay", self_g.k, time.perf_counter() - t0))
+
+        try:
+            (st_a, tm_a), wall_a = self.counted(
+                "microp chunk 1", n, lambda: drv.run(
+                    model, state0, cam_in, n, out_dir=str(root / "a"),
+                    chunk=1, **io))
+            drv.ChainGraph = Timed
+            (st_b, tm_b), wall_b = self.counted(
+                f"microp chunk {k}", 1 + 2 * (n - 1), lambda: drv.run(
+                    model, state0, cam_in, n, out_dir=str(root / "b"),
+                    chunk=k, **io))
+        finally:
+            drv.ChainGraph = saved
+        try:
+            if not bitwise_equal(st_b, st_a):
+                raise RuntimeError("driver microp: the chunked run's state "
+                                   "differs from the eager run's")
+            diff, missing = [], []
+            for t in ("h0.0000.nc", "h0.0001.nc"):
+                ta = self.read_tape(root / "a" / t)
+                tb = self.read_tape(root / "b" / t)
+                diff += [f"{t} {v}" for v, x in ta.items()
+                         if x.tobytes() != tb[v].tobytes()]
+                missing += [f"{t} {v}" for v in MICROP_TAPE
+                            if v not in ta or not np.isfinite(ta[v]).all()]
+            if diff or missing:
+                raise RuntimeError(f"driver microp: tape arrays differ "
+                                   f"{diff[:10]}; microp fields missing or "
+                                   f"not finite {missing}")
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        rep = [t / m for kind, m, t in timed if kind == "replay" and m == k]
+        cap = [(m, t) for kind, m, t in timed if kind == "capture"]
+        log(f"driver microp at {IM}x{JM}x{KM} float32 [{self.card}]: chunk 1 "
+            f"{1e3 * wall_a / n:.2f} ms a step with the IO (atm_step "
+            f"{1e3 * tm_a.totals['atm_step'] / n:.2f}); chunk {k} "
+            f"{1e3 * wall_b / n:.2f} ms a step with the captures and IO; "
+            f"captures " + ", ".join(f"{m} steps {t:.1f} s" for m, t in cap)
+            + f"; the {k}-step graph's first replay {1e3 * rep[0]:.2f} ms a "
+            f"step; state and both tapes bitwise equal to chunk 1, the "
+            f"microp fields {list(MICROP_TAPE)} on the tape, finite")
+        return rep[0]
 
     def run(self, coupled_ms) -> None:
         import shutil
@@ -1806,6 +1910,86 @@ class DriverSmoke:
             f" ms a boundary); the bench's coupled step "
             f"{1e3 * t_step:.2f} ms per dispatch, {1e3 * t_graph:.2f} ms "
             f"as a graph; writers {routes}")
+
+
+# phase 15: the diagnostics each microp step keeps, and those its tape holds
+MICROP_KEEP = ("QNLZM", "ACTIV_N", "ZMFRZ", "ZMDCAPE")
+AOD_KEYS = ("AODVIS_accum", "AODABS_accum", "AODNIR_accum", "AODUV_accum",
+            "BURDEN_accum")
+MICROP_TAPE = ("ZMFRZ", "ZMDCAPE", "WUZM", "DNLFZM", "DNIFZM", "CLDICEZM",
+               "ZMSPRD", "ACTIV_N", "BERGN_M")
+
+
+def run_microp(torch, sm: Smoke, card: str, coupled_ms) -> None:
+    """Phase 15: the coupled step with ZM's in-plume microphysics
+    (entry.build_coupled(microp=True), bench.py's BENCH_MICROP=1) at f19,
+    float32; the aerosol configuration; the driver with microp."""
+    from cam_nor_physics_tpu_torch.entry import build_coupled
+    cs = CoupledSmoke(torch, sm, card)
+    model, step, state, _ = build_coupled(IM, JM, KM, torch.float32,
+                                          DEVICE, microp=True)
+    state, times, kept = cs.counted_steps("f19 microp", model, step, state,
+                                          COUPLED_STEPS, keep=MICROP_KEEP)
+    for i, d in enumerate(kept):
+        dead = [k for k in ("ZMFRZ", "ZMDCAPE")
+                if not bool(torch.isfinite(d[k]).all())
+                or not bool((d[k] != 0).any())]
+        if dead:
+            raise RuntimeError(f"coupled microp step {i + 1}: {dead} not "
+                               f"finite or all zero")
+    log("coupled microp f19 by step: ZMFRZ max "
+        + ", ".join(f"{float(d['ZMFRZ'].max()):.4e}" for d in kept)
+        + " K/s; ZMDCAPE max "
+        + ", ".join(f"{float(d['ZMDCAPE'].max()):.4e}" for d in kept)
+        + " J/kg; triggered columns "
+        + ", ".join(str(int((d["ZMDCAPE"] != 0).sum())) for d in kept))
+    cs.parity64(microp=True)
+    torch.cuda.empty_cache()
+    profile_call(f"coupled microp step (prog_only) {IM}x{JM}x{KM}",
+                 lambda: step(state), card)
+    del state
+    torch.cuda.empty_cache()
+
+    # the aerosol configuration: the first step's activation reads the
+    # registration's zero NAER, the second the first step's
+    model_a, step_a, state_a, _ = build_coupled(
+        IM, JM, KM, torch.float32, DEVICE, microp=True, aerosol=True)
+    state_a, _, akept = cs.counted_steps("f19 microp+aerosol", model_a,
+                                         step_a, state_a, 1,
+                                         keep=MICROP_KEEP + AOD_KEYS)
+    pb = state_a.pbuf
+    bad = [k for k in ("NAER", "DGNUMWET")
+           if not bool(torch.isfinite(pb.get(k)).all())
+           or not bool((pb.get(k) > 0).all())]
+    bad += [k for k in AOD_KEYS for d in akept
+            if not bool(torch.isfinite(d[k]).all())
+            or not bool((d[k] > 0).all())]
+    lag = float(akept[0]["QNLZM"].abs().max())
+    differs = not torch.equal(akept[1]["QNLZM"], kept[1]["QNLZM"])
+    log(f"coupled microp+aerosol f19: NAER [{float(pb.get('NAER').min()):.4e}"
+        f", {float(pb.get('NAER').max()):.4e}] 1/kg, DGNUMWET "
+        f"[{float(pb.get('DGNUMWET').min()):.4e}, "
+        f"{float(pb.get('DGNUMWET').max()):.4e}] m; AODVIS by step "
+        + ", ".join(f"[{float(d['AODVIS_accum'].min()):.4e}, "
+                    f"{float(d['AODVIS_accum'].max()):.4e}]" for d in akept)
+        + f"; QNLZM max step 1 {lag:.4e} (the registration's zero NAER), "
+        f"step 2 {float(akept[1]['QNLZM'].max()):.4e} against "
+        f"{float(kept[1]['QNLZM'].max()):.4e} without aerosol "
+        f"({'differs' if differs else 'EQUAL'})")
+    if bad or lag != 0.0 or not differs or \
+            float(akept[1]["QNLZM"].max()) <= 0.0:
+        raise RuntimeError(f"coupled microp+aerosol: bad {bad}, step-1 "
+                           f"QNLZM {lag}, step 2 differs {differs}")
+    del state_a, pb, akept
+    torch.cuda.empty_cache()
+    t_graph = DriverSmoke(torch, sm, card).run_microp()
+    t_dispatch = min(times[1:])
+    npts = IM * JM * KM
+    log(f"coupled microp step at {IM}x{JM}x{KM} float32 [{card}]: per "
+        f"dispatch {1e3 * t_dispatch:.2f} ms (the fastest of steps 2-"
+        f"{COUPLED_STEPS + 1}), as a graph {1e3 * t_graph:.2f} ms -> "
+        f"{npts / t_graph:.6e} grid points/s; without microp (phase 13) "
+        f"{1e3 * coupled_ms[0]:.2f} / {1e3 * coupled_ms[1]:.2f} ms")
 
 
 def device_us(fn, reps):
@@ -2020,6 +2204,11 @@ def run(torch) -> dict:
     # ---- phase 14: the run driver at f19
     with phase("14 the run driver at f19"):
         DriverSmoke(torch, sm, card).run(coupled_ms)
+        torch.cuda.empty_cache()
+
+    # ---- phase 15: the coupled step and the driver with microp at f19
+    with phase("15 microp coupled step and driver at f19"):
+        run_microp(torch, sm, card, coupled_ms)
         torch.cuda.empty_cache()
 
     kernels = []

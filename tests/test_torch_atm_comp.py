@@ -31,8 +31,9 @@ CPU, and the step's own contracts.
   that logs every _local_scalar_dense, nonzero and index.Tensor, the
   only ones are the float(torch.tensor(eps, dtype=...)) constants of the
   ZM code (CPU scalars, never on the card).
-- The options the port does not implement raise: cam_physpkg="cam3", a
-  non-empty aero_modes, raytau0 > 0 and do_circulation_diags.
+- The options the port does not implement raise: cam_physpkg="cam3",
+  raytau0 > 0 and do_circulation_diags; a non-empty aero_modes (ported
+  since) runs.
 """
 
 import linecache
@@ -280,8 +281,23 @@ def test_coupled_step_reads_no_device_value_on_host():
 @pytest.mark.parametrize("option", ["cam_physpkg", "aero_modes", "raytau0",
                                     "do_circulation_diags"])
 def test_unported_options_raise(option):
-    value = {"cam_physpkg": "cam3", "aero_modes": ("mode",),
-             "raytau0": 1.0, "do_circulation_diags": True}[option]
+    """The options the port does not implement raise. aero_modes, which
+    raised until the modal aerosol was ported, runs: the coupled step of
+    entry.build_coupled(aerosol=True) emits the AOD family and fills
+    NAER (tests/test_torch_aerosol.py holds the branch to JAX)."""
+    if option == "aero_modes":
+        import warnings
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            _, step, state, _ = build_coupled(
+                12, 8, 4, torch.float64, "cpu",
+                fv_cfg=FVConfig(nsplit=2, nspltrac=1), aerosol=True)
+            state, _, diags = step(state, first_step=True)
+        assert float(diags["AODVIS_accum"].min()) > 0.0
+        assert float(state.pbuf.get("NAER").min()) > 0.0
+        return
+    value = {"cam_physpkg": "cam3", "raytau0": 1.0,
+             "do_circulation_diags": True}[option]
     match = "ctem" if option == "do_circulation_diags" else option
     with pytest.raises(NotImplementedError, match=match):
         model = _model(FVConfig(nsplit=2, nspltrac=1), 12, 8, 4,

@@ -16,8 +16,8 @@ and what the bench configuration adds to the HS step, on the CPU.
   2-step unfused test of test_torch_slice.py measures ~1e-12).
 - The bench on the CPU at BENCH_SMALL's 72x46x10, one iteration and one
   pass: bench.py's per-dispatch keys plus `impl` and `card`; the
-  environment it reads; BENCH_ROOFLINE raises, and so does
-  BENCH_COUPLED with BENCH_MICROP (ZM microphysics is not ported).
+  environment it reads; BENCH_ROOFLINE raises; BENCH_COUPLED with
+  BENCH_MICROP runs the microp coupled bench.
 - The coupled bench (BENCH_COUPLED=1 BENCH_SMALL=1 BENCH_CPU=1,
   BENCH_CHUNK=1) on the CPU, one step a shape and one pass: bench.py's
   coupled keys plus `impl` and `card`, and the environment it reads.
@@ -269,11 +269,27 @@ def test_bench_refuses_unknown_grid():
 
 @pytest.mark.parametrize("var,names", [("BENCH_COUPLED", "microp"),
                                        ("BENCH_ROOFLINE", "roofline")])
-def test_bench_unported_modes_raise(var, names, monkeypatch):
+def test_bench_unported_modes_raise(var, names, monkeypatch, capsys):
+    """BENCH_ROOFLINE raises. BENCH_COUPLED with BENCH_MICROP, which
+    raised until ZM's microphysics was ported, runs the coupled bench
+    with ZMConfig(microp=True) (here on the CPU at BENCH_SMALL, one step
+    a shape and one pass), under bench.py's microp metric."""
     monkeypatch.setattr(tbench, "run", lambda **kw: pytest.fail("ran"))
-    with pytest.raises(NotImplementedError, match=names):
-        tbench.main({var: "1", "BENCH_CPU": "1", "BENCH_SMALL": "1",
-                     "BENCH_MICROP": "1"})
+    env = {var: "1", "BENCH_CPU": "1", "BENCH_SMALL": "1",
+           "BENCH_MICROP": "1", "BENCH_CHUNK": "1"}
+    if var == "BENCH_ROOFLINE":
+        with pytest.raises(NotImplementedError, match=names):
+            tbench.main(env)
+        return
+    real = tbench.run_coupled
+    monkeypatch.setattr(tbench, "run_coupled",
+                        lambda **kw: real(**kw, iters=1, passes=1))
+    rec = tbench.main(env)
+    assert rec["metric"] == tbench.COUPLED_METRIC_MICROP
+    assert rec["metric"].endswith("in-plume microphysics ON)")
+    assert rec["impl"] == tbench.COUPLED_IMPL_MICROP["cpu"]
+    assert rec["grid"] == "72x46x10" and rec["value"] > 0.0
+    assert json.loads(capsys.readouterr().out.strip()) == rec
 
 
 # bench.py's coupled record keys (bench.py:443-457)

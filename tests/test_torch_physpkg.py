@@ -324,14 +324,35 @@ def test_tphysbc_tphysac_match_jax():
 
 @pytest.mark.parametrize("field", ["aero_modes", "raytau0"])
 def test_unported_physics_options_raise(field):
+    """raytau0 > 0 (Rayleigh friction, not ported) and cam_physpkg="cam3"
+    raise. aero_modes, which raised until the modal aerosol was ported,
+    runs tphysbc's aerosol branch: the per-mode stacks filled and the AOD
+    family emitted (JAX parity: tests/test_torch_aerosol.py)."""
     st, pbuf, ci = _inputs()
     reg, zm = default_registry(), ZMConfig()
-    cfg = PhysConfig(**{field: ("mode",) if field == "aero_modes" else 1.0})
-    with pytest.raises(NotImplementedError, match=field):
-        if field == "aero_modes":
-            tpp.phys_run1(cfg, zm, reg, st, pbuf, ci, DT)
-        else:
-            tpp.phys_run2(cfg, reg, st, pbuf, ci, DT)
+    if field == "aero_modes":
+        from cam_nor_physics_tpu_torch.entry import accum_mode
+        from cam_nor_physics_tpu_torch.models.physics.constituents import \
+            Constituent
+        for n in ("so4_a1", "pom_a1"):
+            reg = reg.add(Constituent(n, qmin=0.0))
+        aer = torch.full((NCOL, PVER, 2), 1e-9, dtype=torch.float64)
+        st = st.replace(q=torch.cat([st.q, aer], -1))
+        pbuf = tpb.pbuf_register(tpp.physpkg_pbuf_specs(
+            NCOL, PVER, pcnst=reg.pcnst)).update(
+            **{k: v for k, v in pbuf.fields.items() if k != "DQCOND_QINI"})
+        ci = ci.replace(cflx=torch.cat([ci.cflx, ci.cflx[:, :2] * 0.0], -1))
+        import warnings
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            out = tpp.phys_run1(PhysConfig(aero_modes=(accum_mode(),)), zm,
+                                reg, st, pbuf, ci, DT)
+        assert float(out.diagnostics["AODVIS_accum"].min()) > 0.0
+        assert float(out.pbuf.get("NAER").min()) > 0.0
+        assert out.diagnostics["AER_TAU_SW"].shape == (NCOL, PVER, 14)
+    else:
+        with pytest.raises(NotImplementedError, match=field):
+            tpp.phys_run2(PhysConfig(raytau0=1.0), reg, st, pbuf, ci, DT)
     with pytest.raises(NotImplementedError, match="cam_physpkg"):
         PhysConfig(cam_physpkg="cam3")
 

@@ -13,8 +13,8 @@
   and the driver's (quick_run, cli.run_main) too.
 - convert.py carries state, grid and coordinate, the physics state and
   buffer, and the coupled state, across and back unchanged.
-- The options the port does not implement raise NotImplementedError
-  (ZMConfig.microp among them).
+- The options the port does not implement raise NotImplementedError;
+  ZMConfig.microp, which raised until it was ported, runs.
 """
 
 import ast
@@ -82,7 +82,7 @@ COUPLED_MODULES = (
 
 # modules that need no torch themselves
 TORCH_FREE = ("utils/config.py", "cli.py", "utils/histio_native.py",
-              "utils/ckptio_native.py")
+              "utils/ckptio_native.py", "models/physics/oslo_aero.py")
 
 # the driver's modules (each must exist and be scanned)
 DRIVER_MODULES = (
@@ -92,7 +92,17 @@ DRIVER_MODULES = (
     "ops/geopotential.py")
 
 
-@pytest.mark.parametrize("module", COUPLED_MODULES + DRIVER_MODULES)
+# ZM's in-plume microphysics and the modal aerosol (each must exist and be
+# scanned)
+MICROP_MODULES = (
+    "models/physics/zm_microphysics.py", "models/physics/zm_conv.py",
+    "models/physics/zm_conv_intr.py",
+    "models/physics/modal_aero_wateruptake.py",
+    "models/physics/modal_aer_opt.py", "models/physics/oslo_aero.py")
+
+
+@pytest.mark.parametrize("module",
+                         COUPLED_MODULES + DRIVER_MODULES + MICROP_MODULES)
 def test_coupled_modules_are_scanned(module):
     path = REPO / "cam_nor_physics_tpu_torch" / module
     assert path in _port_sources()
@@ -206,11 +216,20 @@ def test_coupled_state_convert_round_trip():
 
 
 def test_zm_conv_tend_microp_raises():
+    """zm_conv_tend with microp, which raised until it was ported, runs
+    and routes the microphysics: DNLFZM, DNIFZM, DP_CLDLIQ and DP_CLDICE
+    into the pbuf, the zm_conv_micro_outfld family and the rates into the
+    diagnostics (JAX parity: tests/test_torch_zm_microp.py)."""
     pstate, pbuf, forcing = varied_zm_inputs(4, 26, torch.float64, "cpu")
-    with pytest.raises(NotImplementedError, match="microp"):
-        zm_conv_tend(ZMConfig(microp=True), default_registry(), pstate, pbuf,
-                     forcing["pblh"], forcing["tpert"], forcing["landfrac"],
-                     1800.0)
+    out = zm_conv_tend(ZMConfig(microp=True), default_registry(), pstate,
+                       pbuf, forcing["pblh"], forcing["tpert"],
+                       forcing["landfrac"], 1800.0)
+    d = out.diagnostics
+    assert {"ZMFRZ", "ZMDCAPE", "WUZMSNUM", "CLDLIQZM", "ACTIV_N",
+            "BERGN_M"} <= set(d)
+    assert torch.equal(out.pbuf.get("DNIFZM"), d["DNIFZM"])
+    assert torch.equal(out.pbuf.get("DP_CLDICE"), d["CLDICEZM"])
+    assert float(d["ZMFRZ"].max()) > 0.0
 
 
 def test_physics_convert_round_trip():

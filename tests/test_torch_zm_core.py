@@ -76,10 +76,19 @@ def test_parcel_impls_agree():
 
 @pytest.mark.parametrize("option", ["microp", "parcel_pbl"])
 def test_unported_options_raise(option):
+    """The two options that raised NotImplementedError until they were
+    ported now run: finite outputs, the same trigger on these soundings,
+    and a different heating than the default configuration's. Their JAX
+    parity is held in tests/test_torch_zm_microp.py."""
     s = _soundings()
-    with pytest.raises(NotImplementedError, match=option):
-        tzm.zm_convr(ZMConfig(**{option: True}), MSG,
-                     *[torch.from_numpy(s[k]) for k in SOUNDING], 900.0)
+    args = [torch.from_numpy(s[k]) for k in SOUNDING]
+    out = tzm.zm_convr(ZMConfig(**{option: True}), MSG, *args, 900.0)
+    ref = tzm.zm_convr(ZMConfig(), MSG, *args, 900.0)
+    for f in ("heat", "qtnd", "prec", "cape", "frz", "dcape"):
+        assert bool(torch.isfinite(getattr(out, f)).all()), f
+    assert torch.equal(out.ideep, ref.ideep) and bool(out.ideep.any())
+    assert not torch.equal(out.heat, ref.heat)
+    assert (float(out.frz.max()) > 0.0) == (option == "microp")
 
 
 def test_no_deep_pbl_option():
@@ -183,7 +192,7 @@ def test_closure_and_q1q2_match_oracles(pipe):
     np.testing.assert_allclose(npy(mb)[m], mb_o[m], rtol=RTOL, atol=ATOL)
 
     evp_mb, cu_mb = cld.evp * fac, cld.cu * fac
-    dqdt, dsdt, dl = tzm.q1q2_pjr(
+    dqdt, dsdt, dl, _ = tzm.q1q2_pjr(
         MSG, d["q"], cld.qst, cld.qu, cld.su, du_mb, d["qhat"], d["shat"],
         d["dp"], cld.mu, cld.md, cld.sd, cld.qd, cld.qcde, d["dsubcld"],
         cld.jt, b.mx, (evp_mb, cu_mb))
