@@ -9,7 +9,9 @@ atm_step (dycore state, physics export, physics buffer with its lifetimes,
 phis, nstep), `camin_*` and `camout_to_numpy` the surface exchange;
 `atmstate_named_leaves`/`atmstate_from_leaves` the coupled state's leaves
 in the order `jax.tree.flatten` gives the JAX AtmState's (the checkpoint
-layout both drivers write). The numpy side
+layout both drivers write); `metdata_*`, `iopdata_*` and `scamforcing_*`
+the offline dynamics' MetData and SCAM's IopData and ScamForcing. The
+numpy side
 is a plain dict keyed by the field names both packages share, so a JAX
 object converts with {f: np.asarray(getattr(obj, f)) for f in FIELDS}.
 """
@@ -23,11 +25,13 @@ from .models.atm_comp import AtmState
 from .models.coupling.camsrfexch import CAMIN_FIELDS, CAMOUT_FIELDS, CamIn
 from .models.fv.cd_core import DynState
 from .models.fv.grid import FVGrid
+from .models.fv.metdata import MET_FIELDS, MetData
 from .models.fv.vertical import HybridCoord
 from .models.physics.physics_buffer import PhysicsBuffer
 from .models.physics.state import PTEND_FIELDS, PhysicsState
 from .models.physics.state import STATE_FIELDS as PHYS_STATE_FIELDS
 from .models.physics.zm_conv_intr import TEND_FIELDS
+from .models.scam import FORCING_FIELDS, IOP_FIELDS, IopData, ScamForcing
 from .utils.device import resolve_device
 
 STATE_FIELDS = ("u", "v", "pt", "delp", "q")
@@ -213,3 +217,45 @@ def atmstate_from_leaves(template: AtmState, leaves) -> AtmState:
         pbuf=PhysicsBuffer(fields={k: pb[k] for k in template.pbuf.fields},
                            lifetimes=dict(template.pbuf.lifetimes)),
         phis=leaves[-2], nstep=leaves[-1])
+
+
+# ---- the offline dynamics' and SCAM's forcing ----
+
+def metdata_from_numpy(fields: dict, device="cuda", dtype=None) -> MetData:
+    """MetData from numpy arrays keyed times, u, v, pt, delp, q."""
+    dev = resolve_device(device)
+    return MetData(**{f: _tensor(fields[f], dtype, dev) for f in MET_FIELDS})
+
+
+def metdata_to_numpy(met) -> dict:
+    """{field: array} of a MetData of either package."""
+    return {f: _np(getattr(met, f)) for f in MET_FIELDS}
+
+
+def iopdata_from_numpy(fields: dict, device="cuda", dtype=None) -> IopData:
+    """IopData from numpy arrays keyed tsec, divT, divq, omega, shflx,
+    lhflx; tsec stays a host array (in `dtype`'s precision if given)."""
+    dev = resolve_device(device)
+    tsec = np.array(fields["tsec"])
+    if dtype is not None:
+        tsec = tsec.astype(torch.zeros((), dtype=dtype).numpy().dtype)
+    return IopData(tsec=tsec, **{f: _tensor(fields[f], dtype, dev)
+                                 for f in IOP_FIELDS[1:]})
+
+
+def iopdata_to_numpy(iop) -> dict:
+    """{field: array} of an IopData of either package."""
+    return {f: _np(getattr(iop, f)) for f in IOP_FIELDS}
+
+
+def scamforcing_from_numpy(fields: dict, device="cuda",
+                           dtype=None) -> ScamForcing:
+    """ScamForcing from numpy arrays keyed dtdt_ls, dqdt_ls, omega."""
+    dev = resolve_device(device)
+    return ScamForcing(**{f: _tensor(fields[f], dtype, dev)
+                          for f in FORCING_FIELDS})
+
+
+def scamforcing_to_numpy(forcing) -> dict:
+    """{field: array} of a ScamForcing of either package."""
+    return {f: _np(getattr(forcing, f)) for f in FORCING_FIELDS}

@@ -206,7 +206,7 @@ def accum_mode() -> AeroMode:
 def build_coupled(im: int = 144, jm: int = 96, km: int = 26,
                   dtype=torch.float32, device="cuda",
                   fv_cfg: FVConfig | None = None, microp: bool = False,
-                  aerosol: bool = False):
+                  aerosol: bool = False, **phys):
     """Returns (model, step, state0, sst) for bench.py's coupled
     configuration (bench.py:306-319): AtmModel.create(im, jm, km,
     dt=1800, phys_cfg=PhysConfig(radiation_scheme="gray"),
@@ -216,21 +216,20 @@ def build_coupled(im: int = 144, jm: int = 96, km: int = 26,
     phis, through atm_init; sst is aquaplanet_sst of the columns'
     latitudes. `aerosol=True` registers AEROSOL_SPECIES (uniform at their
     mixing ratios) and PhysConfig.aero_modes=(accum_mode(),) with
-    prog_modal_aero.
+    prog_modal_aero. Further keywords are PhysConfig fields (raytau0=5.0,
+    do_circulation_diags=True, ...).
 
     step(state, first_step=False) -> (state, cam_out, diags) makes the
     CamIn with bulk_surface_fluxes from the state's physics export and
     runs atm_step. Raises where `device` is CUDA and no card is present."""
     dev = resolve_device(device)
     registry = default_registry()
-    phys_cfg = PhysConfig(radiation_scheme="gray")
     if aerosol:
         for name, _ in AEROSOL_SPECIES:
             registry = registry.add(Constituent(name=name, longname=name,
                                                 qmin=0.0, mixtype="wet"))
-        phys_cfg = PhysConfig(radiation_scheme="gray",
-                              aero_modes=(accum_mode(),),
-                              prog_modal_aero=True)
+        phys.update(aero_modes=(accum_mode(),), prog_modal_aero=True)
+    phys_cfg = PhysConfig(radiation_scheme="gray", **phys)
     model = AtmModel.create(
         im, jm, km, dt=DT, registry=registry, fv_cfg=fv_cfg or FVConfig(),
         phys_cfg=phys_cfg, zm_cfg=ZMConfig(microp=microp), dtype=dtype,

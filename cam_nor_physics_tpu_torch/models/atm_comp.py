@@ -158,14 +158,21 @@ def atm_step(model: AtmModel, state: AtmState, cam_in: CamIn,
 
     # the diagnostic side of d_p_coupling (dp_coupling.F90:274-320): the
     # gravity-wave frontogenesis sources and the QBO zonal mean into the
-    # pbuf
+    # pbuf, the TEM diagnostics and the dycore's AM payload into the
+    # diagnostics
     pc = model.phys_cfg
     cdiag = d_p_coupling_diags(
         dyn, g, coord.ptop, omega=dyn_diags["omega"],
         use_gw_front=pc.use_gw_front, qbo_use_forcing=pc.qbo_use_forcing,
         do_circulation_diags=pc.do_circulation_diags)
+    ctem = cdiag.pop("ctem", None)
     if cdiag:
         pbuf = pbuf.update(**cdiag)
+    if ctem is not None:
+        diags.update(ctem)
+    if model.fv_cfg.am_diag:
+        diags.update({k: v for k, v in dyn_diags.items()
+                      if k.startswith("AM_")})
 
     new = AtmState(dyn=dyn, phys=phys, pbuf=pbuf, phis=state.phis,
                    nstep=state.nstep + 1)

@@ -28,6 +28,7 @@ from ...ops.geopotential import geopotential_t
 from ...ops.tp_core import _rollx, _rolly, wset_row
 from ...utils import constants as c
 from ..fv.cd_core import DynState, d2a_winds, pressure_vars
+from ..fv.ctem import ctem_diags
 from ..fv.grid import FVGrid
 from ..physics.check_energy import check_energy_timestep_init
 from ..physics.constituents import ConstituentRegistry
@@ -158,15 +159,11 @@ def d_p_coupling_diags(state: DynState, grid: FVGrid, ptop: float,
                        do_circulation_diags: bool = False) -> dict:
     """Diagnostic side of d_p_coupling (dp_coupling.F90:274-320): the
     gravity-wave frontogenesis sources FRONTGF/FRONTGA and the QBO
-    zonal-mean wind UZM, as (ncol, km) pbuf payloads.
-    `do_circulation_diags` (the TEM diagnostics of fv/ctem) raises
-    NotImplementedError: ctem is not ported yet."""
-    if do_circulation_diags:
-        raise NotImplementedError(
-            "PhysConfig.do_circulation_diags: the TEM circulation "
-            "diagnostics (fv/ctem.py) are not ported yet")
+    zonal-mean wind UZM, as (ncol, km) pbuf payloads, and with
+    `do_circulation_diags` the TEM diagnostics of fv/ctem, (npl, jm)
+    zonal means under "ctem"."""
     out = {}
-    if not (use_gw_front or qbo_use_forcing):
+    if not (use_gw_front or qbo_use_forcing or do_circulation_diags):
         return out
     pe, pk, pkz, peln = pressure_vars(state.delp, ptop)
     ua, va = d2a_winds(state.u, state.v)
@@ -178,6 +175,9 @@ def d_p_coupling_diags(state: DynState, grid: FVGrid, ptop: float,
         out["FRONTGA"] = _to_cols(fga)
     if qbo_use_forcing:
         out["UZM"] = _to_cols(zonal_mean_3d(ua))
+    if do_circulation_diags:
+        om = omega if omega is not None else torch.zeros_like(t3)
+        out["ctem"] = ctem_diags(ua, va, om, t3, pmid)
     return out
 
 

@@ -148,16 +148,17 @@ def cd_step(state: DynState, grid: FVGrid, ptop: float, phis, dt: float,
     """One small Lagrangian step. Returns (new_state, diagnostics dict with
     cx, cy, mfx, mfy, pe, pk, pkz, peln, wz).
 
-    With `fused` (the JAX package's use_pallas) and no filter_dm or
-    filter_csw_dm, flags that `cd_fused.use_fused_cd` accepts take the
-    fused K1-K4 step; fused=False keeps the unfused formulation. Whether
-    the CUDA kernels or their plain versions run is decided by the
-    tensors' device, not here."""
+    `return_debug` adds diagnostics["debug"], the wind update's terms (the
+    C-grid kicks, vorticity fluxes, PGF pieces, the filtered increments)
+    for stability forensics; it takes the unfused step, whose state it
+    leaves unchanged. With `fused` (the JAX package's use_pallas) and no
+    filter_dm or filter_csw_dm, flags that `cd_fused.use_fused_cd` accept
+    take the fused K1-K4 step; fused=False keeps the unfused formulation.
+    Whether the CUDA kernels or their plain versions run is decided by
+    the tensors' device, not here."""
     if mesh is not None:
         raise NotImplementedError("cd_step: mesh (multi-device sharding) is "
                                   "not ported")
-    if return_debug:
-        raise NotImplementedError("cd_step: return_debug is not ported")
     if fused and not filter_dm and not filter_csw_dm:
         # imported here: cd_fused builds on this module's helpers
         from .cd_fused import cd_step_fused, use_fused_cd
@@ -168,6 +169,7 @@ def cd_step(state: DynState, grid: FVGrid, ptop: float, phis, dt: float,
                                  del2_velocity, div2_on=div2_on,
                                  div4_coef_nd=div4_coef_nd,
                                  div_taper=div_taper)
+    dbg = {}
     u, v, pt, delp = state.u, state.v, state.pt, state.delp
     km, jm, im = delp.shape
     band5 = tp.ffsl_band(jm, grid.dl, 0.5 * dt)
@@ -229,6 +231,9 @@ def cd_step(state: DynState, grid: FVGrid, ptop: float, phis, dt: float,
             dvc = _filter(dvc, grid, "edge", filter_impl)
         uc = uc0 + duc
         vc = vc0 + dvc
+        if return_debug:
+            dbg.update(uc0=uc0, vc0=vc0, duc=duc, dvc=dvc, pgf_u_c=pgf_u,
+                       pgf_v_c=pgf_v, delp_h=delp_h, pt_h=pt_h)
     else:
         # Coriolis-only half rotation
         uc = uc0 + dt5 * f_c * vc_at_uc(vc0)
@@ -294,6 +299,8 @@ def cd_step(state: DynState, grid: FVGrid, ptop: float, phis, dt: float,
 
     du = fy_z - dt * (dx_en - c.CPAIR * pi_u * dx_th)
     du = wset_row(du, 0, 0.0)
+    if return_debug:
+        dbg.update(fy_z=fy_z, du_pgf=-dt * (dx_en - c.CPAIR * pi_u * dx_th))
 
     def dy_of(ac):
         return wset_interior(torch.zeros_like(v),
@@ -305,6 +312,9 @@ def cd_step(state: DynState, grid: FVGrid, ptop: float, phis, dt: float,
 
     dv = -fx_z - dt * (dy_en - c.CPAIR * pi_v * dy_th)
     dv = wset_row(wset_row(dv, 0, 0.0), -1, 0.0)
+    if return_debug:
+        dbg.update(fx_z=fx_z, dv_pgf=-dt * (dy_en - c.CPAIR * pi_v * dy_th),
+                   crx=crx, cry=cry, ke=ke, zeta_a=zeta_a)
 
     # ---- divergence damping (div24del2flag family) ----
     cose_sf = torch.where(cose[:, None] > 0, cose[:, None], 1.0)
@@ -360,4 +370,7 @@ def cd_step(state: DynState, grid: FVGrid, ptop: float, phis, dt: float,
     new_state = state.replace(u=u + du, v=v + dv, pt=pt_new, delp=delp_new)
     diags = dict(cx=crx, cy=cry, mfx=mfx, mfy=mfy, pe=pe, pk=pk, pkz=pkz,
                  peln=peln, wz=wz)
+    if return_debug:
+        dbg.update(du=du, dv=dv)
+        diags["debug"] = dbg
     return new_state, diags

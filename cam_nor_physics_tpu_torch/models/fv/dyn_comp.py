@@ -12,12 +12,18 @@ PyTorch twin of `cam_nor_physics_tpu.models.fv.dyn_comp`:
 The subcycles are Python loops. Each small step is cd_step: the fused
 K1-K4 for filter_impl "fft"/"dft" with the default c_sw half step, the
 unfused step (transport3d, vort_flux3d) for "matmul". tracer_div3d and
-te_map_remap launch their CUDA kernels for CUDA tensors. Not ported (they raise NotImplementedError):
-the angular-momentum fixer and correction, the am_diag payload, WACCM-X
-high-altitude composition, and multi-device meshes.
+te_map_remap launch their CUDA kernels for CUDA tensors.
+
+The options: the axial angular-momentum fixer (global, tapered or level
+by level) after each small step, the AM correction that closes the small
+step's AM budget against the mountain torque, the am_diag payload, and
+WACCM-X high-altitude κ, advected by trac2d as one more tracer slot.
+Multi-device meshes are not ported (they raise NotImplementedError).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -25,6 +31,7 @@ from ...ops import tp_core as tp
 from ...ops.fill import fillz
 from ...ops.remap_kernels import te_map_remap
 from ...ops.stencil_kernels import tracer_div3d
+from ...ops.thermo import calc_kappav
 from ...ops.tp_core import _rollx, _rolly, edge_north, wset_row
 from ...utils import constants as c
 from ...utils.config import FVConfig
@@ -137,6 +144,90 @@ def compute_vdot_gradp(state: DynState, grid: FVGrid, ptop: float):
     return wset_row(wset_row(vgp, 0, 0.0), -1, 0.0)
 
 
+def _am_weight(grid: FVGrid):
+    """(cosφ_e, cosφ_e·dλ·dφ) at u's edge rows, shaped (1, jm, 1)."""
+    cose = grid.cose[None, :, None]
+    return cose, cose * grid.dl * grid.dp
+
+
+def axial_angular_momentum(state: DynState, grid: FVGrid,
+                           per_level: bool = False):
+    """Axial relative angular momentum Σ u·cosφ·delp·(cell area) over the
+    sphere (dyn_comp.F90:1952-2069), u weighted at its edge rows;
+    `per_level` gives the (km,) level sums instead."""
+    cose, w = _am_weight(grid)
+    integrand = state.u * cose * state.delp * w
+    if per_level:
+        return torch.sum(integrand, (-2, -1))
+    return torch.sum(integrand)
+
+
+def am_taper(coord: HybridCoord, tpr_h: float, tpr_w: float, km: int,
+             high_order_top: bool):
+    """The AM fixer's pressure taper (dyn_comp.F90:1268-1272, 1960-1982):
+    taper(k) = 1/(1 + (ptapk/avgpk(k))^xdlt2), ptap = tpr_h − tpr_w/2,
+    ptapk = ptap^κ, xdlt2 = 2/(κ·ln((ptap+tpr_w/2)/(ptap−tpr_w/2))),
+    avgpk from the hybrid reference pressures. Levels below km//8 are 0
+    unless high_order_top."""
+    ptap = tpr_h - 0.5 * tpr_w
+    ptapk = ptap ** c.CAPPA
+    xdlt2 = 2.0 / (math.log((ptap + 0.5 * tpr_w) / (ptap - 0.5 * tpr_w)) *
+                   c.CAPPA)
+    pref = coord.ak + coord.bk * coord.ps0
+    avgpk = (0.5 * (pref[1:] + pref[:-1])) ** c.CAPPA
+    taper = 1.0 / (1.0 + (ptapk / avgpk) ** xdlt2)
+    if not high_order_top:
+        k = torch.arange(km, device=taper.device)
+        taper = torch.where(k < km // 8, 0.0, taper)
+    return taper
+
+
+def am_fixer(state: DynState, grid: FVGrid, am0, taper=None,
+             lbl: bool = False):
+    """Restore the axial AM `am0` ((km,) per-level sums) by a cosφ-shaped
+    wind increment (dyn_comp.F90:1994-2051): level by level with `lbl`,
+    else one global ratio shaped by taper(k)·cosφ. Returns (new state,
+    the (km,) increment coefficients du_k). Everything stays on the
+    device: no value is read on the host."""
+    cose, w = _am_weight(grid)
+    don_k = axial_angular_momentum(state, grid, per_level=True) - am0
+    dod_k = torch.sum(cose * cose * state.delp * w, (-2, -1))
+    tpr = torch.ones_like(don_k) if taper is None else taper
+    if lbl:
+        du_k = -(don_k / dod_k) * tpr
+    else:
+        am1 = torch.sum(don_k * tpr)
+        me0 = torch.clamp(torch.sum(dod_k * tpr), min=1e-30)
+        du_k = -(am1 / me0) * tpr
+    u_new = (state.u + du_k[:, None, None] * cose) * (cose > 0)
+    return state.replace(u=u_new), du_k
+
+
+def mountain_torque(state: DynState, phis, grid: FVGrid, ptop: float):
+    """Σ Φs·δx(ps) over the sphere, the resolved mountain torque in the
+    units of axial_angular_momentum per second: the only AM source the
+    continuous equations allow between physics updates."""
+    ps = pressure_vars(state.delp, ptop)[0][-1]
+    cosp = grid.cosp[:, None]
+    dpsdx = (_rollx(ps, -1) - _rollx(ps, 1)) * 0.5 / \
+        (c.REARTH * torch.where(cosp > 0, cosp, 1.0) * grid.dl)
+    w_c = cosp * grid.dl * grid.dp
+    return torch.sum(phis * dpsdx * cosp * w_c * (cosp > 0))
+
+
+def benergy(state: DynState, grid: FVGrid, ptop: float):
+    """Global total energy Σ w·delp·(cp·Tv + K) before the dynamics
+    (benergy, dyn_comp.F90:1327-1329), the pole rows weighted by their
+    cap's share."""
+    _, _, pkz, _ = pressure_vars(state.delp, ptop)
+    ua, va = d2a_winds(state.u, state.v)
+    ke = 0.5 * (ua ** 2 + va ** 2)
+    w = grid.cosp.clone()
+    w[0] = w[-1] = grid.acap / grid.im
+    return torch.sum(w[None, :, None] * state.delp *
+                     (c.CPAIR * state.pt * pkz + ke))
+
+
 def _floor_count(delp_new, delp_old):
     """Thickness-floor activations: cells clamped at 0.05·delp_old."""
     return torch.sum(delp_new <= 0.05 * delp_old * (1.0 + 1e-10))
@@ -149,15 +240,12 @@ def dyn_run(state: DynState, grid: FVGrid, coord: HybridCoord, phis,
     """One large dynamics timestep. Subcycles (dyn_comp.F90:1497-1524):
     n2 = (nspltrac + nv - 1)//nv; nsplit = (ns + n2*nv - 1)//(n2*nv);
     dt = ndt/(nsplit*n2*nv). With `return_diags` also returns
-    {"omega": ω of the last remap cycle, "floor_activations": count}."""
+    {"omega": ω of the last remap cycle, "floor_activations": count}, and
+    with am_diag AM_DU3S, AM_DUFIX, AM_TOTAL, du3s and du_fix_s."""
     if cfg.filtcw < 0:
         raise NotImplementedError(
             "FVConfig.filtcw < 0 (disable the C-grid wind filter) is not "
             "supported: the filter is load-bearing for the c_sw half step")
-    for opt in ("am_correction", "am_fixer", "am_diag", "high_altitude"):
-        if getattr(cfg, opt):
-            raise NotImplementedError(f"dyn_run: FVConfig.{opt} is not "
-                                      f"ported")
     if mesh is not None:
         raise NotImplementedError("dyn_run: mesh (multi-device sharding) is "
                                   "not ported")
@@ -187,6 +275,16 @@ def dyn_run(state: DynState, grid: FVGrid, coord: HybridCoord, phis,
     else:
         div_taper = None
 
+    # the fixer's taper; duf sums the fixer's coefficients for am_diag (a
+    # scalar 0 when am_diag is off)
+    if cfg.am_fixer and (cfg.am_fix_taper or not cfg.am_fix_lbl):
+        fix_taper = am_taper(coord, cfg.am_fix_tpr_h, cfg.am_fix_tpr_w,
+                             state.km, cfg.high_order_top)
+    else:
+        fix_taper = None
+    duf = state.u.new_zeros((state.km,) if cfg.am_diag else ())
+    u_in = state.u
+
     n_floor = torch.zeros((), dtype=torch.int64, device=state.delp.device)
     omega = None
     for _ in range(nv):
@@ -197,6 +295,10 @@ def dyn_run(state: DynState, grid: FVGrid, coord: HybridCoord, phis,
             acc = None
             for _ in range(nsplit):
                 delp_before = state.delp
+                am0 = (axial_angular_momentum(state, grid, per_level=True)
+                       if cfg.am_fixer or cfg.am_correction else None)
+                tq = (mountain_torque(state, phis, grid, ptop)
+                      if cfg.am_correction else None)
                 state, d = cd_step(
                     state, grid, ptop, phis, dt, iord=cfg.iord,
                     jord=cfg.jord, dyn_filter=cfg.fft_flt >= 0,
@@ -205,14 +307,48 @@ def dyn_run(state: DynState, grid: FVGrid, coord: HybridCoord, phis,
                     ke_method=cfg.ke_method, div2_coef_nd=cfg.div2_coef_nd,
                     div2_on=div2_on, div4_coef_nd=div4_nd,
                     div_taper=div_taper, del2_velocity=del2_vel)
+                if cfg.am_correction:
+                    # close the step's AM budget: AM_after = AM_before +
+                    # dt·torque, the torque entering at the surface layer;
+                    # with the fixer on, this one projection serves both
+                    am_tgt = torch.cat([am0[:-1], am0[-1:] + dt * tq])
+                    state, du_k = am_fixer(
+                        state, grid, am_tgt,
+                        taper=fix_taper if cfg.am_fixer else None,
+                        lbl=cfg.am_fixer and cfg.am_fix_lbl)
+                    if cfg.am_diag:
+                        duf = duf + du_k
+                elif cfg.am_fixer:
+                    state, du_k = am_fixer(state, grid, am0, taper=fix_taper,
+                                           lbl=cfg.am_fix_lbl)
+                    if cfg.am_diag:
+                        duf = duf + du_k
                 step = {k: d[k] for k in ("cx", "cy", "mfx", "mfy")}
                 acc = step if acc is None else \
                     {k: acc[k] + step[k] for k in acc}
                 n_floor = n_floor + _floor_count(state.delp, delp_before)
-            q_new, dp_tr = trac2d(state.q, dp0, acc["cx"], acc["cy"],
+            if cfg.high_altitude:
+                # κ of the cycle's entry composition rides trac2d as one
+                # more tracer slot (dyn_comp.F90:2371-2383); cat gives the
+                # contiguous stack the tracer kernel takes
+                q_tr = torch.cat([state.q, calc_kappav(
+                    state.q, cfg.major_species)[None]], 0)
+            else:
+                q_tr = state.q
+            q_new, dp_tr = trac2d(q_tr, dp0, acc["cx"], acc["cy"],
                                   acc["mfx"], acc["mfy"], grid, cfg.iord,
                                   cfg.jord)
             n_floor = n_floor + _floor_count(dp_tr, dp0)
+            if cfg.high_altitude:
+                # correct pt first-order for κ of the advected species
+                # against the advected κ (dyn_comp.F90:2461-2486):
+                # pt *= 1 − ln(p_mid)·(κ_new − κ_adv)
+                q_new, kap_adv = q_new[:-1], q_new[-1]
+                kap_new = calc_kappav(q_new, cfg.major_species)
+                pe_ha = pressure_vars(state.delp, ptop)[0]
+                lnpm = 0.5 * (torch.log(pe_ha[1:]) + torch.log(pe_ha[:-1]))
+                state = state.replace(
+                    pt=state.pt * (1.0 - lnpm * (kap_new - kap_adv)))
             state = state.replace(q=q_new)
         pe1 = pressure_vars(state.delp, ptop)[0]
         pmid1 = 0.5 * (pe1[1:] + pe1[:-1])
@@ -222,5 +358,17 @@ def dyn_run(state: DynState, grid: FVGrid, coord: HybridCoord, phis,
         state = te_map(state, coord, grid, ptop, kord=cfg.kord,
                        consv=cfg.conserve)
     if return_diags:
-        return state, {"omega": omega, "floor_activations": n_floor}
+        diags = {"omega": omega, "floor_activations": n_floor}
+        if cfg.am_diag:
+            # the am_diag payload (dp_coupling.F90:281-310): the step's
+            # wind increment, the fixer's coefficients, their AM integrals
+            du3s = state.u - u_in
+            cose, w = _am_weight(grid)
+            diags["AM_DU3S"] = torch.sum(du3s * cose * state.delp * w)
+            diags["AM_DUFIX"] = torch.sum(
+                duf[:, None, None] * cose * cose * state.delp * w)
+            diags["AM_TOTAL"] = axial_angular_momentum(state, grid)
+            diags["du3s"] = du3s
+            diags["du_fix_s"] = duf
+        return state, diags
     return state

@@ -225,3 +225,10 @@ def polar_filter_matmul(field, circ):
     roundoff. A batched matrix product in the field's dtype (TF32 must be
     off for float32, see entry.build_step)."""
     return torch.einsum('jim,...jm->...ji', circ, field)
+
+
+def ffsl_flags(grid: FVGrid, crx, cosa=None):
+    """Rows that need flux-form semi-Lagrangian (integer-CFL) x-transport:
+    |c| > 1 anywhere in the row. crx: (..., jm, im); returns (..., jm)
+    booleans."""
+    return torch.amax(torch.abs(crx), dim=-1) > 1.0

@@ -53,3 +53,15 @@ def hybrid_coefficients(km: int, ptop: float = 219.4, ps0: float = 1.0e5,
     return HybridCoord(ak=torch.as_tensor(ak, dtype=dtype, device=device),
                        bk=torch.as_tensor(bk, dtype=dtype, device=device),
                        ps0=float(ps0), ptop=float(ak[0]))
+
+
+def sigma_coefficients(km: int, ptop: float = 100.0, ps0: float = 1.0e5,
+                       dtype=torch.float64, device="cuda") -> HybridCoord:
+    """Pure sigma-like hybrid set (Held-Suarez style), evenly spaced in
+    sigma: bk = k/km, ak = ptop·(1 - k/km)."""
+    k = np.arange(km + 1, dtype=np.float64) / km
+    ak = ptop * (1.0 - k)
+    device = resolve_device(device)
+    return HybridCoord(ak=torch.as_tensor(ak, dtype=dtype, device=device),
+                       bk=torch.as_tensor(k, dtype=dtype, device=device),
+                       ps0=float(ps0), ptop=float(ak[0]))

@@ -24,8 +24,8 @@ With prognostic modal aerosol (non-empty PhysConfig.aero_modes,
 prog_modal_aero, not use_oslo_aero) tphysbc also runs calcsize, water
 uptake and the modal optics after ZM, filling the per-mode NAER /
 DGNUMWET / QAERWAT stacks and the AOD diagnostics; with microp, ZM's
-in-plume activation reads last step's NAER and DGNUMWET. Not ported,
-raising NotImplementedError: Rayleigh friction (raytau0 > 0).
+in-plume activation reads last step's NAER and DGNUMWET. raytau0 > 0 adds
+Rayleigh friction to tphysac after the radiation.
 `snapshot_register` declares the snapshot payload on a history tape.
 """
 
@@ -55,6 +55,7 @@ from .modal_aero_wateruptake import (modal_aero_calcsize,
                                      modal_aero_wateruptake)
 from .physics_buffer import PhysicsBuffer, zm_pbuf_specs
 from .radiation import radiation_tend
+from .rayleigh_friction import rayleigh_friction_tend
 from .state import (PhysicsState, PhysicsTend, physics_dme_adjust,
                     physics_update, ptend_init, qmin_vector, set_dry_to_wet,
                     tend_update)
@@ -387,11 +388,8 @@ def tphysac(phys_cfg: PhysConfig, registry: ConstituentRegistry,
     """Post-coupler physics (tphysac, physpkg.F90:1342-2506). Under
     radiation_scheme="rrtmg" the radiation slot is a zero-ptend stub:
     RRTMG is not ported, as in the JAX package (its physpkg.py:467-469);
-    "gray" runs radiation.radiation_tend."""
-    if phys_cfg.raytau0 > 0.0:
-        raise NotImplementedError(
-            "PhysConfig.raytau0 > 0: Rayleigh friction is not ported yet "
-            "(ROADMAP.md Queue 1 item 7)")
+    "gray" runs radiation.radiation_tend. raytau0 > 0 adds Rayleigh
+    friction after the radiation."""
     ncol, pver, pcnst = state.ncol, state.pver, state.pcnst
     dtype, dev = state.t.dtype, state.t.device
     diags = {}
@@ -479,6 +477,18 @@ def tphysac(phys_cfg: PhysConfig, registry: ConstituentRegistry,
         ptend = _stub_ptend("radheat", state)
         state, tend = _update(state, ptend, ztodt, registry, tend)
     _snap(diags, phys_cfg, "radiation_after", state, ptend=ptend)
+
+    # ---- Rayleigh friction (physpkg.F90:2177-2185) ----
+    if phys_cfg.raytau0 > 0.0:
+        _snap(diags, phys_cfg, "rayleigh_before", state)
+        dudt, dvdt, dsdt = rayleigh_friction_tend(
+            state, ztodt, phys_cfg.rayk0, phys_cfg.raykrange,
+            phys_cfg.raytau0)
+        ptend = _ptend("rayleigh_friction", state, ls=True, lu=True,
+                       lv=True).replace(u=dudt, v=dvdt, s=dsdt)
+        state, tend = _update(state, ptend, ztodt, registry, tend)
+        state, _ = check_energy_chng(state, registry, ztodt)
+        _snap(diags, phys_cfg, "rayleigh_after", state, ptend=ptend)
 
     _snap(diags, phys_cfg, "dme_adjust_before", state)
     # ---- dry-mass / energy adjustment (physpkg.F90:2394-2452): the FV

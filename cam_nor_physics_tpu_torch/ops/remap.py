@@ -93,3 +93,11 @@ def ppm_remap(pe_src, q, pe_tgt, kord: int = 4):
     """Remap cell means q (ncol, km) from pe_src to pe_tgt; conservative
     when the end interfaces coincide."""
     return ppm_remap_multi(pe_src, q[None], pe_tgt, kord)[0]
+
+
+def remap_state(pe_src, pe_tgt, fields: dict, kord: int = 4) -> dict:
+    """Remap a dict of (ncol, km) fields from pe_src to pe_tgt."""
+    names = list(fields)
+    out = ppm_remap_multi(pe_src, torch.stack([fields[n] for n in names]),
+                          pe_tgt, kord)
+    return {n: out[i] for i, n in enumerate(names)}

@@ -3,6 +3,8 @@
 Twin of `cam_nor_physics_tpu.ops.thermo` (the ZM plume thermodynamic core):
   - `entropy` (Raymond & Blyth 1992), zm_conv.F90:5280-5300;
   - `enthalpy` (tht moist enthalpy), zm_conv.F90:5440-5457;
+  - `calc_kappav`, the composition-dependent κ of the dycore's
+    high-altitude option (fv/dyn_comp.F90:2474), with `MAJOR_SPECIES`;
   - `ientropy`/`ienthalpy`, zm_conv.F90:5304-5414, with three solvers:
     "newton" (fixed-count secant, the default: a straight run of tensor
     operations with no host synchronisation), "newton_exact" (analytic
@@ -32,6 +34,38 @@ RL = c.LATVAP
 TFREEZ = c.TMELT
 EPS1 = c.EPSILO
 RGAS = c.RAIR
+
+# WACCM-X major species (fv/dyn_comp.F90:2371-2489): molecular weight
+# (kg/kmole) and the kinetic-theory cp factor (cp = factor · R_universal /
+# MW; monatomic 5/2, diatomic 7/2). Pure N2 gives κ = 2/7.
+MAJOR_SPECIES = {
+    "O": (15.9994, 2.5),
+    "O2": (31.9988, 3.5),
+    "H": (1.0074, 2.5),
+    "N2": (28.0134, 3.5),
+}
+
+
+def calc_kappav(q, species):
+    """κ = R/cp from major-species mass mixing ratios (cam_thermo's
+    calc_kappav role). q: (nq, ...) tracer stack; `species`: (name, index)
+    pairs locating 'O', 'O2', 'H' in q. N2 is the remainder 1 - Σ q_i, so
+    no species gives the constant N2 κ. Returns κ with one tracer's shape:
+    the dycore advects it as a tracer slot."""
+    rair = 0.0
+    cpair = 0.0
+    qsum = torch.zeros_like(q[0])
+    for name, ix in species:
+        mw, cpfac = MAJOR_SPECIES[name]
+        qi = torch.clamp(q[ix], 0.0, 1.0)
+        qsum = qsum + qi
+        rair = rair + qi * (c.RGAS / mw)
+        cpair = cpair + qi * cpfac * (c.RGAS / mw)
+    mw_n2, cp_n2 = MAJOR_SPECIES["N2"]
+    qn2 = torch.clamp(1.0 - qsum, 0.0, 1.0)
+    rair = rair + qn2 * (c.RGAS / mw_n2)
+    cpair = cpair + qn2 * cp_n2 * (c.RGAS / mw_n2)
+    return rair / cpair
 
 
 def entropy(tk, p_hpa, qtot):

@@ -424,6 +424,84 @@ def edge_north(fy):
     return wset_row(_rolly(fy, -1), -1, 0.0)
 
 
+def ycc(q, vc, ymass, jord: int, iv: int):
+    """C-grid N-S flux (ycc, tp_core.F90:1544-1704) in the NORTH-edge
+    convention: fy[j] is the flux between rows j and j+1, donor row j
+    (vc > 0) or j+1; vc and ymass share the convention. Every jord != 1
+    takes the van Leer mismatch (ycc has no PPM branch), the pole rows'
+    from cross-pole mirrors (iv=0 scalar, iv=1 vector), zeroed again for
+    jord > 0. Rows 1..jm-2 are set, the others 0."""
+    jm, im = q.shape[-2:]
+    im2 = im // 2
+    rows = torch.arange(jm, device=q.device)[:, None]
+    interior = (rows >= 1) & (rows <= jm - 2)
+    up = vc > 0.0
+    q_up = wset_row(_rolly(q, -1), -1, q[..., -1, :])      # row j+1
+    if jord == 1:
+        return torch.where(interior, torch.where(up, q, q_up) * ymass, 0.0)
+
+    inner = (rows >= 2) & (rows <= jm - 2)
+    dc = torch.where(inner, 0.25 * (_rolly(q, -1) - _rolly(q, 1)), 0.0)
+    mir1 = _rollx(q[..., 1, :], -im2)
+    mir_n = _rollx(q[..., jm - 1, :], -im2)
+    if iv == 0:                                            # (:1624)
+        dc_s = 0.25 * (q[..., 2, :] - mir1)
+        dc_n = 0.25 * (mir_n - q[..., jm - 2, :])
+    else:                                                  # (:1649)
+        dc_s = 0.25 * (q[..., 2, :] + mir1)
+        dc_n = -0.25 * (q[..., jm - 2, :] + mir_n)
+    dc = wset_row(wset_row(dc, 1, dc_s), jm - 1, dc_n)
+    if jord > 0:                                           # (:1671-1692)
+        qm, qp = _rolly(q, 1), _rolly(q, -1)
+        qmax = torch.maximum(torch.maximum(qm, q), qp) - q
+        qmin = q - torch.minimum(torch.minimum(qm, q), qp)
+        lim = torch.sign(dc) * torch.minimum(
+            torch.minimum(torch.abs(dc), qmin), qmax)
+        dc = torch.where(inner, lim, dc)
+        dc = wset_row(wset_row(dc, 1, 0.0), jm - 1, 0.0)
+    dc_up = wset_row(_rolly(dc, -1), -1, dc[..., -1, :])   # dc[j+1]
+    slope = torch.sign(vc) - vc
+    fe = torch.where(up, q + slope * dc, q_up + slope * dc_up)
+    return torch.where(interior, fe * ymass, 0.0)
+
+
+def tpcc(va, q, crx, cry, ymass, iord: int, jord: int, cose, ffsl,
+         band: int | None = None):
+    """C-grid 2-D transport fluxes (tpcc, tp_core.F90:1396-1536), tp2d's
+    C-grid counterpart: the first-order advective x-op, ycc for fy, then
+    the advective y-op with the scalar cross-pole mirror in the south row
+    and the va-upwinded north-pole row, and xtp at `iord` for fx. cry and
+    ymass in ycc's north-edge convention; cose (jm,) the critical cosine
+    at the xtp rows. Returns (fx, fy): fx rows 1..jm-1 and fy rows
+    1..jm-2 are meaningful, row 0 is 0."""
+    jm, im = q.shape[-2:]
+    im2 = im // 2
+    rows = torch.arange(jm, device=q.device)[:, None]
+
+    # first-order advective x-op (:1469-1485)
+    wk1 = xtp(q, crx, crx, cose, ffsl, 1, 0, band=band)
+    adx = q + 0.5 * (wk1 - _rollx(wk1, -1) + q * (_rollx(crx, -1) - crx))
+    adx = wset_row(adx, 0, q[..., 0, :])
+    fy = ycc(adx, cry, ymass, jord, 0)
+
+    # the scalar south-pole mirror (:1490-1498)
+    q2 = wset_row(q, 0, _rollx(q[..., 1, :], -im2))
+    # the north-pole advective row from va (:1500-1515)
+    qn, qn1 = q2[..., jm - 1, :], q2[..., jm - 2, :]
+    va_n = va[..., jm - 1, :]
+    fx1 = _rollx(qn, -im2)
+    ad_n = torch.where(va_n > 0.0, qn + 0.5 * va_n * (qn1 - qn),
+                       qn + 0.5 * va_n * (qn - fx1))
+    # interior advective y-op (:1517-1525): donor j-1 (va > 0) else j+1
+    q_m = wset_row(_rolly(q2, 1), 0, q2[..., 0, :])
+    q_p = wset_row(_rolly(q2, -1), -1, qn)
+    ady = q2 + 0.5 * va * torch.where(va > 0.0, q_m - q2, q2 - q_p)
+    ady = wset_row(wset_row(ady, jm - 1, ad_n), 0, q2[..., 0, :])
+
+    fx = xtp(ady, crx, crx, cose, ffsl, iord, 0, band=band)
+    return torch.where(rows >= 1, fx, 0.0), fy
+
+
 def tp2d(va, q, crx, cry, iord: int, jord: int, xfx, yfx, cosp, ffsl,
          id_: int, band: int | None = None):
     """2-D transport on the D grid (tp2d, tp_core.F90:163-276). Returns

@@ -208,9 +208,9 @@ class PhysConfig:
     phys_control.F90:33-117). A non-empty `aero_modes` (with
     prog_modal_aero and not use_oslo_aero) runs the modal aerosol sizes,
     water uptake and optics in tphysbc and feeds ZM's in-plume
-    activation; physpkg raises NotImplementedError for `raytau0 > 0`
-    (Rayleigh friction is not ported); `cam_physpkg` other than "cam6"
-    raises here."""
+    activation; `raytau0 > 0` runs Rayleigh friction in tphysac and
+    `do_circulation_diags` the TEM diagnostics in d_p_coupling;
+    `cam_physpkg` other than "cam6" raises here."""
 
     cam_physpkg: str = "cam6"
     deep_scheme: str = "ZM"

@@ -167,9 +167,39 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
     steps): launches exact, state and both tapes bitwise equal, the
     microp fields on the tape and finite; ms a step per dispatch and as
     the 8-step graph's first replay;
-16. prints the kernels JSON line (ten kernels), the card's name and power
+16. drives the model's other modes at f19 (ModesSmoke): (A) the JW06
+    baroclinic wave (jw_baroclinic_wave, perturbed) for 8 dyn_run steps
+    in float32 with FVConfig(am_fixer, am_fix_taper, am_diag), launches
+    exact each step, AM_DU3S/AM_DUFIX/AM_TOTAL finite, the relative AM
+    drift with the fixer smaller than without, an 8-step CUDA graph held
+    bitwise to eager steps, 2 float64 steps kernels vs plain within 1e-9;
+    (B) one float64 small step with am_correction over a mountain after 2
+    spin-up steps: |AM_after - AM_before - dt torque| under a quarter of
+    the uncorrected (tests/test_am_flags.py); (C) high_altitude with the
+    species O, O2, H on four tracers, float64, 2 steps kernels vs plain
+    within 1e-9, tracer_div3d fed nq + 1 = 5 tracers; (D) the coupled
+    step with Rayleigh friction and the TEM diagnostics
+    (build_coupled(raytau0=5, do_circulation_diags=True)): item 13's
+    checks for 3 steps, the TEM fields finite, its 8-step graph bitwise,
+    2 float64 steps kernels vs plain with flips counted; (E)
+    cd_step(return_debug=True): the unfused step (transport3d and
+    vort_flux3d launch), its state bitwise that of return_debug=False,
+    the debug terms finite; (F) (A)'s float64 state through an IC file
+    (write_inidat, read_inidat onto the card: u, v, q and phis bitwise,
+    delp and pt within 1e-13) and a dyn_run from it against one from the
+    state in memory within 1e-9; three of (A)'s states as a met file,
+    offline_dyn_run through it for 8 steps on the card and on the CPU in
+    float64 within 1e-12; (G) zm_tail against its plain version at 1 and
+    16 columns (float32, float64), then scam_run_iop on 16 columns for 48
+    steps (a simulated day; an IOP file of 9 records) in float32, exactly
+    one zm_tail launch a step, and in float64 on the card against the
+    CPU within 1e-9 with ZM trigger flips counted; ms a step of each;
+17. prints the kernels JSON line (ten kernels), the card's name and power
     limit, then {"ok": true, "device": {...}} last. Every phase prints its
     wall time.
+
+`python3 chip_smoke.py --phase 16` builds the kernels and runs phase 16
+alone (no result line).
 
 Exits non-zero, printing no result, without a CUDA device, outside a
 checkout of the repo, or when any phase fails.
@@ -934,6 +964,7 @@ class Smoke:
         if not all(same):
             raise RuntimeError(f"graph {label}: replays differ from eager "
                                f"steps")
+        return min(replay_s) / k
 
     # ---------------------------------------------- f09 and f05
     def run_grid(self, gname: str, impl: str = "fft") -> dict:
@@ -1338,6 +1369,19 @@ def run_zm_grid(torch, sm: Smoke, gname: str) -> None:
                  5)
 
 
+def dyn_launches(sm: Smoke, fv_cfg, dt, grid) -> dict:
+    """The launches of one FV large step with the fused small step: K1-K4
+    ns times, tracer_div3d n2 times, te_map_remap nv times."""
+    ns, nspltrac, nv = fv_cfg.resolved_splits(dt, grid.im, grid.jm)
+    n2 = (nspltrac + nv - 1) // nv
+    nsplit = (ns + n2 * nv - 1) // (n2 * nv)
+    lpc = sm.sk.LAUNCHES_PER_CALL
+    out = {k: nsplit * n2 * nv * sm.ck.launches_per_call(k) for k in FUSED}
+    out.update(tracer_div3d=n2 * nv * lpc["tracer_div3d"], te_map_remap=nv,
+               zm_tail=0, transport3d=0, vort_flux3d=0, probe=0)
+    return out
+
+
 class CoupledSmoke:
     """Phase 13: the coupled atm_step (entry.build_coupled) on the card."""
 
@@ -1364,16 +1408,8 @@ class CoupledSmoke:
         ns times, tracer_div3d n2 times, te_map_remap nv times) and one ZM
         step's (its tail kernel once; never under microp, where the plain
         tail runs, as in the JAX package)."""
-        g = model.grid
-        ns, nspltrac, nv = model.fv_cfg.resolved_splits(model.dt, g.im, g.jm)
-        n2 = (nspltrac + nv - 1) // nv
-        nsplit = (ns + n2 * nv - 1) // (n2 * nv)
-        lpc = self.sm.sk.LAUNCHES_PER_CALL
-        out = {k: nsplit * n2 * nv * self.sm.ck.launches_per_call(k)
-               for k in FUSED}
-        out.update(tracer_div3d=n2 * nv * lpc["tracer_div3d"],
-                   te_map_remap=nv, zm_tail=0 if model.zm_cfg.microp else 1,
-                   transport3d=0, vort_flux3d=0, probe=0)
+        out = dyn_launches(self.sm, model.fv_cfg, model.dt, model.grid)
+        out["zm_tail"] = 0 if model.zm_cfg.microp else 1
         return out
 
     @staticmethod
@@ -1431,18 +1467,18 @@ class CoupledSmoke:
         e = diags["EFIX"].double()
         return f"[{float(e.min()):.6e}, {float(e.max()):.6e}]"
 
-    def parity64(self, microp=False):
+    def parity64(self, microp=False, tag=None, **phys):
         """The first step and one more in float64 through the kernels and
         through the plain versions, from the same state: each dycore and
         physics field within COUPLED_TOL_F64 of its max; the columns whose
         ZM trigger or level indices differ, counted. Without microp the
         kernels' run goes on to the float32 run's COUPLED_STEPS + 1 steps
-        for EFIX."""
+        for EFIX. `phys`: PhysConfig fields for build_coupled."""
         torch = self.torch
         from cam_nor_physics_tpu_torch.entry import build_coupled
         model, step, s0, _ = build_coupled(IM, JM, KM, torch.float64,
-                                           DEVICE, microp=microp)
-        tag = "coupled microp" if microp else "coupled"
+                                           DEVICE, microp=microp, **phys)
+        tag = tag or ("coupled microp" if microp else "coupled")
 
         def run(nsteps):
             s, kept, flips, efix = s0, None, [], []
@@ -1992,6 +2028,464 @@ def run_microp(torch, sm: Smoke, card: str, coupled_ms) -> None:
         f"{1e3 * coupled_ms[0]:.2f} / {1e3 * coupled_ms[1]:.2f} ms")
 
 
+# phase 16: the other modes at f19
+MODES_STEPS = 8            # (A): JW06 steps with the fixer, eager and a graph
+MODES_F64_STEPS = 2        # float64 steps, kernels vs plain
+MODES_TOL_F64 = 1e-9
+MODES_DT = 1800.0
+CORR_DT = 450.0            # (B): one small step, nsplit = nspltrac = 1
+JW_SPECIES = (("O", 1), ("O2", 2), ("H", 3))
+AM_KEYS = ("AM_DU3S", "AM_DUFIX", "AM_TOTAL")
+TEM_KEYS = ("U2d", "V2d", "W2d", "TH2d", "VTH2d", "WTH2d", "UV2d", "UW2d")
+IC_TOL_F64 = 1e-13         # (F): delp and pt through T and PS and back
+OFFLINE_TOL = 1e-12
+SCAM_NCOL, SCAM_STEPS = 16, 48     # (G): a simulated day on 16 columns
+SCAM_TOL_F64 = 1e-9
+
+
+def rel_diffs(got: dict, want: dict) -> dict:
+    """max|g - w| / max|w| per key (NaN where a value is not finite)."""
+    out = {}
+    for k, w in want.items():
+        g, w = got[k].double().cpu(), w.double().cpu()
+        if not (bool(g.isfinite().all()) and bool(w.isfinite().all())):
+            out[k] = float("nan")
+            continue
+        out[k] = float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                  1e-300)
+    return out
+
+
+def dyn_fields(state) -> dict:
+    return {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
+
+
+class ModesSmoke:
+    """Phase 16: the dycore's options (the AM fixer and correction,
+    high-altitude κ, the debug terms), the coupled step with Rayleigh
+    friction and the TEM diagnostics, IC and met files with the offline
+    dynamics, and SCAM, at f19 on the card."""
+
+    def __init__(self, torch, sm: Smoke, card: str):
+        from cam_nor_physics_tpu_torch.models.fv import (baroclinic_wave,
+                                                         cd_core, dyn_comp,
+                                                         grid, inidat,
+                                                         metdata, vertical)
+        from cam_nor_physics_tpu_torch.utils import constants
+        from cam_nor_physics_tpu_torch.utils.config import FVConfig
+        self.zvir = constants.ZVIR
+        self.torch, self.sm, self.card = torch, sm, card
+        self.bw, self.cd, self.dc = baroclinic_wave, cd_core, dyn_comp
+        self.grid_mod, self.vert = grid, vertical
+        self.ini, self.met = inidat, metdata
+        self.FVConfig = FVConfig
+        self.out = REPO / "cam_nor_physics_tpu_torch" / "build" / \
+            "modes_smoke"
+        self.out.mkdir(parents=True, exist_ok=True)
+
+    def fv(self, dtype, device=None):
+        device = device or DEVICE
+        return (self.grid_mod.make_grid(IM, JM, KM, dtype, device),
+                self.vert.hybrid_coefficients(KM, dtype=dtype,
+                                              device=device))
+
+    def jw(self, dtype, nq=1, device=None):
+        device = device or DEVICE
+        grid, coord = self.fv(dtype, device)
+        state, phis = self.bw.jw_baroclinic_wave(grid, coord, perturb=True,
+                                                 nq=nq, dtype=dtype,
+                                                 device=device)
+        return grid, coord, state, phis
+
+    def am(self, state, grid64):
+        """Global axial AM in float64."""
+        s = state.replace(**{k: v.double()
+                             for k, v in dyn_fields(state).items()})
+        return float(self.dc.axial_angular_momentum(s, grid64))
+
+    def gate_rel(self, label, rel, tol):
+        worst = max(rel, key=lambda k: (math.isnan(rel[k]), rel[k]))
+        log(f"{label}: worst {worst} {rel[worst]:.3e} (tol {tol:.0e}); "
+            + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+        if math.isnan(rel[worst]) or rel[worst] > tol:
+            raise RuntimeError(f"{label}: {worst} {rel[worst]:.3e} > {tol}")
+
+    def kernels_vs_plain(self, label, run, tol=MODES_TOL_F64):
+        """run() through the kernels and through their plain versions;
+        each tensor of the two results' dicts within tol of its max."""
+        got = run()
+        with self.sm.routed(self.sm.plain):
+            want = run()
+        self.torch.cuda.synchronize()
+        self.gate_rel(f"{label}, kernels vs plain", rel_diffs(got, want),
+                      tol)
+
+    # ---- (A) JW06 with the AM fixer
+    def jw_fixer(self, hs_ms):
+        torch, sm = self.torch, self.sm
+        grid, coord, s0, phis = self.jw(torch.float32)
+        grid64, _ = self.fv(torch.float64)
+        cfg = self.FVConfig(am_fixer=True, am_fix_taper=True, am_diag=True)
+        want = dyn_launches(sm, cfg, MODES_DT, grid)
+
+        def step(s):
+            return self.dc.dyn_run(s, grid, coord, phis, cfg, MODES_DT,
+                                   return_diags=True)
+
+        am0, s, times, kept = self.am(s0, grid64), s0, [], [s0]
+        for i in range(MODES_STEPS):
+            sm.zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s, d = step(s)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            got = sm.counts()
+            if got != want:
+                raise RuntimeError(f"JW06 fixer step {i + 1} launched {got}, "
+                                   f"expected {want}")
+            bad = [k for k in AM_KEYS + ("du_fix_s",)
+                   if not bool(d[k].isfinite().all())]
+            if bad or not all(bool(t.isfinite().all())
+                              for t in dyn_fields(s).values()):
+                raise RuntimeError(f"JW06 fixer step {i + 1}: not finite "
+                                   f"{bad}")
+            if i in (3, 7):
+                kept.append(s)
+        log(f"JW06 fixer f19 float32: launches a step {want} (exact, "
+            f"{MODES_STEPS} steps); AM_DU3S {float(d['AM_DU3S']):.6e}, "
+            f"AM_DUFIX {float(d['AM_DUFIX']):.6e}, AM_TOTAL "
+            f"{float(d['AM_TOTAL']):.6e} (step {MODES_STEPS})")
+        drift = abs(self.am(s, grid64) - am0) / abs(am0)
+        s_nof = s0
+        for _ in range(MODES_STEPS):
+            s_nof = self.dc.dyn_run(s_nof, grid, coord, phis,
+                                    self.FVConfig(), MODES_DT)
+        drift_nof = abs(self.am(s_nof, grid64) - am0) / abs(am0)
+        log(f"JW06 f19 float32, relative AM drift over {MODES_STEPS} steps: "
+            f"with the fixer {drift:.3e}, without {drift_nof:.3e}")
+        if not drift < drift_nof:
+            raise RuntimeError("JW06: the fixer's AM drift is not smaller "
+                               "than without it")
+        graph_ms = sm.graph_check("JW06 fixer", lambda x: (step(x)[0],),
+                                  (s,))
+        dispatch = min(times[1:])
+        log(f"JW06 fixer step at {IM}x{JM}x{KM} float32 [{self.card}]: per "
+            f"dispatch {1e3 * dispatch:.2f} ms (the fastest of steps 2-"
+            f"{MODES_STEPS}), as a graph {1e3 * graph_ms:.3f} ms; the HS "
+            f"step as a graph (phase 10) "
+            + (f"{1e3 * hs_ms:.3f} ms" if hs_ms else "not measured here"))
+        g64, c64, s64, p64 = self.jw(torch.float64)
+
+        ends = []
+
+        def run64():
+            x = s64
+            for _ in range(MODES_F64_STEPS):
+                x, dd = self.dc.dyn_run(x, g64, c64, p64, cfg, MODES_DT,
+                                        return_diags=True)
+            ends.append(x)
+            return {**dyn_fields(x), **{k: dd[k] for k in AM_KEYS}}
+
+        self.kernels_vs_plain(f"JW06 fixer float64, {MODES_F64_STEPS} steps",
+                              run64)
+        return kept, ends[0]
+
+    # ---- (B) the AM correction over topography
+    def am_correction(self):
+        torch = self.torch
+        grid, coord, s, phis = self.jw(torch.float64)
+        lat = np.linspace(-np.pi / 2, np.pi / 2, JM)
+        lon = np.linspace(0, 2 * np.pi, IM, endpoint=False)
+        phis = phis + torch.as_tensor(
+            1500.0 * 9.80616 * np.exp(-((lat[:, None] - 0.7) / 0.3) ** 2)
+            * (1.0 + np.cos(lon)[None, :]), dtype=torch.float64,
+            device=DEVICE)
+        for _ in range(2):          # spin up: the JW ps is uniform
+            s = self.dc.dyn_run(s, grid, coord, phis, self.FVConfig(),
+                                MODES_DT)
+        am0 = float(self.dc.axial_angular_momentum(s, grid))
+        tq = float(self.dc.mountain_torque(s, phis, grid, coord.ptop))
+        mism = {}
+        for flag in (False, True):
+            s1 = self.dc.dyn_run(s, grid, coord, phis,
+                                 self.FVConfig(am_correction=flag, nsplit=1,
+                                               nspltrac=1), CORR_DT)
+            mism[flag] = abs(float(self.dc.axial_angular_momentum(
+                s1, grid)) - am0 - CORR_DT * tq) / abs(am0)
+        log(f"AM correction f19 float64, one small step of {CORR_DT:.0f} s "
+            f"over the mountain: torque {tq:.6e}; |AM_after - AM_before - "
+            f"dt torque| / |AM| with the correction {mism[True]:.3e}, "
+            f"without {mism[False]:.3e} (tests/test_am_flags.py's bound: "
+            f"< 0.25 x without)")
+        if tq == 0.0 or not mism[True] < 0.25 * mism[False]:
+            raise RuntimeError(f"AM correction: torque {tq}, mismatch "
+                               f"{mism}")
+
+    # ---- (C) high-altitude κ
+    def high_altitude(self):
+        torch, sm = self.torch, self.sm
+        grid, coord, s, phis = self.jw(torch.float64, nq=4)
+        lat = torch.linspace(-1.0, 1.0, JM, dtype=torch.float64,
+                             device=DEVICE)
+        lon = torch.linspace(0, 2 * math.pi, IM + 1, dtype=torch.float64,
+                             device=DEVICE)[:-1]
+        o = torch.linspace(0.4, 0.0, KM, dtype=torch.float64,
+                           device=DEVICE)[:, None, None] * \
+            (0.6 + 0.4 * torch.cos(lat)[None, :, None]) * \
+            (1.0 + 0.3 * torch.cos(lon)[None, None, :])
+        q = s.q.clone()
+        q[1], q[2], q[3] = o, 0.2, 0.01 * o
+        s = s.replace(q=q)
+        cfg = self.FVConfig(high_altitude=True, major_species=JW_SPECIES)
+        seen, args, orig = [], [], self.dc.tracer_div3d
+
+        def rec(qq, *a, **kw):
+            seen.append(qq.shape[0])
+            args.append(((qq,) + a, kw))
+            return orig(qq, *a, **kw)
+
+        def run():
+            x = s
+            for _ in range(MODES_F64_STEPS):
+                x = self.dc.dyn_run(x, grid, coord, phis, cfg, MODES_DT)
+            return dyn_fields(x)
+
+        sm.zero_counts()
+        self.dc.tracer_div3d = rec
+        try:
+            run()
+        finally:
+            self.dc.tracer_div3d = orig
+        torch.cuda.synchronize()
+        log(f"high_altitude f19 float64: tracer_div3d took {sorted(set(seen))}"
+            f" tracers (nq + 1), {sm.counts()['tracer_div3d']} launches in "
+            f"{MODES_F64_STEPS} steps")
+        if set(seen) != {5} or sm.counts()["tracer_div3d"] == 0:
+            raise RuntimeError(f"high_altitude: tracer_div3d saw {seen}")
+        self.kernels_vs_plain(f"high_altitude float64, {MODES_F64_STEPS} "
+                              f"steps", run)
+        # tracer_div3d on the five-tracer stack this path gives it: against
+        # its plain version, and timed against the same call on one tracer
+        a, kw = args[0]
+        for dt in ("float32", "float64"):
+            sm.compare("tracer_div3d[nq+1=5]", "tracer_div3d", a, kw, dt)
+        a, kw = sm.cast(a, kw, torch.float32)
+        ms5 = sm.time_call(sm.kernel("tracer_div3d"), a, kw, 50)
+        plain5 = sm.time_call(sm.plain("tracer_div3d"), a, kw, 5)
+        ms1 = sm.time_call(sm.kernel("tracer_div3d"),
+                           (a[0][:1].contiguous(),) + a[1:], kw, 50)
+        log(f"time tracer_div3d float32 [{self.card}]: 5 tracers "
+            f"{ms5:.4f} ms (plain {plain5:.4f} ms), 1 tracer {ms1:.4f} ms "
+            f"a call (x{ms5 / ms1:.2f})")
+
+    # ---- (E) the debug terms
+    def debug_terms(self):
+        torch, sm = self.torch, self.sm
+        grid, coord, s, phis = self.jw(torch.float32)
+        kw = dict(c_sw_pgf=True, filter_impl="fft")
+        sm.zero_counts()
+        s1, d1 = self.cd.cd_step(s, grid, coord.ptop, phis, 450.0,
+                                 return_debug=True, **kw)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in sm.counts().items() if v}
+        s0, d0 = self.cd.cd_step(s, grid, coord.ptop, phis, 450.0,
+                                 fused=False, **kw)
+        dbg = d1.pop("debug")
+        same = all(torch.equal(a, b) for a, b in zip(
+            dyn_fields(s1).values(), dyn_fields(s0).values())) and \
+            all(torch.equal(d1[k], d0[k]) for k in d0)
+        bad = [k for k, v in dbg.items() if not bool(v.isfinite().all())]
+        log(f"cd_step(return_debug=True) f19 float32: the unfused step "
+            f"(launches {counts}); state and diagnostics bitwise equal to "
+            f"return_debug=False: {same}; {len(dbg)} debug terms, not "
+            f"finite: {bad}")
+        if not same or bad or not counts.get("transport3d") \
+                or not counts.get("vort_flux3d"):
+            raise RuntimeError("cd_step(return_debug=True) failed")
+
+    # ---- (F) IC files, met files and the offline dynamics
+    def files(self, kept, s):
+        """(A)'s float64 state `s` (after its float64 steps through the
+        kernels: on the hybrid coordinate) through an IC file, and (A)'s
+        float32 states `kept` (steps 0, 4, 8) as a met file."""
+        torch = self.torch
+        grid, coord = self.fv(torch.float64)
+        _, phis = self.bw.jw_baroclinic_wave(grid, coord, device=DEVICE)
+        path = str(self.out / "ic.nc")
+        self.ini.write_inidat(path, s, phis, grid, coord)
+        back, bphis = self.ini.read_inidat(path, grid, coord, device=DEVICE)
+        exact = {"u": torch.equal(back.u[:, 1:], s.u[:, 1:]),
+                 "v": torch.equal(back.v[:, 1:-1], s.v[:, 1:-1]),
+                 "q": torch.equal(back.q, s.q),
+                 "phis": torch.equal(bphis.cpu(), torch.as_tensor(
+                     self.ini.pole_average(phis.cpu().numpy())))}
+        rel = rel_diffs({"delp": back.delp, "pt": back.pt},
+                        {"delp": s.delp, "pt": s.pt})
+        log(f"IC file f19 float64 ({(self.out / 'ic.nc').stat().st_size} B):"
+            f" read back on the card, bitwise {exact}; delp {rel['delp']:.3e}"
+            f", pt {rel['pt']:.3e} (through PS and T; tol {IC_TOL_F64:.0e})")
+        if not all(exact.values()) or max(rel.values()) > IC_TOL_F64:
+            raise RuntimeError(f"IC round trip: {exact} {rel}")
+        # the file holds u on edge rows 1..jm-1 (US); row 0, the south
+        # pole's edge, reads as 0 (the fixer's increment reaches it)
+        u0 = s.u.clone()
+        u0[:, 0] = 0.0
+        cfg = self.FVConfig()
+        a = self.dc.dyn_run(back, grid, coord, phis, cfg, MODES_DT)
+        b = self.dc.dyn_run(s.replace(u=u0), grid, coord, phis, cfg,
+                            MODES_DT)
+        self.gate_rel("dyn_run from the read-back IC vs the in-memory "
+                      "state, float64", rel_diffs(dyn_fields(a),
+                                                  dyn_fields(b)),
+                      MODES_TOL_F64)
+        # three of (A)'s states as a met file, and the offline steps
+        path = str(self.out / "met.nc")
+        g32, c32 = self.fv(torch.float32)
+        recs = []
+        for x in kept:
+            pe, _, pkz, _ = self.cd.pressure_vars(x.delp, c32.ptop)
+            recs.append((x.u, x.v, x.pt * pkz / (1.0 + self.zvir * x.q[0]),
+                         pe[-1], x.q[0]))
+        times = [0.0, 4 * MODES_DT, MODES_STEPS * MODES_DT]
+        self.met.save_metdata_netcdf(
+            path, times, *(torch.stack([r[i] for r in recs])
+                           for i in range(4)),
+            [torch.stack([r[4] for r in recs])])
+        runs = {}
+        for dev in (DEVICE, "cpu"):
+            _, c64 = self.fv(torch.float64, dev)
+            met = self.met.load_metdata_netcdf(path, c64, device=dev)
+            x = s.replace(**{k: v.to(dev) for k, v in dyn_fields(s).items()})
+            for i in range(MODES_STEPS):
+                x = self.met.offline_dyn_run(x, met, i * MODES_DT, MODES_DT,
+                                             met_rlx=0.5)
+            runs[dev] = dyn_fields(x)
+        self.gate_rel(f"offline_dyn_run, {MODES_STEPS} steps through the met"
+                      f" file, card vs CPU float64", rel_diffs(
+                          runs[DEVICE], runs["cpu"]), OFFLINE_TOL)
+
+    # ---- (G) SCAM
+    def scam(self):
+        torch, sm = self.torch, self.sm
+        from cam_nor_physics_tpu_torch import entry
+        from cam_nor_physics_tpu_torch.models import scam
+        from cam_nor_physics_tpu_torch.models.coupling.camsrfexch import \
+            CamIn
+        from cam_nor_physics_tpu_torch.models.physics.constituents import \
+            default_registry
+        from cam_nor_physics_tpu_torch.utils.config import (PhysConfig,
+                                                             ZMConfig)
+        zs = ZMSmoke(torch, sm)
+        for n in (1, SCAM_NCOL):
+            args = zs.capture(*entry.varied_zm_inputs(n, KM, torch.float32,
+                                                      DEVICE))
+            for dt in ("float32", "float64"):
+                zs.compare_tail(*args, dt, label=f"zm_tail ncol {n}")
+        # a day of IOP forcing, a record every 3 h
+        rng = np.random.default_rng(16)
+        tsec = np.arange(9) * 10800.0
+        diurnal = np.sin(2 * np.pi * tsec / 86400.0)[:, None]
+        path = str(self.out / "iop.nc")
+        scam.save_iop_netcdf(
+            path, tsec, -1e-5 * (1.0 + 0.5 * diurnal) *
+            rng.uniform(0.5, 1.0, (9, KM)),
+            1e-8 * rng.uniform(0.0, 1.0, (9, KM)),
+            -0.05 * rng.uniform(0.0, 1.0, (9, KM)),
+            20.0 + 15.0 * diurnal[:, 0], 80.0 + 40.0 * diurnal[:, 0])
+        reg = default_registry()
+
+        def run(dtype, dev):
+            st, _, fo = entry.varied_zm_inputs(SCAM_NCOL, KM, dtype, dev)
+            ci = CamIn.zeros(SCAM_NCOL, reg.pcnst, dtype, dev).replace(
+                landfrac=fo["landfrac"], ocnfrac=1.0 - fo["landfrac"])
+            iop = scam.load_iop_netcdf(path, dtype, dev)
+            return scam.scam_run_iop(PhysConfig(), ZMConfig(), reg, st, ci,
+                                     iop, MODES_DT, SCAM_STEPS)
+
+        sm.zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, pbuf, series = run(torch.float32, DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in sm.counts().items() if v}
+        fin = all(bool(t.isfinite().all()) for t in
+                  list(dyn_fields(st).values()) + list(series.values()))
+        log(f"SCAM f32 {SCAM_NCOL} columns x {KM} levels, {SCAM_STEPS} steps"
+            f" (a day) through scam_run_iop: launches {got}; finite {fin}; "
+            f"precc max {float(series['precc'].max()):.4e} m/s, columns "
+            f"precipitating {int((series['precc'].amax(0) > 0).sum())}; "
+            f"{1e3 * wall / SCAM_STEPS:.1f} ms a step per dispatch "
+            f"[{self.card}]")
+        launched = got
+        runs = {dev: run(torch.float64, dev) for dev in (DEVICE, "cpu")}
+        idx = ("ZM_IDEEP", "ZM_JT", "ZM_MAXG")
+        flips = int(sum((runs[DEVICE][1].get(k).cpu() !=
+                         runs["cpu"][1].get(k)) for k in idx).gt(0).sum())
+        got, want = ({**{f"state.{k}": v for k, v in
+                         dyn_fields(r[0]).items()},
+                      **{f"series.{k}": v for k, v in r[2].items()}}
+                     for r in (runs[DEVICE], runs["cpu"]))
+        log(f"SCAM float64, {SCAM_STEPS} steps: columns whose ZM trigger or "
+            f"level indices differ at the end, card vs CPU: {flips} of "
+            f"{SCAM_NCOL}")
+        self.gate_rel(f"SCAM float64, {SCAM_STEPS} steps, card vs CPU",
+                      rel_diffs(got, want), SCAM_TOL_F64)
+        if launched != {"zm_tail": SCAM_STEPS} or not fin:
+            raise RuntimeError(f"SCAM: launches {launched}, finite {fin}")
+        return wall / SCAM_STEPS
+
+
+def run_modes(torch, sm: Smoke, card: str, hs_ms) -> None:
+    """Phase 16: the other modes at f19 (ModesSmoke)."""
+    from cam_nor_physics_tpu_torch.entry import build_coupled
+    ms = ModesSmoke(torch, sm, card)
+    t = {}
+
+    def part(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        t[name] = time.perf_counter() - t0
+        return out
+
+    kept, s64 = part("A", ms.jw_fixer, hs_ms)
+    part("B", ms.am_correction)
+    part("C", ms.high_altitude)
+    torch.cuda.empty_cache()
+    # (D) the coupled step with Rayleigh friction and the TEM diagnostics
+    t0 = time.perf_counter()
+    cs = CoupledSmoke(torch, sm, card)
+    phys = dict(raytau0=5.0, do_circulation_diags=True)
+    model, step, state, _ = build_coupled(IM, JM, KM, torch.float32, DEVICE,
+                                          **phys)
+    state, _, kept_d = cs.counted_steps("f19 rayleigh+TEM", model, step,
+                                        state, 2, keep=TEM_KEYS)
+    bad = [k for d in kept_d for k in TEM_KEYS
+           if tuple(d[k].shape) != (KM, JM) or not bool(d[k].isfinite().all())]
+    log("coupled rayleigh+TEM f19: U2d max by step "
+        + ", ".join(f"{float(d['U2d'].max()):.4e}" for d in kept_d)
+        + " m/s; VTH2d absmax "
+        + ", ".join(f"{float(d['VTH2d'].abs().max()):.4e}" for d in kept_d)
+        + f" K m/s; bad {bad}")
+    if bad:
+        raise RuntimeError(f"coupled rayleigh+TEM: TEM fields {bad}")
+    coupled_graph = cs.graph(step, state)
+    del state
+    torch.cuda.empty_cache()
+    cs.parity64(tag="coupled rayleigh+TEM", **phys)
+    torch.cuda.empty_cache()
+    t["D"] = time.perf_counter() - t0
+    part("E", ms.debug_terms)
+    part("F", ms.files, kept, s64)
+    scam_s = part("G", ms.scam)
+    import shutil
+    shutil.rmtree(ms.out, ignore_errors=True)
+    log(f"phase 16 [{card}]: coupled rayleigh+TEM graph step "
+        f"{1e3 * coupled_graph:.2f} ms; SCAM {1e3 * scam_s:.1f} ms a step; "
+        f"wall by part " + ", ".join(f"({k}) {v:.1f} s" for k, v in t.items()))
+
+
 def device_us(fn, reps):
     """Device µs a call of fn, which launches one kernel: the mean
     duration of the launches torch.profiler recorded in `reps` calls."""
@@ -2163,8 +2657,8 @@ def run(torch) -> dict:
         hs_carry = (state,)
         for _ in range(bench.SPINUP):
             hs_carry = (hs(hs_carry[0], grid, coord, phis),)
-        sm.graph_check("HS", lambda s: (hs(s, grid, coord, phis),),
-                       hs_carry)
+        hs_ms = sm.graph_check("HS", lambda s: (hs(s, grid, coord, phis),),
+                               hs_carry)
         zstep, pstate, pbuf, _ = build_zm_step(NCOL, KM, torch.float32,
                                                DEVICE)
         sm.graph_check("ZM", zstep, (pstate, pbuf))
@@ -2211,6 +2705,11 @@ def run(torch) -> dict:
         run_microp(torch, sm, card, coupled_ms)
         torch.cuda.empty_cache()
 
+    # ---- phase 16: the other modes at f19
+    with phase("16 other modes at f19"):
+        run_modes(torch, sm, card, hs_ms)
+        torch.cuda.empty_cache()
+
     kernels = []
     for name, source, replaces in KERNELS:
         if name in ("zm_tail", "probe"):
@@ -2234,6 +2733,20 @@ def run(torch) -> dict:
     return {"card": card, "kernels": kernels}
 
 
+def run_phase16(torch) -> int:
+    """`python3 chip_smoke.py --phase 16`: the build and phase 16 alone
+    (the HS graph step not measured); prints no result line."""
+    from cam_nor_physics_tpu_torch.bench import card_label
+    from cam_nor_physics_tpu_torch.ops import cuda_build
+    card = card_label()
+    log(card)
+    times = cuda_build.build()
+    log("build: " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
+    with phase("16 other modes at f19"):
+        run_modes(torch, Smoke(torch, card), card, None)
+    return 0
+
+
 def main() -> int:
     if not (REPO / "cam_nor_physics_tpu_torch" / "entry.py").is_file():
         print("chip_smoke.py must run from a checkout of the repo "
@@ -2245,6 +2758,8 @@ def main() -> int:
               "is False", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    if sys.argv[1:] == ["--phase", "16"]:
+        return run_phase16(torch)
     t0 = time.perf_counter()
     record = run(torch)
     log(f"chip_smoke.py: {time.perf_counter() - t0:.1f} s wall in all")

@@ -3,7 +3,9 @@ modal_aer_opt, oslo_aero and physpkg's aerosol branch), float64 on the
 CPU.
 
 - Against the JAX package (tests/torch_port_microp_ref.py, in a fresh
-  interpreter while the port computes; ROADMAP R1), on inputs made here
+  interpreter while the port computes, shared with the ZM microphysics'
+  and SCAM's references: torch_port_util.shared_jax_reference; ROADMAP
+  R1), on inputs made here
   from numpy seeds, within 1e-12 of each output's max:
   modal_aero_calcsize with the default size and with a number mixing
   ratio (clipped into the mode's size range), modal_aero_wateruptake
@@ -51,8 +53,8 @@ from cam_nor_physics_tpu_torch.utils.config import (FVConfig, PhysConfig,
                                                      ZMConfig)
 from test_torch_atm_comp import _HostReads
 from test_torch_physpkg import _flat, _inputs
-from test_torch_zm_microp import check, run_reference
-from torch_port_util import npy
+from test_torch_zm_microp import check
+from torch_port_util import npy, shared_jax_reference
 
 pytest_plugins = ("torch_port_plugin",)
 
@@ -164,8 +166,8 @@ INDEX_KEYS = ("pbuf.ZM_IDEEP", "pbuf.ZM_JT", "pbuf.ZM_MAXG", "diag.CLDTOP",
               "diag.CLDBOT")
 
 
-def test_aerosol_matches_jax(tmp_path):
-    got, want = run_reference(tmp_path, "aero", _cases(), _port)
+def test_aerosol_matches_jax(tmp_path_factory):
+    got, want = shared_jax_reference(tmp_path_factory, "aero", _port)
     assert set(got) == set(want)
     for tag in ("default", "num"):
         check(got[f"size.{tag}"], want[f"size.{tag}"], TOL, f"size {tag}")

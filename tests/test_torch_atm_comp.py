@@ -31,9 +31,10 @@ CPU, and the step's own contracts.
   that logs every _local_scalar_dense, nonzero and index.Tensor, the
   only ones are the float(torch.tensor(eps, dtype=...)) constants of the
   ZM code (CPU scalars, never on the card).
-- The options the port does not implement raise: cam_physpkg="cam3",
-  raytau0 > 0 and do_circulation_diags; a non-empty aero_modes (ported
-  since) runs.
+- cam_physpkg="cam3" raises; a non-empty aero_modes, raytau0 > 0 and
+  do_circulation_diags (ported since they raised) run: the TEM fields
+  join the step's diagnostics, and Rayleigh friction does not speed up
+  the top level's winds.
 """
 
 import linecache
@@ -296,11 +297,24 @@ def test_unported_options_raise(option):
         assert float(diags["AODVIS_accum"].min()) > 0.0
         assert float(state.pbuf.get("NAER").min()) > 0.0
         return
-    value = {"cam_physpkg": "cam3", "raytau0": 1.0,
-             "do_circulation_diags": True}[option]
-    match = "ctem" if option == "do_circulation_diags" else option
-    with pytest.raises(NotImplementedError, match=match):
-        model = _model(FVConfig(nsplit=2, nspltrac=1), 12, 8, 4,
-                       **{option: value})
-        state, sst = _initial(model)
-        _step(model, state, sst, first_step=True)
+    if option == "cam_physpkg":
+        with pytest.raises(NotImplementedError, match=option):
+            _model(FVConfig(nsplit=2, nspltrac=1), 12, 8, 4,
+                   cam_physpkg="cam3")
+        return
+    value = {"raytau0": 1.0, "do_circulation_diags": True}[option]
+    model = _model(FVConfig(nsplit=2, nspltrac=1), 12, 8, 4,
+                   cam_snapshot=True, **{option: value})
+    state, sst = _initial(model)
+    state, _, diags = _step(model, state, sst, first_step=True)
+    for t in (state.dyn.u, state.dyn.pt, state.phys.t):
+        assert torch.isfinite(t).all()
+    if option == "do_circulation_diags":
+        for k in ("U2d", "V2d", "W2d", "TH2d", "VTH2d", "WTH2d", "UV2d",
+                  "UW2d"):
+            assert diags[k].shape == (4, 8) and torch.isfinite(
+                diags[k]).all(), k
+    else:
+        u0 = diags["SNAP_rayleigh_before_U"][:, 0]
+        u1 = diags["SNAP_rayleigh_after_U"][:, 0]
+        assert (u1.abs() <= u0.abs()).all()

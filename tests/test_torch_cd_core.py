@@ -130,9 +130,25 @@ def test_cd_step_matches_jax(filter_impl, flags):
 
 
 def test_unported_options_raise():
+    """mesh raises. return_debug, which raised until it was ported, runs
+    the unfused step: its state and diagnostics bitwise those of the
+    step without it, and its terms finite (test_torch_dyn_options.py
+    holds them to JAX's)."""
     fields, tg, tc, phis = _spun_up_state()
     st = convert.dynstate_from_numpy(fields, "cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         tcd.cd_step(st, tg, tc.ptop, phis, 450.0, mesh=object())
-    with pytest.raises(NotImplementedError, match="return_debug"):
-        tcd.cd_step(st, tg, tc.ptop, phis, 450.0, return_debug=True)
+    new, diags = tcd.cd_step(st, tg, tc.ptop, phis, 450.0, c_sw_pgf=True,
+                             return_debug=True)
+    ref, rdiags = tcd.cd_step(st, tg, tc.ptop, phis, 450.0, c_sw_pgf=True,
+                              fused=False)
+    for f in ("u", "v", "pt", "delp", "q"):
+        assert torch.equal(getattr(new, f), getattr(ref, f)), f
+    dbg = diags.pop("debug")
+    assert set(diags) == set(rdiags)
+    for k in rdiags:
+        assert torch.equal(diags[k], rdiags[k]), k
+    assert {"uc0", "duc", "pgf_u_c", "delp_h", "fy_z", "du_pgf", "fx_z",
+            "dv_pgf", "ke", "zeta_a", "du", "dv"} <= set(dbg)
+    for k, v in dbg.items():
+        assert torch.isfinite(v).all(), k

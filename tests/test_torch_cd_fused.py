@@ -8,8 +8,9 @@ against the JAX package's cd_pallas, float64 on the CPU at 36x24x6.
   state field and diagnostic within 1e-10 of its max. The two evaluate the
   same formulas; log and pow come from other math libraries (about an
   ulp), which the pressure-gradient cancellation amplifies (measured
-  margin in ROADMAP.md Queue 3). JAX's interpreted kernels run in a fresh
-  interpreter (conftest.run_test_in_subprocess).
+  margin in ROADMAP.md Queue 3). JAX's interpreted kernels run in fresh
+  interpreters, one a flag set, all at once while the port runs
+  (tests/torch_port_modes_ref.py "cd_fused").
 - The same step against JAX's unfused cd_step(use_pallas=False) within
   rtol 1e-7, the tolerance of tests/test_cd_pallas.py: the carry and the
   cumsum associate the pressure sum differently.
@@ -35,8 +36,8 @@ from cam_nor_physics_tpu_torch.models.fv import cd_core as tcd
 from cam_nor_physics_tpu_torch.models.fv import cd_fused as tcf
 from cam_nor_physics_tpu_torch.models.fv import grid as tgrid
 from cam_nor_physics_tpu_torch.ops import cd_fused_kernels as ck
-from conftest import run_test_in_subprocess
-from torch_port_util import assert_close, host_build, npy, t64
+from torch_port_util import (assert_close, host_build, npy,
+                             reference_processes, t64)
 
 pytest_plugins = ("torch_port_plugin",)
 
@@ -135,21 +136,28 @@ def _jax_fused(fields, flags):
             {f: np.asarray(diag[f]) for f in DIAGS})
 
 
-def test_fused_cd_step_matches_jax_fused(request):
+def test_fused_cd_step_matches_jax_fused(tmp_path):
     """The port's cd_step (fused, plain versions on the CPU) against JAX
     cd_step_fused in interpret mode, four flag sets, 1e-10 of each
     field's max. The errors relative to each field's max are printed
-    (seen with CAM_SUBPROC_TEST=1 pytest -s on this test)."""
-    if run_test_in_subprocess(request, timeout=600):
-        return
+    (seen with pytest -s on this test)."""
     st, grid, coord, phis = _spun_up()
     fields = convert.dynstate_to_numpy(st)
-    for name, flags in FLAG_SETS.items():
-        new, diag = _port_step(st, grid, coord, phis, flags)
-        want_state, want_diag = _jax_fused(fields, flags)
-        got = {f: npy(getattr(new, f)) for f in STATE}
-        got.update({f: npy(diag[f]) for f in DIAGS})
-        want = dict(want_state, **want_diag)
+
+    def port(_):
+        out = {}
+        for name, flags in FLAG_SETS.items():
+            new, diag = _port_step(st, grid, coord, phis, flags)
+            out[name] = {f: npy(getattr(new, f)) for f in STATE}
+            out[name].update({f: npy(diag[f]) for f in DIAGS})
+        return out
+
+    ported, outs = reference_processes(
+        tmp_path, "torch_port_modes_ref.py",
+        [("cd_fused", dict(fields=fields, flags=name))
+         for name in FLAG_SETS], port, None)
+    for (name, flags), want in zip(FLAG_SETS.items(), outs):
+        got = ported[name]
         for f in STATE + DIAGS:
             assert_close(got[f], want[f], TOL_JAX, f"{name} {f}")
         rel = {f: np.abs(got[f] - want[f]).max() / np.abs(want[f]).max()

@@ -196,19 +196,26 @@ def test_round_trip_identity():
 
 def test_d_p_coupling_diags_match_jax():
     grid, coord, reg, fields, phis, jgrid, jcoord, jreg = _setup()
+    om = np.random.default_rng(9).standard_normal((KM, JM, IM))
     got = tdp.d_p_coupling_diags(_tdyn(fields), grid, coord.ptop,
-                                 use_gw_front=True, qbo_use_forcing=True)
-    want = jax.jit(lambda s: jdp.d_p_coupling_diags(
-        s, jgrid, jcoord.ptop, use_gw_front=True, qbo_use_forcing=True))(
-        _jdyn(fields))
-    assert set(got) == set(want) == {"FRONTGF", "FRONTGA", "UZM"}
-    for k in got:
+                                 omega=t64(om), use_gw_front=True,
+                                 qbo_use_forcing=True,
+                                 do_circulation_diags=True)
+    want = jax.jit(lambda s, o: jdp.d_p_coupling_diags(
+        s, jgrid, jcoord.ptop, omega=o, use_gw_front=True,
+        qbo_use_forcing=True, do_circulation_diags=True))(
+        _jdyn(fields), jnp.asarray(om))
+    assert set(got) == set(want) == {"FRONTGF", "FRONTGA", "UZM", "ctem"}
+    for k in ("FRONTGF", "FRONTGA", "UZM"):
         assert got[k].shape == (JM * IM, KM)
         assert_close(got[k], want[k], TOL, k)
+    # the TEM diagnostics (fv/ctem), ported since they raised
+    assert set(got["ctem"]) == set(want["ctem"]) == {
+        "U2d", "V2d", "W2d", "TH2d", "VTH2d", "WTH2d", "UV2d", "UW2d"}
+    for k, w in want["ctem"].items():
+        assert got["ctem"][k].shape == (KM, JM)
+        assert_close(got["ctem"][k], w, TOL, k)
     assert tdp.d_p_coupling_diags(_tdyn(fields), grid, coord.ptop) == {}
-    with pytest.raises(NotImplementedError, match="ctem"):
-        tdp.d_p_coupling_diags(_tdyn(fields), grid, coord.ptop,
-                               do_circulation_diags=True)
 
 
 # ---- check_energy ----

@@ -324,10 +324,13 @@ def test_tphysbc_tphysac_match_jax():
 
 @pytest.mark.parametrize("field", ["aero_modes", "raytau0"])
 def test_unported_physics_options_raise(field):
-    """raytau0 > 0 (Rayleigh friction, not ported) and cam_physpkg="cam3"
-    raise. aero_modes, which raised until the modal aerosol was ported,
-    runs tphysbc's aerosol branch: the per-mode stacks filled and the AOD
-    family emitted (JAX parity: tests/test_torch_aerosol.py)."""
+    """cam_physpkg="cam3" raises. aero_modes and raytau0 > 0, which
+    raised until they were ported, run: tphysbc's aerosol branch fills
+    the per-mode stacks and emits the AOD family (JAX parity:
+    tests/test_torch_aerosol.py); tphysac with Rayleigh friction
+    (raytau0 = 1 day, snapshots on) matches JAX's phys_run2 at 1e-10,
+    with the rayleigh_before/after snapshots, the drag decelerating the
+    top levels."""
     st, pbuf, ci = _inputs()
     reg, zm = default_registry(), ZMConfig()
     if field == "aero_modes":
@@ -351,8 +354,23 @@ def test_unported_physics_options_raise(field):
         assert float(out.pbuf.get("NAER").min()) > 0.0
         assert out.diagnostics["AER_TAU_SW"].shape == (NCOL, PVER, 14)
     else:
-        with pytest.raises(NotImplementedError, match=field):
-            tpp.phys_run2(PhysConfig(raytau0=1.0), reg, st, pbuf, ci, DT)
+        from cam_nor_physics_tpu.models.physics import constituents as jcn
+        from cam_nor_physics_tpu.models.physics import physpkg as jpp
+        from cam_nor_physics_tpu.utils.config import PhysConfig as JPhys
+        cfg = dict(radiation_scheme="gray", cam_snapshot=True, raytau0=1.0)
+        got = _flat(tpp.phys_run2(PhysConfig(**cfg), reg, st, pbuf, ci, DT))
+        pbuf_np, lifetimes = convert.pbuf_to_numpy(pbuf)
+        want = _flat(jax.jit(lambda s, f, c: jpp.phys_run2(
+            JPhys(**cfg), jcn.default_registry(), s,
+            jpb.PhysicsBuffer(fields=f, lifetimes=lifetimes), c, DT))(
+            _jstate(st), {k: jnp.asarray(v) for k, v in pbuf_np.items()},
+            _jcam_in(ci)))
+        _check(got, want, "phys_run2 raytau0")
+        assert "diag.SNAP_rayleigh_after_U" in want
+        du = got["diag.SNAP_rayleigh_after_U"] - \
+            got["diag.SNAP_rayleigh_before_U"]
+        u0 = got["diag.SNAP_rayleigh_before_U"]
+        assert (du[:, 0] * u0[:, 0] <= 0).all() and np.abs(du[:, 0]).max() > 0
     with pytest.raises(NotImplementedError, match="cam_physpkg"):
         PhysConfig(cam_physpkg="cam3")
 

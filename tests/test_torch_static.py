@@ -13,8 +13,9 @@
   and the driver's (quick_run, cli.run_main) too.
 - convert.py carries state, grid and coordinate, the physics state and
   buffer, and the coupled state, across and back unchanged.
-- The options the port does not implement raise NotImplementedError;
-  ZMConfig.microp, which raised until it was ported, runs.
+- The options the port does not implement raise NotImplementedError
+  (mesh in dyn_run); ZMConfig.microp and the dycore's AM and
+  high-altitude options, which raised until they were ported, run.
 """
 
 import ast
@@ -101,8 +102,18 @@ MICROP_MODULES = (
     "models/physics/modal_aer_opt.py", "models/physics/oslo_aero.py")
 
 
+# the dycore's options and the model's other modes (each must exist and be
+# scanned)
+MODES_MODULES = (
+    "models/fv/dyn_comp.py", "ops/thermo.py",
+    "models/physics/rayleigh_friction.py", "models/fv/ctem.py",
+    "utils/climatology.py", "models/fv/baroclinic_wave.py",
+    "models/fv/inidat.py", "models/fv/metdata.py", "models/scam.py")
+
+
 @pytest.mark.parametrize("module",
-                         COUPLED_MODULES + DRIVER_MODULES + MICROP_MODULES)
+                         COUPLED_MODULES + DRIVER_MODULES + MICROP_MODULES +
+                         MODES_MODULES)
 def test_coupled_modules_are_scanned(module):
     path = REPO / "cam_nor_physics_tpu_torch" / module
     assert path in _port_sources()
@@ -197,6 +208,38 @@ def test_driver_entry_points_raise_without_cuda(tmp_path):
         run_main(["--nsteps", "1", "--out", str(tmp_path)])
 
 
+def test_mode_entry_points_raise_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from cam_nor_physics_tpu_torch.models import scam
+    from cam_nor_physics_tpu_torch.models.fv import (baroclinic_wave,
+                                                     inidat, metdata)
+    from cam_nor_physics_tpu_torch.models.fv.grid import make_grid
+    from cam_nor_physics_tpu_torch.models.fv.vertical import \
+        hybrid_coefficients
+    from cam_nor_physics_tpu_torch.utils.climatology import climo_init
+    grid = make_grid(8, 6, 2, device="cpu")
+    coord = hybrid_coefficients(2, device="cpu")
+    st, phis = baroclinic_wave.jw_baroclinic_wave(grid, coord, device="cpu")
+    ic, met = str(tmp_path / "ic.nc"), str(tmp_path / "met.nc")
+    inidat.write_inidat(ic, st, phis, grid, coord)
+    z = np.zeros((2, 2, 6, 8))
+    metdata.save_metdata_netcdf(met, [0.0, 1.0], z, z, z + 250.0,
+                                np.full((2, 6, 8), 1e5), [z])
+    iop = str(tmp_path / "iop.nc")
+    scam.save_iop_netcdf(iop, [0.0, 1.0], np.zeros((2, 2)),
+                         np.zeros((2, 2)), np.zeros((2, 2)))
+    for call in (lambda: baroclinic_wave.jw_baroclinic_wave(grid, coord),
+                 lambda: inidat.read_inidat(ic, grid, coord),
+                 lambda: metdata.load_metdata_netcdf(met, coord),
+                 lambda: scam.load_iop_netcdf(iop),
+                 lambda: scam.scam_init_pbuf(4, 26),
+                 lambda: scam.ScamForcing.zeros(4, 26),
+                 lambda: climo_init(26, 6)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+
+
 def test_coupled_state_convert_round_trip():
     _, step, state, _ = build_coupled(12, 8, 4, torch.float64, "cpu",
                                       fv_cfg=FVConfig(nsplit=2, nspltrac=1))
@@ -288,10 +331,30 @@ def test_convert_round_trip():
 @pytest.mark.parametrize("option", ["am_correction", "am_fixer", "am_diag",
                                     "high_altitude"])
 def test_unported_dyn_run_options_raise(option):
+    """The AM and high-altitude options, which raised until they were
+    ported, run: the fixer and the correction move u (the correction
+    leaves delp as it was), am_diag returns its payload and
+    high_altitude with no species (constant κ) leaves pt as without it
+    (tests/test_torch_dyn_options.py holds each to JAX). mesh raises."""
     step, st, grid, coord, phis = build_step(12, 8, 2, torch.float64, "cpu")
-    with pytest.raises(NotImplementedError, match=option):
-        tdc.dyn_run(st, grid, coord, phis, FVConfig(**{option: True}),
-                    1800.0)
+    base = tdc.dyn_run(st, grid, coord, phis, FVConfig(), 1800.0)
+    new, diags = tdc.dyn_run(st, grid, coord, phis,
+                             FVConfig(**{option: True}), 1800.0,
+                             return_diags=True)
+    for f in ("u", "v", "pt", "delp", "q"):
+        assert torch.isfinite(getattr(new, f)).all()
+    if option == "am_fixer":
+        assert not torch.equal(new.u, base.u)
+    elif option == "am_correction":
+        assert torch.equal(new.delp, base.delp)
+        assert not torch.equal(new.u, base.u)
+    elif option == "am_diag":
+        assert {"AM_DU3S", "AM_DUFIX", "AM_TOTAL", "du3s",
+                "du_fix_s"} <= set(diags)
+        assert torch.equal(diags["du3s"], new.u - st.u)
+    else:
+        np.testing.assert_allclose(new.pt.numpy(), base.pt.numpy(),
+                                   rtol=1e-9)
     with pytest.raises(NotImplementedError, match="mesh"):
         tdc.dyn_run(st, grid, coord, phis, FVConfig(), 1800.0,
                     mesh=object())

@@ -2,7 +2,9 @@
 float64 on the CPU.
 
 - Against the JAX package (tests/torch_port_microp_ref.py, in a fresh
-  interpreter that runs while the port computes; ROADMAP R1), on inputs
+  interpreter that runs while the port computes, shared with the
+  aerosol's and SCAM's references: torch_port_util.shared_jax_reference;
+  ROADMAP R1), on inputs
   made here from numpy seeds:
   - zm_convr(ZMConfig(microp=True)) on 16 columns of
     test_zm_conv.make_sounding(unstable=True, seed=3), the last 8 over
@@ -34,12 +36,6 @@ float64 on the CPU.
   zm_tail launch.
 """
 
-import os
-import pickle
-import subprocess
-import sys
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -55,14 +51,12 @@ from cam_nor_physics_tpu_torch.models.physics.zm_microphysics import (
 from cam_nor_physics_tpu_torch.utils import constants as c
 from cam_nor_physics_tpu_torch.utils.config import ZMConfig
 from test_zm_conv import MSG, make_sounding
-from torch_port_util import npy
+from torch_port_util import npy, shared_jax_reference
 
 pytest_plugins = ("torch_port_plugin",)
 
 torch.set_num_threads(1)
 
-TESTS = Path(__file__).resolve().parent
-REPO = TESTS.parent
 SOUNDING = ("t", "q", "pmid", "pint", "pdel", "zm", "geos", "zi", "pblh",
             "tpert", "landfrac")
 TOL = 1e-10
@@ -224,27 +218,6 @@ def _port(cases):
     return out
 
 
-def run_reference(tmp_path, mode, cases, port):
-    """JAX's results of `cases` from torch_port_microp_ref.py in a fresh
-    interpreter, started before `port(cases)` runs here; returns (port's,
-    JAX's)."""
-    with open(tmp_path / "in.pkl", "wb") as f:
-        pickle.dump({"mode": mode, "cases": cases}, f)
-    ref = subprocess.Popen(
-        [sys.executable, str(TESTS / "torch_port_microp_ref.py"),
-         str(tmp_path)], cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    try:
-        got = port(cases)
-        log, _ = ref.communicate(timeout=900)
-    finally:
-        if ref.poll() is None:
-            ref.kill()
-    assert ref.returncode == 0, log[-4000:]
-    with open(tmp_path / "out.pkl", "rb") as f:
-        return got, pickle.load(f)
-
-
 def check(got, want, tol, tag, scales=None):
     """Every key of `want` in `got`, the key sets equal; integers and
     booleans equal, floats within tol of the field's max (or of
@@ -262,8 +235,8 @@ def check(got, want, tol, tag, scales=None):
                                    err_msg=f"{tag} {k}")
 
 
-def test_microp_matches_jax(tmp_path):
-    got, want = run_reference(tmp_path, "zm", _cases(), _port)
+def test_microp_matches_jax(tmp_path_factory):
+    got, want = shared_jax_reference(tmp_path_factory, "zm", _port)
     assert set(got) == set(want)
     conv = want["convr"]
     assert conv["ideep"].all() and conv["frz"].max() > 0

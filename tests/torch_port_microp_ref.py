@@ -1,13 +1,17 @@
-"""The JAX package's ZM microphysics and modal aerosol as the reference of
-tests/test_torch_zm_microp.py and tests/test_torch_aerosol.py.
+"""The JAX package's ZM microphysics, modal aerosol and single-column
+model as the reference of tests/test_torch_zm_microp.py,
+tests/test_torch_aerosol.py and tests/test_torch_modes.py.
 
-    python tests/torch_port_microp_ref.py DIR
+    python tests/torch_port_microp_ref.py DIR [DIR ...]
 
 Runs in a fresh interpreter (ROADMAP R1: JAX's microp programs stay out
 of the xdist workers), with the test suite's JAX settings
-(tests/conftest.py: CPU, float64). DIR/in.pkl holds {"mode": "zm" or
-"aero", "cases": {...}} of numpy inputs made by the test; the script
-writes DIR/out.pkl, {case: {key: numpy array}}.
+(tests/conftest.py: CPU, float64). Each DIR/in.pkl holds {"mode": "zm",
+"zm_tend", "aero", "scam", "scam_run" or "scam_iop", "cases": {...}} of
+numpy inputs made by a test; the
+script writes DIR/out.pkl, {case: {key: numpy array}}. The first of the
+three tests to run starts all three references at once, each in an
+interpreter of its own (torch_port_util.shared_jax_reference).
 
 Every JAX function runs under jax.disable_jit(): op by op, each lax.scan
 a Python loop over its levels. The JAX package's own tests run zm_convr
@@ -103,6 +107,8 @@ def _tick(label, t0=[time.perf_counter()]):
 
 
 def run_zm(cases):
+    """zm_convr, buoyan_dilute, zm_mphy, zm_conv_evap and
+    activated_number; run_zm_tend gives the "tend" cases."""
     out = {}
     c = cases["convr"]
     out["convr"] = flat_convr(jzm.zm_convr(
@@ -137,9 +143,14 @@ def run_zm(cases):
         activated_number
     out["act"] = {"nact": np.asarray(activated_number(
         _aero(cases["act"])))}
+    return out
+
+
+def run_zm_tend(cases):
     from cam_nor_physics_tpu.models.physics.constituents import \
         default_registry
     from cam_nor_physics_tpu.models.physics.zm_conv_intr import zm_conv_tend
+    out = {}
     t = cases["tend"]
     for tag, aero in (("clean", None), ("aero", t["aero"])):
         res = zm_conv_tend(ZMConfig(microp=True), default_registry(),
@@ -196,14 +207,25 @@ def run_aero(cases):
     return out
 
 
-def main(root):
-    with open(os.path.join(root, "in.pkl"), "rb") as f:
-        inp = pickle.load(f)
-    with jax.disable_jit():
-        out = {"zm": run_zm, "aero": run_aero}[inp["mode"]](inp["cases"])
-    with open(os.path.join(root, "out.pkl"), "wb") as f:
-        pickle.dump(out, f)
+def main(*roots):
+    from torch_port_modes_ref import run_scam
+    # op by op every primitive compiles in milliseconds; the persistent
+    # cache's lookup for each serialises reference processes that run at
+    # once (measured: three of them took 129 s with it, 72 s without)
+    jax.config.update("jax_enable_compilation_cache", False)
+    for root in roots:
+        with open(os.path.join(root, "in.pkl"), "rb") as f:
+            inp = pickle.load(f)
+        with jax.disable_jit():
+            out = {"zm": run_zm, "zm_tend": run_zm_tend, "aero": run_aero,
+                   "scam": run_scam,
+                   "scam_run": lambda c: run_scam(c, ("run",)),
+                   "scam_iop": lambda c: run_scam(c, ("iop", "step"))
+                   }[inp["mode"]](inp["cases"])
+        with open(os.path.join(root, "out.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        _tick(f"{inp['mode']} done")
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(*sys.argv[1:])

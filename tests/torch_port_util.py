@@ -6,10 +6,28 @@ cam_nor_physics_tpu_torch, on the CPU in float64, and compare the outputs
 with a tolerance relative to each output's largest magnitude.
 """
 
+import fcntl
+import hashlib
+import importlib
+import os
+import pickle
 import re
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import torch
+
+# the op-by-op JAX references that one test computes for all three files:
+# mode -> (test module, its function returning the numpy inputs, the
+# reference processes that compute it: tests/torch_port_microp_ref.py's
+# modes, merged)
+SHARED_REFERENCES = {"zm": ("test_torch_zm_microp", "_cases",
+                            ("zm", "zm_tend")),
+                     "aero": ("test_torch_aerosol", "_cases", ("aero",)),
+                     "scam": ("test_torch_modes", "scam_cases",
+                              ("scam_run", "scam_iop"))}
 
 
 def t64(a):
@@ -165,3 +183,78 @@ def host_build(lib, tmp, n_launches):
             fn = getattr(dll, f"{stem}_{suf}")
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return dll
+
+
+def reference_processes(root, script, jobs, port, port_cases,
+                        timeout=1500):
+    """Each job (mode, cases) of tests/`script` in a fresh interpreter of
+    its own (root/job<i>/in.pkl in, out.pkl out), all started at once;
+    port(port_cases) runs here meanwhile. Returns (port's result, the
+    jobs' results in order)."""
+    tests = Path(__file__).resolve().parent
+    procs = []
+    try:
+        for i, (mode, cases) in enumerate(jobs):
+            d = Path(root) / f"job{i}"
+            d.mkdir(parents=True, exist_ok=True)
+            with open(d / "in.pkl", "wb") as f:
+                pickle.dump({"mode": mode, "cases": cases}, f)
+            procs.append(subprocess.Popen(
+                [sys.executable, str(tests / script), str(d)],
+                cwd=tests.parent,
+                env=dict(os.environ, PYTHONPATH=str(tests.parent)),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        got = port(port_cases)
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    outs = []
+    for i, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, log[-4000:]
+        with open(Path(root) / f"job{i}" / "out.pkl", "rb") as f:
+            outs.append(pickle.load(f))
+    return got, outs
+
+
+def shared_jax_reference(tmp_path_factory, mode, port):
+    """(port(cases), JAX's results) of `mode`, one of SHARED_REFERENCES.
+
+    The first test of a session to ask runs every mode's JAX reference
+    (tests/torch_port_microp_ref.py), in fresh interpreters all at once
+    (the microphysics' and SCAM's in two each), running its own port
+    side meanwhile, and
+    leaves the results
+    in the session's temporary directory, which xdist workers share; a
+    later test, in this process or another worker, waits on the lock and
+    reads them. The directory is named by a hash of every mode's
+    inputs."""
+    cases = {m: getattr(importlib.import_module(mod), fn)()
+             for m, (mod, fn, _) in SHARED_REFERENCES.items()}
+    key = hashlib.sha256(pickle.dumps(cases)).hexdigest()[:16]
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent          # the workers' common root
+    root = base / f"jax_reference_{key}"
+    root.mkdir(parents=True, exist_ok=True)
+    jobs = [(m, job) for m, (_, _, js) in SHARED_REFERENCES.items()
+            for job in js]
+    got = None
+    with open(root / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not (root / "done").exists():
+            got, outs = reference_processes(
+                root, "torch_port_microp_ref.py",
+                [(job, cases[m]) for m, job in jobs], port, cases[mode])
+            merged = {m: {} for m in cases}
+            for (m, _), out in zip(jobs, outs):
+                merged[m].update(out)
+            for m, out in merged.items():
+                with open(root / f"{m}.pkl", "wb") as f:
+                    pickle.dump(out, f)
+            (root / "done").touch()
+    if got is None:
+        got = port(cases[mode])
+    with open(root / f"{mode}.pkl", "rb") as f:
+        return got, pickle.load(f)
