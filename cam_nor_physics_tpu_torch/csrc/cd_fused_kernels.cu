@@ -25,7 +25,9 @@
 // share their transport, tp_core.cuh's row form of tp2c + tp2d (four
 // row kernels: inner operators, mass fluxes, dh and q's fluxes, the
 // finish with the floors); K1 runs it at order 1 on the C-grid winds and
-// Courants of a row kernel of its own. Intermediate slabs (Courants,
+// Courants of a row kernel of its own. K3's transport and K4's vorticity
+// fluxes take every order of tp_core.cuh's set, the order uniform over a
+// launch. Intermediate slabs (Courants,
 // advective operators, fluxes, energy, corner fields, damping, the
 // increments to filter) live in a scratch tensor the wrapper allocates;
 // each level's are a few hundred KB and are read back from L2. Launches a
@@ -475,9 +477,12 @@ k4_corner_kernel(const T* __restrict__ pt_new, const T* __restrict__ pkz,
 
 // phase 3: the wind increments (vorticity fluxes, corner PGF, damping,
 // del2 velocity damping); the new winds, or with the filter on the
-// increments du, dv for the DFT products
+// increments du, dv for the DFT products. In float32, 25 blocks an SM
+// (at most 40 registers): left to itself ptxas takes 56 for the
+// vorticity fluxes' higher orders, which cost the kernel 18% at order 4
+// at f05 (tools/stencil_ab.py)
 template <typename T>
-__global__ void __launch_bounds__(kRowThreads)
+__global__ void __launch_bounds__(kRowThreads, sizeof(T) == 4 ? 25 : 1)
 k4_wind_kernel(const T* __restrict__ u, const T* __restrict__ v,
                const T* __restrict__ crx, const T* __restrict__ cry,
                const T* __restrict__ M, double dt, double dtdel2, Consts cs,

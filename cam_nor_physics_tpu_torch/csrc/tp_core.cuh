@@ -9,9 +9,11 @@
 // the operand order of the PyTorch versions so that, compiled without FMA
 // contraction (--fmad=false), kernel and plain version round alike.
 //
-// Only the orders on the dycore's path are implemented: iord/jord 1
-// (upwind) and 4 (PPM with the lmt=1 constraint), scalar pole mirroring
-// (iv=0). The host wrappers refuse every other order.
+// Orders: iord/jord in {1, 2, 3, 4, 5, 6, 7, -2}, scalar pole mirroring
+// (iv=0): upwind, van Leer, PPM with lmppm's constraints 0-3, Yeh
+// steepening (6), Huynh's constraint (7), the unlimited slope of -2. The
+// order is a runtime argument, uniform over a launch, so its branches do
+// not diverge. The host wrappers refuse other orders.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -73,27 +75,123 @@ __device__ T xslope2(const T* r, int i, int im) {
   return limit(tmp, qmax, qmin);
 }
 
-// lmppm with lmt = 1 (iord = 4); a6 enters as 0
+// ---------------------------------------------------------------- PPM edges
+
+// xmist(q, id) at cell i for id < 0: the 4th-order slope, unlimited
 template <typename T>
-__device__ __forceinline__ void lmppm1(T dm, T p, T& al, T& ar, T& a6) {
-  const T da1 = dm + dm;
-  const T dl = sgn(da1) * tmin(fabs(da1), fabs(al - p));
-  const T dr = sgn(da1) * tmin(fabs(da1), fabs(ar - p));
-  a6 = T(3.0) * (dl - dr);
-  ar = p + dr;
-  al = p - dl;
+__device__ T xmist4u(const T* r, int i, int im) {
+  const T qp1 = r[wrap(i + 1, im)], qm1 = r[wrap(i - 1, im)];
+  const T qp2 = r[wrap(i + 2, im)], qm2 = r[wrap(i - 2, im)];
+  return T(1.0 / 24.0) * (T(8.0) * (qp1 - qm1) + qm2 - qp2);
 }
 
-// PPM edges (al, ar, a6) of cell i for iord = 4; SLOPE(i) gives dm at i
+// steepx at cell i: Yeh's steepening of the left edge al, dmm and dm the
+// slopes of cells i-1 and i; reads cells i-3..i+2 of the row
+template <typename T>
+__device__ T steepx_point(const T* r, int i, int im, T al, T dmm, T dm) {
+  auto p = [&](int o) { return r[wrap(i + o, im)]; };
+  auto dh = [&](int o) { return p(o + 1) - p(o); };
+  auto d2 = [&](int o) { return dh(o) - dh(o - 1); };
+  auto eta = [&](int o) {
+    const T pp1 = p(o + 1), pm1 = p(o - 1);
+    const T denom = pp1 == pm1 ? T(1.0) : pp1 - pm1;
+    const T xxx = T(1.0) - T(0.5) * (p(o + 2) - p(o - 2)) / denom;
+    const T e = xxx < T(0) ? T(0) : (xxx > T(0.5) ? T(0.5) : xxx);
+    return d2(o + 1) * d2(o - 1) < T(0) && pp1 != pm1 ? e : T(0);
+  };
+  const T et = eta(0), etm = eta(-1);
+  const T bbb = (T(2.0) * et - etm) * dmm;
+  const T ccc = (T(2.0) * etm - et) * dm;
+  return al + T(0.5) * (etm - et) * dh(-1) + (bbb - ccc) * T(R3);
+}
+
+// huynh at cell i: Huynh's second constraint on (al, ar), then a6
+template <typename T>
+__device__ void huynh_point(const T* r, int i, int im, T& al, T& ar, T& a6) {
+  auto p = [&](int o) { return r[wrap(i + o, im)]; };
+  auto d1 = [&](int o) { return p(o) - p(o - 1); };
+  auto d2 = [&](int o) { return d1(o + 1) - d1(o); };
+  const T q = p(0), d1c = d1(0), d2m = d2(-1);
+  const T pmp_r = q + T(2.0) * d1c;
+  const T lac_r = q + T(0.5) * (d1c + d2m) + d2m;
+  T pmin = tmin(tmin(q, pmp_r), lac_r), pmax = tmax(tmax(q, pmp_r), lac_r);
+  ar = tmin(pmax, tmax(ar, pmin));
+  const T d1p = d1(1), d2p = d2(1);
+  const T pmp_l = q - T(2.0) * d1p;
+  const T lac_l = q + T(0.5) * (d2p - d1p) + d2p;
+  pmin = tmin(tmin(q, pmp_l), lac_l);
+  pmax = tmax(tmax(q, pmp_l), lac_l);
+  al = tmin(pmax, tmax(al, pmin));
+  a6 = T(3.0) * (q + q - (al + ar));
+}
+
+// lmppm with constraint lmt (0 full, 1 improved full, 2 positive
+// definite, 3 quasi-monotone, other values none) on (a6, ar, al)
+template <typename T>
+__device__ void lmppm(T dm, T p, int lmt, T& a6, T& ar, T& al) {
+  if (lmt == 0) {
+    const T da1 = ar - al;
+    const T da2 = da1 * da1, a6da = a6 * da1;
+    const T a6_lo = T(3.0) * (al - p), ar_lo = al - a6_lo;
+    const T a6_hi = T(3.0) * (ar - p), al_hi = ar - a6_hi;
+    if (dm == T(0)) {
+      a6 = T(0);
+      ar = p;
+      al = p;
+    } else if (a6da < -da2) {
+      a6 = a6_lo;
+      ar = ar_lo;
+    } else if (a6da > da2) {
+      a6 = a6_hi;
+      al = al_hi;
+    }
+  } else if (lmt == 1 || lmt == 3) {
+    const T da1 = lmt == 1 ? dm + dm : T(4.0) * dm;
+    const T dl = sgn(da1) * tmin(fabs(da1), fabs(al - p));
+    const T dr = sgn(da1) * tmin(fabs(da1), fabs(ar - p));
+    a6 = T(3.0) * (dl - dr);
+    ar = p + dr;
+    al = p - dl;
+  } else if (lmt == 2) {
+    const T d = ar - al;
+    const T fmin = p + T(0.25) * (d * d) / (a6 == T(0) ? T(1e-30) : a6) +
+                   a6 * T(1.0 / 12.0);
+    if (!(fabs(d) >= -a6 || fmin >= T(0))) {
+      if (p < ar && p < al) {
+        a6 = T(0);
+        ar = p;
+        al = p;
+      } else if (ar > al) {
+        a6 = T(3.0) * (al - p);
+        ar = al - a6;
+      } else {
+        a6 = T(3.0) * (ar - p);
+        al = ar - a6;
+      }
+    }
+  }
+}
+
+// _ppm_edges at cell i: (al, ar, a6) at order iord >= 3, the edges
+// steepened at 6; SLOPE(i) gives dm at i
 template <typename T, typename Slope>
-__device__ void xedges4(const T* r, int i, int im, Slope slope, T& al,
-                        T& ar, T& a6) {
+__device__ void xedges(const T* r, int i, int im, Slope slope, int iord,
+                       T& al, T& ar, T& a6) {
   const int im1 = wrap(i - 1, im), ip1 = wrap(i + 1, im);
   const T dmm = slope(im1), dm = slope(i), dmp = slope(ip1);
   const T p = r[i];
   al = T(0.5) * (r[im1] + p) + (dmm - dm) * T(R3);
   ar = T(0.5) * (p + r[ip1]) + (dm - dmp) * T(R3);
-  lmppm1(dm, p, al, ar, a6);
+  if (iord == 6) {
+    al = steepx_point(r, i, im, al, dmm, dm);
+    ar = steepx_point(r, ip1, im, ar, dm, dmp);
+  }
+  if (iord == 7) {
+    huynh_point(r, i, im, al, ar, a6);
+    return;
+  }
+  a6 = iord == 3 || iord == 5 ? T(3.0) * (p + p - (al + ar)) : T(0);
+  lmppm(dm, p, iord - 3, a6, ar, al);
 }
 
 // xtp at the west edge of cell i of one row. q, c, m: row pointers (im);
@@ -105,23 +203,22 @@ __device__ T xtp_point(const T* q, const T* c, const T* m, int i, int im,
                        T cosa, bool ffsl, int iord, int id, int K) {
   const T ci = c[i];
   if (!ffsl) {
-    const int im1 = wrap(i - 1, im);
     const bool up = ci > T(0);
-    const T qs = up ? q[im1] : q[i];
+    const int d = up ? wrap(i - 1, im) : i;     // the donor cell
+    const T qs = q[d];
     if (iord == 1 || cosa < T(COS_UPW)) return m[i] * qs;
-    if (cosa < T(COS_VAN)) {
-      const T dms = up ? xmist4(q, im1, im) : xmist4(q, i, im);
-      return m[i] * (qs + dms * (sgn(ci) - ci));
-    }
-    auto slope = [&](int ii) { return xmist4(q, ii, im); };
-    T al, ar, a6, f;
-    if (up) {
-      xedges4(q, im1, im, slope, al, ar, a6);
-      f = ar + T(0.5) * ci * (al - ar + a6 * (T(1.0) - T(R23) * ci));
-    } else {
-      xedges4(q, i, im, slope, al, ar, a6);
-      f = al - T(0.5) * ci * (ar - al + a6 * (T(1.0) + T(R23) * ci));
-    }
+    // xmist(q, 2), or xmist(q, iord) off the van Leer rows for iord < 0
+    const bool lim = iord > 0 || cosa < T(COS_VAN);
+    auto slope = [&](int ii) {
+      return lim ? xmist4(q, ii, im) : xmist4u(q, ii, im);
+    };
+    if (cosa < T(COS_VAN) || iord == 2 || iord == -2)
+      return m[i] * (qs + slope(d) * (sgn(ci) - ci));
+    T al, ar, a6;
+    xedges(q, d, im, slope, iord, al, ar, a6);
+    const T f = up
+        ? ar + T(0.5) * ci * (al - ar + a6 * (T(1.0) - T(R23) * ci))
+        : al - T(0.5) * ci * (ar - al + a6 * (T(1.0) + T(R23) * ci));
     return m[i] * f;
   }
   // FFSL branch: fractional donor cell + whole cells swept (periodic)
@@ -133,10 +230,10 @@ __device__ T xtp_point(const T* q, const T* c, const T* m, int i, int im,
   T f_frac;
   if (iord == 1 || cosa < T(COS_UPW)) {
     f_frac = rut * qg;
-  } else if (cosa > T(COS_PPM)) {
+  } else if (iord >= 3 && cosa > T(COS_PPM)) {
     auto slope = [&](int ii) { return xslope2(q, ii, im); };
     T al, ar, a6;
-    xedges4(q, g, im, slope, al, ar, a6);
+    xedges(q, g, im, slope, iord, al, ar, a6);
     f_frac = ci > T(0)
         ? rut * (ar + T(0.5) * rut * (al - ar + a6 * (T(1.0) - T(R23) * rut)))
         : rut * (al - T(0.5) * rut * (ar - al + a6 * (T(1.0) + T(R23) * rut)));
@@ -201,8 +298,9 @@ __device__ T yal_full(const T* s, int j, int i, int jm, int im, int jord) {
                   ymist_point(s, j, i, jm, im, jord));
 }
 
-// ytp at the south edge of row e (jord 1 or 4, iv = 0): s the advected
-// slab, c the y-Courant and ym the mass flux at the edge
+// ytp at the south edge of row e (iv = 0): s the advected slab, c the
+// y-Courant and ym the mass flux at the edge. Upwind at jord 1, van Leer
+// at |jord| = 2, fyppm with a6 at 3 and 5 and lmppm(jord - 3) from 3 up
 template <typename T>
 __device__ T ytp_point(const T* s, const T* c, const T* ym, int e, int i,
                        int jm, int im, int jord) {
@@ -211,13 +309,16 @@ __device__ T ytp_point(const T* s, const T* c, const T* ym, int e, int i,
   const T ce = c[idx];
   if (jord == 1) return (ce > T(0) ? s[idx - im] : s[idx]) * ym[idx];
   const int r = ce > T(0) ? e - 1 : e;          // donor row
+  const T dm = ymist_point(s, r, i, jm, im, jord);
+  const T q = s[r * im + i];
+  if (jord > -3 && jord < 3) return (q + (sgn(ce) - ce) * dm) * ym[idx];
   const int im2 = im / 2;
   T al = r == 0 ? yal_full(s, 1, wrap(i + im2, im), jm, im, jord)
                 : yal_full(s, r, i, jm, im, jord);
   T ar = r < jm - 1 ? yal_full(s, r + 1, i, jm, im, jord)
                     : yal_full(s, jm - 1, wrap(i + im2, im), jm, im, jord);
-  T a6;
-  lmppm1(ymist_point(s, r, i, jm, im, jord), s[r * im + i], al, ar, a6);
+  T a6 = jord == 3 || jord == 5 ? T(3.0) * (q + q - (al + ar)) : T(0);
+  lmppm(dm, q, jord - 3, a6, ar, al);
   const T f = ce > T(0)
       ? ar + T(0.5) * ce * (al - ar + a6 * (T(1.0) - T(R23) * ce))
       : al - T(0.5) * ce * (ar - al + a6 * (T(1.0) + T(R23) * ce));
@@ -407,9 +508,12 @@ __device__ __forceinline__ size_t row_slab() {
 }
 
 // phase 2: the fluxes of row j, fy = ytp(sx)·ym and fx = xtp(sy)·xm
-// (tp_row_fluxes; kId = 0 for tp2c's mass fluxes, 1 for a mixing ratio)
+// (tp_row_fluxes; kId = 0 for tp2c's mass fluxes, 1 for a mixing ratio).
+// In float32, 32 blocks an SM (at most 32 registers): left to itself
+// ptxas takes 40 for the higher orders' code, and the 25 blocks that
+// leaves cost transport3d 6% at order 1 at f05 (tools/stencil_ab.py)
 template <typename T, int kId>
-__global__ void __launch_bounds__(kRowThreads)
+__global__ void __launch_bounds__(kRowThreads, sizeof(T) == 4 ? 32 : 1)
 tp_flux_kernel(const T* __restrict__ sx, const T* __restrict__ sy,
                const T* __restrict__ crx, const T* __restrict__ cry,
                const T* __restrict__ xm, const T* __restrict__ ym,

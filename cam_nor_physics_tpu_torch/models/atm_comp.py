@@ -13,6 +13,13 @@ fused cd_step K1-K4 in every small step, tracer_div3d in trac2d,
 te_map_remap in te_map and zm_tail in zm_conv_tend. The step reads no
 device value on the host, so a CUDA graph can capture it: the step
 counter `nstep` is a device tensor, and `first_step` is a Python flag.
+
+On a mesh (`atm_step(..., mesh=)`, parallel/mesh.py) the state is the
+rank's strip state: the physics runs on the rank's own columns with its
+global sums all-reduced; the physics export and the dycore's winds are
+gathered whole for p_d_coupling, the dycore advances every rank's whole
+state (its stencils on latitude strips where they apply), and the rank
+keeps its rows and columns after d_p_coupling.
 """
 
 from __future__ import annotations
@@ -21,13 +28,15 @@ from dataclasses import dataclass, replace
 
 import torch
 
+from ..parallel import shard_stencil as ss
+from ..parallel.mesh import shard_state, take_cols
 from ..utils.config import FVConfig, PhysConfig, ZMConfig
 from ..utils.device import resolve_device
 from .coupling.camsrfexch import CamIn, CamOut
 from .coupling.dp_coupling import (d_p_coupling, d_p_coupling_diags,
                                    p_d_coupling)
 from .fv.cd_core import DynState
-from .fv.dyn_comp import dyn_run
+from .fv.dyn_comp import dyn_run_whole
 from .fv.grid import FVGrid, make_grid
 from .fv.vertical import HybridCoord, hybrid_coefficients
 from .physics.cam_diagnostics import (constituent_burdens, diag_conv_tidal,
@@ -110,18 +119,37 @@ def atm_init(model: AtmModel, dyn_state: DynState, phis) -> AtmState:
                     nstep=torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def _gather_export(pstate: PhysicsState, mesh):
+    """The fields of the physics export p_d_coupling reads (t, u, v,
+    pdel, q), gathered over every rank's columns in one all-gather."""
+    n, km = pstate.t.shape
+    packed = torch.cat([pstate.t, pstate.u, pstate.v, pstate.pdel,
+                        pstate.q.reshape(n, -1)], 1)
+    t, u, v, pdel, q = mesh.gather_rows(packed, 0).split(
+        [km, km, km, km, pstate.q[0].numel()], 1)
+    return pstate.replace(t=t, u=u, v=v, pdel=pdel,
+                          q=q.reshape(-1, km, pstate.q.shape[-1]))
+
+
 def atm_step(model: AtmModel, state: AtmState, cam_in: CamIn,
-             first_step: bool = False) -> tuple[AtmState, CamOut, dict]:
+             first_step: bool = False,
+             mesh=None) -> tuple[AtmState, CamOut, dict]:
     """One coupled time step (the cam_comp run sequence). `first_step`
     leaves out the energy fixer (no TEOUT yet), the reference's nstep == 0
     branch (physpkg.F90:2899). Returns the new state, the surface export
-    and the merged diagnostics."""
+    and the merged diagnostics.
+
+    `mesh` (a parallel.mesh.Mesh; anything else raises TypeError): `state`
+    and `cam_in` are the rank's strip (parallel.mesh.shard_state), and so
+    are the returned state, export and column diagnostics; the global
+    sums and the dycore's TEM and AM diagnostics are whole."""
+    ss.check_mesh(mesh)
     g, coord, reg = model.grid, model.coord, model.registry
 
     # pre-coupler physics on the current export
     o1: PhysRunOut = phys_run1(model.phys_cfg, model.zm_cfg, reg,
                                state.phys, state.pbuf, cam_in, model.dt,
-                               nstep=0 if first_step else 1)
+                               nstep=0 if first_step else 1, mesh=mesh)
     # (the surface coupler runs here in the host model; cam_in is its
     # product)
     o2: PhysRunOut = phys_run2(model.phys_cfg, reg, o1.state, o1.pbuf,
@@ -130,12 +158,20 @@ def atm_step(model: AtmModel, state: AtmState, cam_in: CamIn,
     # physics -> dycore, the large dynamics step, dycore -> physics; the
     # dycore's kernels take contiguous tensors, and p_d_coupling gives
     # them
-    dyn = p_d_coupling(state.dyn, o2.state, g, coord.ptop, model.dt, reg)
-    dyn, dyn_diags = dyn_run(dyn, g, coord, state.phis, model.fv_cfg,
-                             model.dt, filter_impl=model.filter_impl,
-                             return_diags=True)
-    phys = d_p_coupling(dyn, g, state.phis, coord.ptop, reg,
+    dyn, export, phis = state.dyn, o2.state, state.phis
+    if mesh is not None:
+        dyn = dyn.replace(u=mesh.gather_rows(dyn.u),
+                          v=mesh.gather_rows(dyn.v))
+        export = _gather_export(export, mesh)
+        phis = mesh.gather_rows(phis)
+    dyn = p_d_coupling(dyn, export, g, coord.ptop, model.dt, reg)
+    dyn, dyn_diags = dyn_run_whole(dyn, g, coord, phis, model.fv_cfg,
+                                   model.dt, model.filter_impl, None, mesh,
+                                   True)
+    phys = d_p_coupling(dyn, g, phis, coord.ptop, reg,
                         omega=dyn_diags["omega"])
+    if mesh is not None:
+        phys = shard_state(phys, mesh, g.jm, g.im)
 
     diags = dict(o1.diagnostics)
     diags.update(o2.diagnostics)
@@ -166,6 +202,9 @@ def atm_step(model: AtmModel, state: AtmState, cam_in: CamIn,
         use_gw_front=pc.use_gw_front, qbo_use_forcing=pc.qbo_use_forcing,
         do_circulation_diags=pc.do_circulation_diags)
     ctem = cdiag.pop("ctem", None)
+    if mesh is not None:
+        cdiag = {k: take_cols(v, mesh, g.jm, g.im) for k, v in cdiag.items()}
+        dyn = shard_state(dyn, mesh)
     if cdiag:
         pbuf = pbuf.update(**cdiag)
     if ctem is not None:

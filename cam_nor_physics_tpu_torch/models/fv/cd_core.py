@@ -14,7 +14,10 @@ DFT-form polar filter (filter_impl "fft" or "dft"), as the JAX package's
 cd_step does on one chip. Otherwise it runs the unfused step below, whose
 transport and vorticity fluxes go through `ops.stencil_kernels`
 (transport3d, vort_flux3d); filter_impl="matmul" always takes it. Either
-way CUDA tensors launch the CUDA kernels.
+way CUDA tensors launch the CUDA kernels. With a `mesh` whose strips
+apply (parallel/shard_stencil.use_strips), the unfused step runs on every
+rank's whole state and its two stencils on latitude strips, as JAX's
+cd_step under a mesh does.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from ...ops import tp_core as tp
 from ...ops.stencil_kernels import transport3d, vort_flux3d
+from ...parallel import shard_stencil as ss
 from ...ops.tp_core import _rollx, _rolly, edge_north, wset_interior, wset_row
 from ...utils import constants as c
 from .grid import FVGrid, polar_filter, polar_filter_matmul
@@ -155,11 +159,25 @@ def cd_step(state: DynState, grid: FVGrid, ptop: float, phis, dt: float,
     filter_dm or filter_csw_dm, flags that `cd_fused.use_fused_cd` accept
     take the fused K1-K4 step; fused=False keeps the unfused formulation.
     Whether the CUDA kernels or their plain versions run is decided by
-    the tensors' device, not here."""
-    if mesh is not None:
-        raise NotImplementedError("cd_step: mesh (multi-device sharding) is "
-                                  "not ported")
-    if fused and not filter_dm and not filter_csw_dm:
+    the tensors' device, not here.
+
+    `mesh` (a parallel.mesh.Mesh; anything else raises TypeError): every
+    rank passes the whole state, as dyn_run's ranks hold it. Where the
+    strips apply (ss.use_strips: y sharded, x not, jm/ny >= 8 rows) the
+    unfused step runs, its transport3d and vort_flux3d on each rank's
+    latitude strip (ss.whole_call) with the outputs gathered whole, and no
+    FFSL polar band (JAX's sharded calls take none); otherwise the step
+    is the one without a mesh."""
+    sharded = ss.use_strips(mesh, state.delp.shape[-2])
+    if sharded:
+        def transport(*a, band=None):
+            return ss.whole_call(mesh, "transport3d", *a)
+
+        def vort_flux(*a, band=None):
+            return ss.whole_call(mesh, "vort_flux3d", *a)
+    else:
+        transport, vort_flux = transport3d, vort_flux3d
+    if fused and not sharded and not filter_dm and not filter_csw_dm:
         # imported here: cd_fused builds on this module's helpers
         from .cd_fused import cd_step_fused, use_fused_cd
         if use_fused_cd(grid, dyn_filter, c_sw_pgf, ke_method, filter_impl,
@@ -196,7 +214,7 @@ def cd_step(state: DynState, grid: FVGrid, ptop: float, phis, dt: float,
         yfx_c = cry_c * cose[:, None]
         va_c2 = 0.5 * (cry_c + edge_north(cry_c))
         ffsl_c = torch.amax(torch.abs(crx_c), dim=-1) > 1.0
-        ddp_c, dpt_c, _, _ = transport3d(
+        ddp_c, dpt_c, _, _ = transport(
             delp, pt, crx_c, cry_c, yfx_c, va_c2, ffsl_c, cosp, acosp,
             grid.rcap, 1, 1, band=band5)
         if dyn_filter and filter_csw_dm:
@@ -248,7 +266,7 @@ def cd_step(state: DynState, grid: FVGrid, ptop: float, phis, dt: float,
     ffsl = torch.amax(torch.abs(crx), dim=-1) > 1.0
 
     # ---- transport delp (mass) and pt with tp2c/tp2d ----
-    ddp, dpt, mfx, mfy = transport3d(
+    ddp, dpt, mfx, mfy = transport(
         delp, pt, crx, cry, yfx, va_c, ffsl, cosp, acosp, grid.rcap,
         iord, jord, band=band1)
     if dyn_filter and filter_dm:
@@ -286,8 +304,8 @@ def cd_step(state: DynState, grid: FVGrid, ptop: float, phis, dt: float,
 
     v_c4 = _corner_from_center(0.5 * (v + _rollx(v, -1)))
     v_edge = 0.5 * (v_c4 + _rollx(v_c4, -1))
-    fx_z, fy_z = vort_flux3d(zeta_a, crx, cry, uc * dt, v_edge * dt, ffsl,
-                             cosp, iord, jord, band=band1)
+    fx_z, fy_z = vort_flux(zeta_a, crx, cry, uc * dt, v_edge * dt, ffsl,
+                           cosp, iord, jord, band=band1)
 
     cose_s = torch.where(cose[:, None] > 0, cose[:, None], 1.0)
     en_c = _corner_from_center(energy)

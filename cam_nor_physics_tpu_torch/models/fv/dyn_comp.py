@@ -18,7 +18,13 @@ The options: the axial angular-momentum fixer (global, tapered or level
 by level) after each small step, the AM correction that closes the small
 step's AM budget against the mountain torque, the am_diag payload, and
 WACCM-X high-altitude κ, advected by trac2d as one more tracer slot.
-Multi-device meshes are not ported (they raise NotImplementedError).
+
+On a mesh (parallel/mesh.py) dyn_run takes and returns the rank's strip
+of the state: it all-gathers the strips into the whole state, which every
+rank then advances as JAX's dyn_run does under a mesh (the unfused small
+step, cd_step's and trac2d's stencils on latitude strips where
+parallel/shard_stencil.use_strips holds, the rest replicated), and keeps
+its own rows at the end.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ from ...ops.remap_kernels import te_map_remap
 from ...ops.stencil_kernels import tracer_div3d
 from ...ops.thermo import calc_kappav
 from ...ops.tp_core import _rollx, _rolly, edge_north, wset_row
+from ...parallel import shard_stencil as ss
+from ...parallel.mesh import gather_state, shard_state
 from ...utils import constants as c
 from ...utils.config import FVConfig
 from .cd_core import DynState, cd_step, d2a_winds, pressure_vars
@@ -41,20 +49,27 @@ from .vertical import HybridCoord
 
 
 def trac2d(q, dp0, cx, cy, mfx, mfy, grid: FVGrid, iord: int, jord: int,
-           fill: bool = True):
+           fill: bool = True, mesh=None):
     """Large-timestep tracer transport with accumulated Courant numbers and
     mass fluxes. q: (nq, km, jm, im); dp0: (km, jm, im) pre-step thickness.
     The new thickness is diagnosed from the same mass fluxes, so mixing
     ratios stay consistent with the continuity equation. Returns
-    (q_new, dp_new)."""
+    (q_new, dp_new). With a `mesh` whose strips apply (every rank passing
+    the whole fields), tracer_div3d runs on each rank's latitude strip
+    and its output is gathered whole."""
     ffsl = torch.amax(torch.abs(cx), dim=-1) > 1.0
     va = 0.5 * (cy + edge_north(cy))
     ddp = tp.flux_divergence(mfx, mfy, grid.acosp, grid.rcap)
     # guard rail: floor the flux-implied thickness (te_map restores the
     # coordinate afterwards)
     dp_new = torch.maximum(dp0 + ddp, 0.05 * dp0)
-    dqm = tracer_div3d(q, cx, cy, mfx, mfy, va, ffsl, grid.cosp, grid.acosp,
-                       grid.rcap, iord, jord)
+    if ss.use_strips(mesh, dp0.shape[-2]):
+        dqm = ss.whole_call(mesh, "tracer_div3d", q, cx, cy, mfx, mfy, va,
+                            ffsl, grid.cosp, grid.acosp, grid.rcap, iord,
+                            jord)
+    else:
+        dqm = tracer_div3d(q, cx, cy, mfx, mfy, va, ffsl, grid.cosp,
+                           grid.acosp, grid.rcap, iord, jord)
     q_new = (q * dp0[None] + dqm) / dp_new[None]
     if fill:
         qk, _ = fillz(q_new.movedim(1, -1), dp_new.movedim(0, -1)[None])
@@ -241,14 +256,35 @@ def dyn_run(state: DynState, grid: FVGrid, coord: HybridCoord, phis,
     n2 = (nspltrac + nv - 1)//nv; nsplit = (ns + n2*nv - 1)//(n2*nv);
     dt = ndt/(nsplit*n2*nv). With `return_diags` also returns
     {"omega": ω of the last remap cycle, "floor_activations": count}, and
-    with am_diag AM_DU3S, AM_DUFIX, AM_TOTAL, du3s and du_fix_s."""
+    with am_diag AM_DU3S, AM_DUFIX, AM_TOTAL, du3s and du_fix_s.
+
+    `mesh` (a parallel.mesh.Mesh; anything else raises TypeError): the
+    state is the rank's strip, and so are the returned state and the
+    (..., jm, im) diagnostics (omega, du3s); the sums are global."""
     if cfg.filtcw < 0:
         raise NotImplementedError(
             "FVConfig.filtcw < 0 (disable the C-grid wind filter) is not "
             "supported: the filter is load-bearing for the c_sw half step")
-    if mesh is not None:
-        raise NotImplementedError("dyn_run: mesh (multi-device sharding) is "
-                                  "not ported")
+    ss.check_mesh(mesh)
+    if mesh is None:
+        return dyn_run_whole(state, grid, coord, phis, cfg, ndt, filter_impl,
+                             c_sw_pgf, None, return_diags)
+    out = dyn_run_whole(gather_state(state, mesh), grid, coord,
+                        mesh.gather_rows(phis, -2), cfg, ndt, filter_impl,
+                        c_sw_pgf, mesh, return_diags)
+    if not return_diags:
+        return shard_state(out, mesh)
+    new, diags = out
+    return shard_state(new, mesh), {
+        k: mesh.take_rows(v) if k in ("omega", "du3s") else v
+        for k, v in diags.items()}
+
+
+def dyn_run_whole(state: DynState, grid: FVGrid, coord: HybridCoord, phis,
+                  cfg: FVConfig, ndt: float, filter_impl: str,
+                  c_sw_pgf: bool | None, mesh, return_diags: bool):
+    """dyn_run on the whole state; with `mesh`, every rank's, its
+    stencils on latitude strips."""
     if c_sw_pgf is None:
         c_sw_pgf = cfg.c_sw_pgf
     ns, nspltrac, nv = cfg.resolved_splits(ndt, grid.im, grid.jm)
@@ -306,7 +342,7 @@ def dyn_run(state: DynState, grid: FVGrid, coord: HybridCoord, phis,
                     filter_dm=cfg.filter_dm, filter_csw_dm=cfg.filter_csw_dm,
                     ke_method=cfg.ke_method, div2_coef_nd=cfg.div2_coef_nd,
                     div2_on=div2_on, div4_coef_nd=div4_nd,
-                    div_taper=div_taper, del2_velocity=del2_vel)
+                    div_taper=div_taper, del2_velocity=del2_vel, mesh=mesh)
                 if cfg.am_correction:
                     # close the step's AM budget: AM_after = AM_before +
                     # dt·torque, the torque entering at the surface layer;
@@ -337,7 +373,7 @@ def dyn_run(state: DynState, grid: FVGrid, coord: HybridCoord, phis,
                 q_tr = state.q
             q_new, dp_tr = trac2d(q_tr, dp0, acc["cx"], acc["cy"],
                                   acc["mfx"], acc["mfy"], grid, cfg.iord,
-                                  cfg.jord)
+                                  cfg.jord, mesh=mesh)
             n_floor = n_floor + _floor_count(dp_tr, dp0)
             if cfg.high_altitude:
                 # correct pt first-order for κ of the advected species

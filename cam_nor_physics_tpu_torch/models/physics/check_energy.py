@@ -86,26 +86,36 @@ def check_energy_chng(state: PhysicsState, registry: ConstituentRegistry,
     return state.replace(te_cur=te, tw_cur=tw), diag
 
 
+def _psum(t, mesh):
+    """The sum of a rank's partial sum `t` over the mesh's ranks (the
+    columns are split over them); `t` itself without a mesh."""
+    return t if mesh is None else mesh.psum(t)
+
+
 def check_energy_fix(state: PhysicsState, registry: ConstituentRegistry,
-                     teout_prev):
+                     teout_prev, mesh=None):
     """Global energy fixer (check_energy_fix, physpkg.F90:2726-2781): the
     uniform heating per unit mass (J/kg, (ncol, pver); the caller divides
     by dt) whose global integral is the cos(lat)-weighted global-mean
     difference between the energy exported at the end of the previous
-    physics step (teout_prev) and the current energy."""
+    physics step (teout_prev) and the current energy. On a `mesh` the
+    state is the rank's columns and the sums are all-reduced."""
     te, _ = column_energy(state, registry)
     w = torch.clamp(torch.cos(state.lat), min=0.0)
-    wsum = torch.clamp(torch.sum(w), min=1e-30)
-    deficit_glob = torch.sum(w * (teout_prev - te)) / wsum        # J/m2
-    mass_glob = torch.sum(w * (state.pint[:, -1] - state.pint[:, 0])) / \
-        (wsum * c.GRAVIT)                                          # kg/m2
+    wsum = torch.clamp(_psum(torch.sum(w), mesh), min=1e-30)
+    deficit_glob = _psum(torch.sum(w * (teout_prev - te)), mesh) / wsum
+    mass_glob = _psum(torch.sum(w * (state.pint[:, -1] - state.pint[:, 0])),
+                      mesh) / (wsum * c.GRAVIT)                    # kg/m2
     heat = deficit_glob / torch.clamp(mass_glob, min=1e-30)        # J/kg
     return heat.expand(state.t.shape)
 
 
-def check_energy_gmean(state: PhysicsState, registry: ConstituentRegistry):
+def check_energy_gmean(state: PhysicsState, registry: ConstituentRegistry,
+                       mesh=None):
     """Area-weighted global-mean total energy (check_energy_gmean role,
-    physpkg.F90:1115), cos(lat) weights."""
+    physpkg.F90:1115), cos(lat) weights; on a `mesh` over every rank's
+    columns."""
     te, _ = column_energy(state, registry)
     w = torch.clamp(torch.cos(state.lat), min=0.0)
-    return torch.sum(w * te) / torch.clamp(torch.sum(w), min=1e-30)
+    return _psum(torch.sum(w * te), mesh) / torch.clamp(
+        _psum(torch.sum(w), mesh), min=1e-30)

@@ -214,10 +214,11 @@ def _ptend(name, state, **flags):
 def tphysbc(phys_cfg: PhysConfig, zm_cfg: ZMConfig,
             registry: ConstituentRegistry, state: PhysicsState,
             pbuf: PhysicsBuffer, cam_in: CamIn, ztodt: float,
-            nstep: int = 1) -> PhysRunOut:
+            nstep: int = 1, mesh=None) -> PhysRunOut:
     """Pre-coupler physics (tphysbc, physpkg.F90:2508-2942). nstep is a
     Python int: 0 (the first step) has no TEOUT, so no energy fixer and
-    no dynamics tendencies."""
+    no dynamics tendencies. On a `mesh` the columns are the rank's and
+    the energy fixer's sums are all-reduced."""
     ncol, pver, pcnst = state.ncol, state.pver, state.pcnst
     dtype, dev = state.t.dtype, state.t.device
     diags = {}
@@ -240,7 +241,8 @@ def tphysbc(phys_cfg: PhysConfig, zm_cfg: ZMConfig,
     # energy error against the previous step's exported energy, only once
     # tphysac has stored one (TEOUT_VALID, a multiply, not a branch) ----
     if nstep > 0:
-        heat = check_energy_fix(state, registry, pbuf.get("TEOUT")) / ztodt
+        heat = check_energy_fix(state, registry, pbuf.get("TEOUT"),
+                                mesh) / ztodt
         heat = heat * pbuf.get("TEOUT_VALID")[0]
     else:
         heat = torch.zeros_like(state.t)
@@ -522,13 +524,14 @@ def tphysac(phys_cfg: PhysConfig, registry: ConstituentRegistry,
 def phys_run1(phys_cfg: PhysConfig, zm_cfg: ZMConfig,
               registry: ConstituentRegistry, state: PhysicsState,
               pbuf: PhysicsBuffer, cam_in: CamIn, ztodt: float,
-              nstep: int = 1) -> PhysRunOut:
+              nstep: int = 1, mesh=None) -> PhysRunOut:
     """Pre-coupler driver (phys_run1, physpkg.F90:1057-1173): tphysbc on
-    the whole column batch, and the global-mean energy
-    (check_energy_gmean, :1115) as TEGMEAN."""
+    the whole column batch (on a `mesh`, the rank's columns), and the
+    global-mean energy (check_energy_gmean, :1115) as TEGMEAN."""
     out = tphysbc(phys_cfg, zm_cfg, registry, state, pbuf, cam_in, ztodt,
-                  nstep)
-    out.diagnostics["TEGMEAN"] = check_energy_gmean(out.state, registry)
+                  nstep, mesh)
+    out.diagnostics["TEGMEAN"] = check_energy_gmean(out.state, registry,
+                                                    mesh)
     return out
 
 

@@ -14,7 +14,8 @@ pressure pass; K2 the upward geopotential pass and a row kernel, with
 the polar filter on also its two DFT products and a row kernel for the
 Courants; K3 four row kernels and the downward pass; K4 the upward pass,
 three row kernels and, with the polar filter on, its two DFT products.
-The transport kernels take iord/jord 1 and 4, the orders the dycore runs.
+K3's transport and K4's vorticity fluxes take iord/jord in
+stencil_kernels.KERNEL_ORDERS; any other order raises.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from ..models.fv.cd_fused import (KE_METHODS, METRIC_ROWS, k1_ref, k2_ref,
 from ..utils import constants as c
 from . import cuda_build
 from . import tp_core as tp
-from .stencil_kernels import KERNEL_ORDERS
+from .stencil_kernels import check_orders
 
 # CUDA launches a call of each K, (polar filter off, on): K2 and K4 add
 # the two DFT products of csrc/dft_filter.cuh when they filter, K2 also
@@ -49,11 +50,9 @@ def _check(name, slabs, others=(), iord=1, jord=1, ke_method="centered"):
     contiguous; `slabs` (km, jm, im) with im even, `others` (arg, tensor,
     kind) with kind "plane" (jm, im), "metrics" (len(METRIC_ROWS), jm),
     "levels" (km, jm), "fwd" (im, nf), "inv" (nf, im) or "resp" (jm, nf),
-    nf = im//2+1; the transport orders in KERNEL_ORDERS; a known KE form.
-    Raises on anything else, for CPU tensors too."""
-    if iord not in KERNEL_ORDERS or jord not in KERNEL_ORDERS:
-        raise ValueError(f"{name}: the CUDA kernel supports iord/jord in "
-                         f"{KERNEL_ORDERS}, got iord={iord} jord={jord}")
+    nf = im//2+1; the transport orders in stencil_kernels.KERNEL_ORDERS;
+    a known KE form. Raises on anything else, for CPU tensors too."""
+    check_orders(name, iord, jord)
     if ke_method not in KE_METHODS:
         raise ValueError(f"{name}: ke_method must be one of {KE_METHODS}, "
                          f"got {ke_method!r}")

@@ -13,8 +13,12 @@ the mass fluxes, ddp and pt's fluxes, the caps and divergence),
 vort_flux3d one (the fluxes), tracer_div3d three (the inner operators,
 the fluxes, the caps and divergence).
 
-Kernel orders: iord/jord 1 and 4, the orders the dycore runs (the C-grid
-half step transports at 1, the D step and trac2d at 4).
+Kernel orders: iord/jord in KERNEL_ORDERS, the orders FVConfig documents
+(1 upwind, 2 van Leer, 3 PPM, 4 PPM with the improved monotonicity
+constraint, 5 positive definite, 6 Yeh steepening, 7 Huynh, -2 van Leer
+with the unlimited slope), on both devices; any other order raises. The
+order is a runtime argument of the row kernels (csrc/tp_core.cuh), one
+instantiation for every order.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 from . import cuda_build
 from . import tp_core as tp
 
-KERNEL_ORDERS = (1, 4)
+KERNEL_ORDERS = (1, 2, 3, 4, 5, 6, 7, -2)
 
 # CUDA launches a call of each wrapper (csrc/stencil_kernels.cu)
 LAUNCHES_PER_CALL = {"transport3d": 4, "vort_flux3d": 1, "tracer_div3d": 3}
@@ -59,15 +63,20 @@ def tracer_div3d_ref(q, crx, cry, mfx, mfy, va, ffsl, cosp, acosp,
     return tp.flux_divergence(fx, fy, acosp, rcap)
 
 
+def check_orders(name, iord, jord):
+    """Raise ValueError unless iord and jord are in KERNEL_ORDERS."""
+    if iord not in KERNEL_ORDERS or jord not in KERNEL_ORDERS:
+        raise ValueError(f"{name}: iord/jord must be in {KERNEL_ORDERS}, "
+                         f"got iord={iord} jord={jord}")
+
+
 def _check(name, slabs, shape, ffsl, rows, iord, jord, winds=False):
     """Validate what a kernel takes: one device, float32 or float64,
     contiguous, the given shapes (with `winds`, the first slab has `shape`
     and the others its trailing (km, jm, im)); raise on anything else. The
     wrappers check CPU tensors too, so the CPU runs hold the main path to
     the kernels' contract."""
-    if iord not in KERNEL_ORDERS or jord not in KERNEL_ORDERS:
-        raise ValueError(f"{name}: the CUDA kernel supports iord/jord in "
-                         f"{KERNEL_ORDERS}, got iord={iord} jord={jord}")
+    check_orders(name, iord, jord)
     dev, dtype = slabs[0][1].device, slabs[0][1].dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: float32 or float64 expected, got {dtype}")

@@ -194,12 +194,24 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
     steps (a simulated day; an IOP file of 9 records) in float32, exactly
     one zm_tail launch a step, and in float64 on the card against the
     CPU within 1e-9 with ZM trigger flips counted; ms a step of each;
-17. prints the kernels JSON line (ten kernels), the card's name and power
+17. the transport orders beside 1 and 4, latitude strips and a world of
+    one (OrdersSmoke): (a) transport3d, vort_flux3d, tracer_div3d, K3
+    and K4 on their captured main-path inputs and with FFSL rows forced,
+    at iord/jord 2, 3, 5, 6, 7, -2 and (3, 5), (6, 2): float32 bitwise
+    to the plain version, float64 within 1e-12; each timed at orders 1,
+    4 and the others (events and device time); 4 float64 HS steps at (3, 3) and (6, 2) on both
+    paths, launches as item 4's, kernels vs plain within 1e-9; (b) the
+    three stencils on the strips of 2, 4 and 8 ranks (halos cut from the
+    whole slab, parallel/shard_stencil.strip_call) reassembled, bitwise
+    to the whole slab in float32 and float64; (c) ensure_initialized
+    over NCCL with one rank, an all_reduce, then dyn_run and the coupled
+    atm_step on make_mesh(1), bitwise to no mesh with equal launches;
+18. prints the kernels JSON line (ten kernels), the card's name and power
     limit, then {"ok": true, "device": {...}} last. Every phase prints its
     wall time.
 
-`python3 chip_smoke.py --phase 16` builds the kernels and runs phase 16
-alone (no result line).
+`python3 chip_smoke.py --phase 16` (or `--phase 17`) builds the kernels
+and runs that phase alone (no result line).
 
 Exits non-zero, printing no result, without a CUDA device, outside a
 checkout of the repo, or when any phase fails.
@@ -290,10 +302,13 @@ BEYOND = ("f09", "f05")    # the bench's grids beyond f19
 BEYOND_REPS = {"f09": (20, 3), "f05": (10, 2)}
 
 # estimated operations per grid point of the stencil formulas (tp_core.cuh):
-# an x-flux (xtp) and a y-flux (ytp) at order 1 and 4, the inner advective
-# operators and a flux divergence
-OPS_X = {1: 3, 4: 70}
-OPS_Y = {1: 2, 4: 80}
+# an x-flux (xtp) and a y-flux (ytp) at each order (van Leer's 4th-order
+# slope at 2 and -2; PPM's edges and constraint from 3 up, lmt 0 and 2
+# dearer than 1 and 3, Yeh's steepening two more slopes' worth at 6,
+# Huynh's bounds at 7), the inner advective operators and a flux
+# divergence
+OPS_X = {1: 3, 2: 25, -2: 22, 3: 80, 4: 70, 5: 85, 6: 120, 7: 95}
+OPS_Y = {1: 2, 2: 30, -2: 25, 3: 90, 4: 80, 5: 95, 6: 85, 7: 85}
 OPS_ADX, OPS_ADY, OPS_DIV = 2 * OPS_X[1] + 6, 5, 5
 # ... and per grid point of the fused kernels' other formulas
 # (csrc/cd_fused_kernels.cu, a power or logarithm counted as one): K1's
@@ -498,7 +513,9 @@ class Smoke:
             res.extend(Smoke.flat(x) if isinstance(x, (tuple, list)) else [x])
         return res
 
-    def compare(self, label, name, a, kw, dtype_name):
+    def compare(self, label, name, a, kw, dtype_name, exact=None):
+        """The kernel against its plain version: bitwise where `exact`
+        (by default where EXACT says), else within TOL."""
         torch = self.torch
         dtype = getattr(torch, dtype_name)
         a, kw = self.cast(a, kw, dtype)
@@ -513,7 +530,8 @@ class Smoke:
             scale = max(float(w.abs().max()), 1e-30)
             abs_err = max(abs_err, d)
             rel = max(rel, d / scale)
-        exact = dtype_name in EXACT.get(name, ())
+        if exact is None:
+            exact = dtype_name in EXACT.get(name, ())
         ok = abs_err == 0.0 if exact else rel <= TOL[dtype_name]
         log(f"check {label:<24} {dtype_name}: max_abs_err={abs_err:.3e} "
             f"max_rel_err={rel:.3e} tol="
@@ -759,9 +777,9 @@ class Smoke:
         pts = km * jm * im
         ops = pts * OPS_FUSED[name]
         if name in ("k1", "k3"):
-            order = 1 if name == "k1" else a[5]
-            ops += pts * (2 * (OPS_ADX + OPS_ADY) + 2 * (OPS_Y[order] +
-                          OPS_X[order]) + 2 * OPS_DIV)
+            iord, jord = (1, 1) if name == "k1" else (a[5], a[6])
+            ops += pts * (2 * (OPS_ADX + OPS_ADY) + 2 * (OPS_Y[jord] +
+                          OPS_X[iord]) + 2 * OPS_DIV)
             crx = self.fused_courant(a) if name == "k1" else a[2]
             ffsl = self.ffsl_rows(crx, a[-1])
             ops += 6 * self.ffsl_sums(crx, ffsl, a[-1])
@@ -770,6 +788,8 @@ class Smoke:
         if name == "k4":
             ops += pts * ((OPS_DEL4 if a[19] > 0.0 else 0) +
                           (OPS_DEL2 if a[20] > 0.0 else 0))
+            # OPS_FUSED counts the vorticity fluxes at order 4
+            ops += pts * (OPS_Y[a[16]] + OPS_X[a[15]] - OPS_Y[4] - OPS_X[4])
             ops += self.ffsl_sums(a[6], self.ffsl_rows(a[6], a[-1]), a[-1])
         return ops
 
@@ -2486,6 +2506,303 @@ def run_modes(torch, sm: Smoke, card: str, hs_ms) -> None:
         f"wall by part " + ", ".join(f"({k}) {v:.1f} s" for k, v in t.items()))
 
 
+def hs_expect(sm: Smoke) -> dict:
+    """The launches of NSTEPS HS steps (build_step's FVConfig(nsplit=4,
+    nspltrac=1)) on each path: one tracer_div3d call a step, 8 transport3d
+    and 4 vort_flux3d calls on the unfused path, 4 calls of each K on the
+    fused one, their kernels' launches each."""
+    lpc = sm.sk.LAUNCHES_PER_CALL
+    tracer_calls = NSTEPS * lpc["tracer_div3d"]
+    return {
+        "matmul": {"transport3d": 8 * NSTEPS * lpc["transport3d"],
+                   "vort_flux3d": 4 * NSTEPS * lpc["vort_flux3d"],
+                   "tracer_div3d": tracer_calls, "te_map_remap": NSTEPS,
+                   **{k: 0 for k in FUSED}},
+        "fft": {"transport3d": 0, "vort_flux3d": 0,
+                "tracer_div3d": tracer_calls, "te_map_remap": NSTEPS,
+                **{k: 4 * sm.ck.launches_per_call(k) * NSTEPS
+                   for k in FUSED}},
+    }
+
+
+# phase 17: the transport orders beside 1 and 4, latitude strips, and a
+# world of one
+OTHER_ORDERS = ((2, 2), (3, 3), (5, 5), (6, 6), (7, 7), (-2, -2), (3, 5),
+                (6, 2))
+ORDER_KERNELS = ("transport3d", "vort_flux3d", "tracer_div3d", "k3", "k4")
+# where each kernel takes iord and jord among its arguments
+ORDER_ARGS = {"transport3d": (10, 11), "vort_flux3d": (7, 8),
+              "tracer_div3d": (10, 11), "k3": (5, 6), "k4": (15, 16)}
+ORDER_HS = ((3, 3), (6, 2))    # float64 HS steps at these orders
+ORDER_REPS = (20, 2)           # timed calls of each kernel and plain version
+STRIP_NY = (2, 4, 8)           # strips of f19's 96 rows: 48, 24, 12
+DT_HS = 1800.0                 # (c): the HS large step
+WORLD_BACKEND = "nccl"         # (c): the one rank's process group
+
+
+class OrdersSmoke:
+    """Phase 17 at f19: (a) the five kernels that take iord and jord at
+    every other order of stencil_kernels.KERNEL_ORDERS, against their
+    plain versions and timed, and 4 float64 HS steps at two of them on
+    both paths; (b) the strip computation of parallel/shard_stencil at
+    ny = 2, 4, 8 against the whole slab; (c) a world of one over NCCL:
+    dyn_run and atm_step on a mesh of one rank against no mesh."""
+
+    def __init__(self, torch, sm: Smoke, card: str):
+        from cam_nor_physics_tpu_torch.entry import build_step
+        self.torch, self.sm, self.card = torch, sm, card
+        self.cases = []
+        calls = {}
+        for impl, names in (("matmul", ("transport3d", "vort_flux3d")),
+                            ("fft", ("tracer_div3d", "k3", "k4"))):
+            step, state, grid, coord, phis = build_step(
+                IM, JM, KM, torch.float32, DEVICE, filter_impl=impl)
+            got = sm.capture_inputs(step, state, grid, coord, phis)
+            calls.update({n: got[n] for n in names})
+        for name in ORDER_KERNELS:
+            lst = calls[name]
+            if name == "transport3d":
+                lst = [c for c in lst if c[0][10] == 4]
+            if not lst:
+                raise RuntimeError(f"phase 17: no {name} call captured")
+            a, kw = lst[-1]
+            self.cases.append((name, name, a, kw))
+        self.max_err = {}
+
+    @staticmethod
+    def with_orders(name, a, iord, jord):
+        a = list(a)
+        i, j = ORDER_ARGS[name]
+        a[i], a[j] = iord, jord
+        return tuple(a)
+
+    # ---- (a) the orders
+    def check_orders(self):
+        """Each kernel on its captured inputs and with FFSL rows forced, at
+        every other order: float32 bitwise to the plain version, float64
+        within TOL."""
+        sm = self.sm
+        for label, name, a, kw in self.cases:
+            sa, skw, nrows = sm.stressed(name, a, kw)
+            for vlabel, va, vkw in ((label, a, kw),
+                                    (f"{label}+ffsl({nrows})", sa, skw)):
+                for iord, jord in OTHER_ORDERS:
+                    oa = self.with_orders(name, va, iord, jord)
+                    tag = f"{vlabel}({iord},{jord})"
+                    err = sm.compare(tag, name, oa, vkw, "float32",
+                                     exact=True)
+                    self.max_err[name] = max(self.max_err.get(name, 0.0),
+                                             err)
+                    sm.compare(tag, name, oa, vkw, "float64", exact=False)
+
+    def time_orders(self):
+        """Each kernel at orders 1, 4 and the others (CUDA events; float32,
+        the captured inputs), beside its plain version and bound, and its
+        device time a call (torch.profiler: the mean duration of each
+        kernel it launches, once a call each, summed)."""
+        from cam_nor_physics_tpu_torch.bench import kernel_times
+        for label, name, a, kw in self.cases:
+            fn = self.sm.kernel(name)
+            for iord, jord in ((1, 1), (4, 4)) + OTHER_ORDERS:
+                oa = self.with_orders(name, a, iord, jord)
+                tag = f"{label}({iord},{jord})"
+                self.sm.time_row(tag, name, oa, kw, *ORDER_REPS)
+                times, _ = kernel_times(lambda: fn(*oa, **kw), ORDER_REPS[0])
+                ms = sum(us / n for n, us in times.values()) / 1e3
+                log(f"device {tag:<18} {ms:.4f} ms a call ({len(times)} "
+                    f"kernels)  [{self.card}]")
+
+    def hs_orders(self):
+        """4 float64 HS steps at each of ORDER_HS on both paths, through
+        the kernels (launches exactly phase 4's) and the plain versions:
+        every field within PLAIN_TOL_F64 of its max."""
+        torch, sm = self.torch, self.sm
+        from cam_nor_physics_tpu_torch.entry import build_step
+        from cam_nor_physics_tpu_torch.utils.config import FVConfig
+        expect = hs_expect(sm)
+        rng = np.random.default_rng(1)
+        for iord, jord in ORDER_HS:
+            cfg = FVConfig(nsplit=4, nspltrac=1, iord=iord, jord=jord)
+            for impl in ("fft", "matmul"):
+                step, s0, grid, coord, phis = build_step(
+                    IM, JM, KM, torch.float64, DEVICE, filter_impl=impl,
+                    cfg=cfg)
+                # a positive tracer, so trac2d moves real tracer mass
+                s0 = s0.replace(q=torch.as_tensor(
+                    1e-3 * (1.0 + 0.5 * rng.uniform(size=tuple(s0.q.shape))),
+                    dtype=torch.float64, device=DEVICE))
+                sm.zero_counts()
+                state, times = sm.run_steps(step, s0, grid, coord, phis)
+                torch.cuda.synchronize()
+                launches = {n: sm.kernel(n).launches for n in sm.sites}
+                with sm.routed(sm.plain):
+                    ref, ref_s = sm.run_steps(step, s0, grid, coord, phis)
+                par = sm.parity(state, ref, coord)
+                bad = [f for f in ("u", "v", "pt", "delp", "q")
+                       if not bool(torch.isfinite(getattr(state, f)).all())]
+                log(f"orders ({iord},{jord}) {impl}: {NSTEPS} float64 HS "
+                    f"steps, launches {launches}; kernels vs plain "
+                    + ", ".join(f"{k} {v:.3e}" for k, v in par.items())
+                    + f" (tol {PLAIN_TOL_F64:.0e}); ms a step kernels "
+                    + ", ".join(f"{1e3 * t:.1f}" for t in times)
+                    + ", plain " + ", ".join(f"{1e3 * t:.1f}" for t in ref_s)
+                    + f"  [{self.card}]")
+                if launches != expect[impl] or bad or \
+                        not max(par.values()) <= PLAIN_TOL_F64 or \
+                        any(math.isnan(v) for v in par.values()):
+                    raise RuntimeError(
+                        f"orders ({iord},{jord}) {impl}: launches "
+                        f"{launches} (expected {expect[impl]}), non-finite "
+                        f"{bad}, kernels vs plain {par}")
+                del state, ref
+                torch.cuda.empty_cache()
+
+    # ---- (b) the strips
+    def strips(self):
+        """transport3d, vort_flux3d and tracer_div3d on the strips of ny
+        ranks, each strip's halo cut from the whole slab as the exchange
+        delivers it (shard_stencil.cut_strip, strip_call), reassembled,
+        against the whole-slab kernel (no FFSL band, as the strips):
+        bitwise in float32 and float64."""
+        torch, sm = self.torch, self.sm
+        from cam_nor_physics_tpu_torch.parallel import shard_stencil as ss
+        for label, name, a, kw in self.cases[:3]:
+            for dtype in (torch.float32, torch.float64):
+                ca, _ = sm.cast(a, {}, dtype)
+                tensors = [x for x in ca if isinstance(x, torch.Tensor)]
+                scalars = ca[len(tensors):]
+                want = sm.flat(sm.kernel(name)(*ca))
+                for ny in STRIP_NY:
+                    rows = JM // ny
+                    parts = [sm.flat(ss.strip_call(
+                        name, ss.cut_strip(tensors, y, ny), scalars, y,
+                        rows)) for y in range(ny)]
+                    got = [torch.cat([p[i] for p in parts], -2)
+                           for i in range(len(want))]
+                    torch.cuda.synchronize()
+                    bad = sorted({int(r) for g, w in zip(got, want)
+                                  for r in torch.nonzero(
+                                      (g != w).flatten(0, -3).any(0)
+                                      .any(-1)).flatten()})
+                    err = max(float((g - w).abs().max())
+                              for g, w in zip(got, want))
+                    log(f"strips {label} ny={ny} ({rows} rows) "
+                        f"{str(dtype)[6:]}: max_abs_err {err:.3e}, rows "
+                        f"differing {bad}")
+                    if bad:
+                        raise RuntimeError(f"strips {label} ny={ny}: rows "
+                                           f"{bad} differ from the whole "
+                                           f"slab")
+
+    # ---- (c) a world of one
+    def world_of_one(self):
+        """ensure_initialized over NCCL with one rank (a tcp:// rendezvous
+        on localhost), one all_reduce, then dyn_run (HS, float32, 4 small
+        steps) and the coupled atm_step (first step) on make_mesh(1)
+        against the same calls without a mesh: bitwise, launches equal."""
+        import os
+        import socket
+        from dataclasses import fields
+
+        import torch.distributed as dist
+
+        from cam_nor_physics_tpu_torch.entry import (build_coupled,
+                                                     build_step)
+        from cam_nor_physics_tpu_torch.models.atm_comp import atm_step
+        from cam_nor_physics_tpu_torch.models.coupling.surface_fluxes \
+            import bulk_surface_fluxes
+        from cam_nor_physics_tpu_torch.models.fv.dyn_comp import dyn_run
+        from cam_nor_physics_tpu_torch.parallel import distributed as pdist
+        from cam_nor_physics_tpu_torch.parallel import mesh as pmesh
+        from cam_nor_physics_tpu_torch.utils.config import FVConfig
+        torch, sm = self.torch, self.sm
+        with socket.socket() as sck:
+            sck.bind(("localhost", 0))
+            port = sck.getsockname()[1]
+        # the one rank's group rendezvous on the loopback device
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        multi = pdist.ensure_initialized(f"tcp://localhost:{port}", 1, 0)
+        try:
+            t = torch.ones(4, device=DEVICE)
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            if multi or dist.get_backend() != WORLD_BACKEND or \
+                    not bool((t == 1).all()):
+                raise RuntimeError(f"world of one: multi {multi}, backend "
+                                   f"{dist.get_backend()}, all_reduce {t}")
+            mesh = pmesh.make_mesh(1)
+            _, s0, grid, coord, phis = build_step(IM, JM, KM, torch.float32,
+                                                  DEVICE)
+            cfg = FVConfig(nsplit=4, nspltrac=1)
+
+            def counted(fn):
+                sm.zero_counts()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                return out, sm.counts(), time.perf_counter() - t0
+
+            a, ca, ta = counted(lambda: dyn_run(s0, grid, coord, phis, cfg,
+                                                DT_HS))
+            b, cb, tb = counted(lambda: dyn_run(
+                pmesh.shard_state(s0, mesh), grid, coord,
+                mesh.take_rows(phis), cfg, DT_HS, mesh=mesh))
+            diff = [f for f in ("u", "v", "pt", "delp", "q")
+                    if not torch.equal(getattr(a, f), getattr(b, f))]
+            log(f"world of one: dyn_run on make_mesh(1) vs no mesh: fields "
+                f"differing {diff}, launches {cb} (no mesh {ca}); "
+                f"{1e3 * tb:.1f} vs {1e3 * ta:.1f} ms  [{self.card}]")
+            if diff or ca != cb:
+                raise RuntimeError(f"world of one dyn_run: {diff}, {ca} vs "
+                                   f"{cb}")
+            model, _, st, sst = build_coupled(IM, JM, KM, torch.float32,
+                                              DEVICE)
+            cam_in = bulk_surface_fluxes(st.phys, sst, model.registry.pcnst)
+            (x, xo, _), cx, tx = counted(lambda: atm_step(
+                model, st, cam_in, first_step=True))
+            (y, yo, _), cy, ty = counted(lambda: atm_step(
+                model, pmesh.shard_state(st, mesh),
+                pmesh.shard_state(cam_in, mesh, JM, IM), first_step=True,
+                mesh=mesh))
+            pairs = [(f"dyn.{f.name}", getattr(x.dyn, f.name),
+                      getattr(y.dyn, f.name)) for f in fields(x.dyn)]
+            pairs += [(f"phys.{f.name}", getattr(x.phys, f.name),
+                       getattr(y.phys, f.name)) for f in fields(x.phys)]
+            pairs += [(f"cam_out.{f.name}", getattr(xo, f.name),
+                       getattr(yo, f.name)) for f in fields(xo)]
+            pairs += [(f"pbuf.{k}", v, y.pbuf.fields[k])
+                      for k, v in x.pbuf.fields.items()]
+            diff = [n for n, u, v in pairs
+                    if isinstance(u, torch.Tensor) and not torch.equal(u, v)]
+            log(f"world of one: atm_step on make_mesh(1) vs no mesh: "
+                f"{len(pairs)} tensors, differing {diff}, launches {cy} (no "
+                f"mesh {cx}); {1e3 * ty:.1f} vs {1e3 * tx:.1f} ms  "
+                f"[{self.card}]")
+            if diff or cx != cy:
+                raise RuntimeError(f"world of one atm_step: {diff}, {cx} vs "
+                                   f"{cy}")
+        finally:
+            dist.destroy_process_group()
+
+
+def run_orders(torch, sm: Smoke, card: str) -> None:
+    """Phase 17: OrdersSmoke's parts, each timed."""
+    osm = OrdersSmoke(torch, sm, card)
+    t = {}
+    for part, fn in (("a check", osm.check_orders),
+                     ("a time", osm.time_orders),
+                     ("a HS steps", osm.hs_orders), ("b strips", osm.strips),
+                     ("c world of one", osm.world_of_one)):
+        t0 = time.perf_counter()
+        fn()
+        t[part] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    log(f"phase 17 [{card}]: float32 max_abs_err at the other orders "
+        + ", ".join(f"{k} {v:.3e}" for k, v in osm.max_err.items())
+        + "; wall by part " + ", ".join(f"({k}) {v:.1f} s"
+                                        for k, v in t.items()))
+
+
 def device_us(fn, reps):
     """Device µs a call of fn, which launches one kernel: the mean
     duration of the launches torch.profiler recorded in `reps` calls."""
@@ -2597,20 +2914,7 @@ def run(torch) -> dict:
 
     # ---- phase 4: both HS paths through the kernels, counted
     with phase("4 HS paths at f19"):
-        # one tracer_div3d call a step, 8 transport3d and 4 vort_flux3d
-        # calls on the unfused path, their row kernels' launches each
-        lpc = sm.sk.LAUNCHES_PER_CALL
-        tracer_calls = NSTEPS * lpc["tracer_div3d"]
-        expect = {
-            "matmul": {"transport3d": 8 * NSTEPS * lpc["transport3d"],
-                       "vort_flux3d": 4 * NSTEPS * lpc["vort_flux3d"],
-                       "tracer_div3d": tracer_calls, "te_map_remap": NSTEPS,
-                       **{k: 0 for k in FUSED}},
-            "fft": {"transport3d": 0, "vort_flux3d": 0,
-                    "tracer_div3d": tracer_calls, "te_map_remap": NSTEPS,
-                    **{k: 4 * sm.ck.launches_per_call(k) * NSTEPS
-                       for k in FUSED}},
-        }
+        expect = hs_expect(sm)
         runs = {impl: sm.hs_path(impl, *paths[impl], expect[impl])
                 for impl in ("matmul", "fft")}
         sm.fused_vs_unfused(runs["fft"]["f64_state"])
@@ -2710,6 +3014,12 @@ def run(torch) -> dict:
         run_modes(torch, sm, card, hs_ms)
         torch.cuda.empty_cache()
 
+    # ---- phase 17: the transport orders beside 1 and 4, latitude strips,
+    # a world of one
+    with phase("17 orders and strips at f19"):
+        run_orders(torch, sm, card)
+        torch.cuda.empty_cache()
+
     kernels = []
     for name, source, replaces in KERNELS:
         if name in ("zm_tail", "probe"):
@@ -2733,17 +3043,23 @@ def run(torch) -> dict:
     return {"card": card, "kernels": kernels}
 
 
-def run_phase16(torch) -> int:
-    """`python3 chip_smoke.py --phase 16`: the build and phase 16 alone
-    (the HS graph step not measured); prints no result line."""
+def run_phase(torch, n: int) -> int:
+    """`python3 chip_smoke.py --phase 16` or `--phase 17`: the build and
+    that phase alone (phase 16 without the HS graph step); prints no
+    result line."""
     from cam_nor_physics_tpu_torch.bench import card_label
     from cam_nor_physics_tpu_torch.ops import cuda_build
     card = card_label()
     log(card)
     times = cuda_build.build()
     log("build: " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
-    with phase("16 other modes at f19"):
-        run_modes(torch, Smoke(torch, card), card, None)
+    sm = Smoke(torch, card)
+    if n == 16:
+        with phase("16 other modes at f19"):
+            run_modes(torch, sm, card, None)
+    else:
+        with phase("17 orders and strips at f19"):
+            run_orders(torch, sm, card)
     return 0
 
 
@@ -2758,8 +3074,8 @@ def main() -> int:
               "is False", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    if sys.argv[1:] == ["--phase", "16"]:
-        return run_phase16(torch)
+    if sys.argv[1:] in (["--phase", "16"], ["--phase", "17"]):
+        return run_phase(torch, int(sys.argv[2]))
     t0 = time.perf_counter()
     record = run(torch)
     log(f"chip_smoke.py: {time.perf_counter() - t0:.1f} s wall in all")

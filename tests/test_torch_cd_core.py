@@ -23,6 +23,7 @@ from cam_nor_physics_tpu_torch.entry import build_step
 from cam_nor_physics_tpu_torch.models.fv import cd_core as tcd
 from cam_nor_physics_tpu_torch.models.fv import grid as tgrid
 from cam_nor_physics_tpu_torch.models.fv import vertical as tvert
+from cam_nor_physics_tpu_torch.parallel.mesh import make_mesh
 from torch_port_util import assert_close, npy, t64
 
 pytest_plugins = ("torch_port_plugin",)
@@ -130,13 +131,23 @@ def test_cd_step_matches_jax(filter_impl, flags):
 
 
 def test_unported_options_raise():
-    """mesh raises. return_debug, which raised until it was ported, runs
-    the unfused step: its state and diagnostics bitwise those of the
-    step without it, and its terms finite (test_torch_dyn_options.py
-    holds them to JAX's)."""
+    """mesh and return_debug, which raised until they were ported, run.
+    A mesh of one rank gives the step without a mesh bitwise, fused and
+    unfused; an object that is not a mesh raises TypeError
+    (tests/test_torch_parallel.py holds meshes of several ranks).
+    return_debug runs the unfused step: its state and diagnostics
+    bitwise those of the step without it, and its terms finite
+    (test_torch_dyn_options.py holds them to JAX's)."""
     fields, tg, tc, phis = _spun_up_state()
     st = convert.dynstate_from_numpy(fields, "cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    one = make_mesh(device="cpu")
+    for kw in (dict(c_sw_pgf=True), dict(c_sw_pgf=True, fused=False)):
+        a, da = tcd.cd_step(st, tg, tc.ptop, phis, 450.0, mesh=one, **kw)
+        b, db = tcd.cd_step(st, tg, tc.ptop, phis, 450.0, **kw)
+        for f in ("u", "v", "pt", "delp", "q"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), (kw, f)
+        assert all(torch.equal(da[k], db[k]) for k in db)
+    with pytest.raises(TypeError, match="Mesh"):
         tcd.cd_step(st, tg, tc.ptop, phis, 450.0, mesh=object())
     new, diags = tcd.cd_step(st, tg, tc.ptop, phis, 450.0, c_sw_pgf=True,
                              return_debug=True)

@@ -22,9 +22,14 @@ against the JAX package's cd_pallas, float64 on the CPU at 36x24x6.
   __syncthreads()) against the plain versions: float64 within 1e-12 and
   float32 within 1e-5 of each output's max; also K1 with FFSL rows
   without and with a polar band, K2 with the filter off and K3 with FFSL
-  rows and a polar band at orders 1 and 4.
+  rows and a polar band at orders 1 and 4; and K3 (FFSL rows and a polar
+  band) and K4 at every other order of stencil_kernels.KERNEL_ORDERS and
+  the pairs (3, 5) and (6, 2), float32 bitwise but for K3's pkz and dgz
+  (glibc's powf and logf), float64 within 1e-12.
 - On a card (marked `cuda`), each kernel against its plain version.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -273,8 +278,11 @@ def test_wrappers_refuse_what_the_kernels_cannot_take():
     with pytest.raises(ValueError, match="im even"):
         ck.k1(*[x[..., :-1] for x in a[:4]], *a[4:])
     b = list(rec["k3"])
-    with pytest.raises(ValueError, match="iord/jord"):
-        ck.k3(*b[:5], 2, 4, *b[7:])
+    ck._check("k3", [("delp", b[0])], iord=2, jord=4)
+    ck._check("k4", [("u", b[0])], iord=-2, jord=7)
+    for iord, jord in ((0, 4), (4, 8)):
+        with pytest.raises(ValueError, match="iord/jord"):
+            ck.k3(*b[:5], iord, jord, *b[7:])
     c = list(rec["k4"])
     with pytest.raises(ValueError, match="ke_method"):
         ck.k4(*c[:17], "vector", *c[18:])
@@ -400,6 +408,61 @@ def test_cuda_source_row_kernel_cases_on_the_host(case, host_lib):
     them."""
     name, args, dyn_filter = _row_case(case)
     _host_matches_plain(host_lib, name, args, dyn_filter)
+
+
+# the transport orders beside 1 and 4 and the two mixed pairs; where K3
+# and K4 take them in their argument lists
+OTHER_ORDERS = [(2, 2), (3, 3), (5, 5), (6, 6), (7, 7), (-2, -2), (3, 5),
+                (6, 2)]
+ORDER_ARGS = {"k3": (5, 6), "k4": (15, 16)}
+
+
+# levels of the fused step's inputs the order cases keep (the host runs
+# each block's threads as std::threads: a level less is a third less time)
+ORDER_LEVELS = 2
+
+
+@functools.lru_cache(maxsize=None)
+def _order_sources():
+    """K3's arguments with FFSL rows forced and the polar band set (as
+    _row_case), and K4's, on the top ORDER_LEVELS levels of the fused
+    step's inputs: made once for the order cases."""
+    def top(args):
+        return tuple(x[:ORDER_LEVELS].contiguous()
+                     if isinstance(x, torch.Tensor) and x.shape[0] == KM
+                     else x for x in args)
+    return {"k3": top(_row_case("k3_ffsl_band_order4")[1]),
+            "k4": top(_k_calls(BASE)["k4"])}
+
+
+def _order_case(name, iord, jord):
+    """K3's or K4's order-case arguments at (iord, jord)."""
+    a = list(_order_sources()[name])
+    i, j = ORDER_ARGS[name]
+    a[i], a[j] = iord, jord
+    return a
+
+
+@pytest.mark.parametrize("iord,jord", OTHER_ORDERS)
+def test_k3_k4_every_order_on_the_host(iord, jord, host_lib):
+    """K3 and K4 of the host build at (iord, jord), on two levels,
+    against their plain versions: float32 bitwise (K3's pkz and dgz, which pass through
+    glibc's powf and logf, within 1e-5), float64 within 1e-12 of each
+    output's max."""
+    for name in ("k3", "k4"):
+        a = _order_case(name, iord, jord)
+        for dtype in (torch.float32, torch.float64):
+            want = getattr(tcf, f"{name}_ref")(*[_cast(x, dtype) for x in a])
+            got, launches = _host_run(host_lib, name, a, dtype)
+            assert launches == ck.launches_per_call(name)
+            for i, (g, w) in enumerate(zip(got, want)):
+                msg = f"{name} ({iord}, {jord}) {dtype} output {i}"
+                assert torch.isfinite(g).all(), msg
+                if dtype == torch.float32 and not (name == "k3" and i >= 4):
+                    assert torch.equal(g, w), msg
+                else:
+                    assert_close(g, w, 1e-12 if dtype == torch.float64
+                                 else 1e-5, msg)
 
 
 @pytest.mark.cuda

@@ -13,9 +13,10 @@
   and the driver's (quick_run, cli.run_main) too.
 - convert.py carries state, grid and coordinate, the physics state and
   buffer, and the coupled state, across and back unchanged.
-- The options the port does not implement raise NotImplementedError
-  (mesh in dyn_run); ZMConfig.microp and the dycore's AM and
-  high-altitude options, which raised until they were ported, run.
+- ZMConfig.microp and the dycore's AM and high-altitude options, which
+  raised until they were ported, run; so does mesh= in dyn_run (a mesh
+  of one rank gives the step without a mesh bitwise; an object that is
+  not a mesh raises TypeError).
 """
 
 import ast
@@ -35,6 +36,7 @@ from cam_nor_physics_tpu_torch.models.physics.constituents import \
     default_registry
 from cam_nor_physics_tpu_torch.models.physics.zm_conv_intr import \
     zm_conv_tend
+from cam_nor_physics_tpu_torch.parallel.mesh import make_mesh
 from cam_nor_physics_tpu_torch.utils.config import FVConfig, ZMConfig
 
 pytest_plugins = ("torch_port_plugin",)
@@ -83,7 +85,8 @@ COUPLED_MODULES = (
 
 # modules that need no torch themselves
 TORCH_FREE = ("utils/config.py", "cli.py", "utils/histio_native.py",
-              "utils/ckptio_native.py", "models/physics/oslo_aero.py")
+              "utils/ckptio_native.py", "models/physics/oslo_aero.py",
+              "parallel/__init__.py")
 
 # the driver's modules (each must exist and be scanned)
 DRIVER_MODULES = (
@@ -111,9 +114,15 @@ MODES_MODULES = (
     "models/fv/inidat.py", "models/fv/metdata.py", "models/scam.py")
 
 
+# the multi-device modules (each must exist and be scanned)
+PARALLEL_MODULES = (
+    "parallel/__init__.py", "parallel/mesh.py", "parallel/distributed.py",
+    "parallel/shard_stencil.py")
+
+
 @pytest.mark.parametrize("module",
                          COUPLED_MODULES + DRIVER_MODULES + MICROP_MODULES +
-                         MODES_MODULES)
+                         MODES_MODULES + PARALLEL_MODULES)
 def test_coupled_modules_are_scanned(module):
     path = REPO / "cam_nor_physics_tpu_torch" / module
     assert path in _port_sources()
@@ -335,7 +344,11 @@ def test_unported_dyn_run_options_raise(option):
     ported, run: the fixer and the correction move u (the correction
     leaves delp as it was), am_diag returns its payload and
     high_altitude with no species (constant κ) leaves pt as without it
-    (tests/test_torch_dyn_options.py holds each to JAX). mesh raises."""
+    (tests/test_torch_dyn_options.py holds each to JAX). mesh, which
+    raised until it was ported, runs: a mesh of one rank gives the step
+    without it bitwise, with the option on too; an object that is not a
+    mesh raises TypeError (tests/test_torch_parallel.py holds meshes of
+    several ranks)."""
     step, st, grid, coord, phis = build_step(12, 8, 2, torch.float64, "cpu")
     base = tdc.dyn_run(st, grid, coord, phis, FVConfig(), 1800.0)
     new, diags = tdc.dyn_run(st, grid, coord, phis,
@@ -355,7 +368,16 @@ def test_unported_dyn_run_options_raise(option):
     else:
         np.testing.assert_allclose(new.pt.numpy(), base.pt.numpy(),
                                    rtol=1e-9)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    one = make_mesh(device="cpu")
+    on_mesh, mdiags = tdc.dyn_run(st, grid, coord, phis,
+                                  FVConfig(**{option: True}), 1800.0,
+                                  mesh=one, return_diags=True)
+    for f in ("u", "v", "pt", "delp", "q"):
+        assert torch.equal(getattr(on_mesh, f), getattr(new, f)), f
+    assert set(mdiags) == set(diags)
+    for k in diags:
+        assert torch.equal(mdiags[k], diags[k]), k
+    with pytest.raises(TypeError, match="Mesh"):
         tdc.dyn_run(st, grid, coord, phis, FVConfig(), 1800.0,
                     mesh=object())
 

@@ -13,7 +13,10 @@ host C++ (torch_port_util.host_build) runs the row kernels of
 transport3d, vort_flux3d and tracer_div3d against their plain versions:
 orders 1 and 4, FFSL rows on and off, a polar band on and off (two tracers);
 float64 within 1e-12 and float32 within 1e-5 of each output's max,
-LAUNCHES_PER_CALL[name] launches a call.
+LAUNCHES_PER_CALL[name] launches a call; and at every other order of
+KERNEL_ORDERS and the mixed pairs (3, 5) and (6, 2), float32 bitwise and
+float64 within 1e-12 (the polar caps' float64 row sums are the only
+values whose order of summation differs).
 """
 
 import jax
@@ -133,12 +136,21 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_kernel_checks_refuse_unsupported_orders():
+    """Every order of KERNEL_ORDERS passes the check (order 2, which
+    raised until the kernels took it, too); 0 and 8 raise, on either
+    axis, naming the set."""
     f = _inputs(seed=4)
     args = _torch(_transport_args(f, 4))
     slabs = [("delp", args[0]), ("pt", args[1])]
-    with pytest.raises(ValueError, match="iord/jord"):
+    for o in sk.KERNEL_ORDERS:
         sk._check("transport3d", slabs, args[0].shape, args[6],
-                  [("cosp", args[7])], 2, 4)
+                  [("cosp", args[7])], o, 2)
+    for iord, jord in ((0, 4), (4, 8), (8, 8)):
+        with pytest.raises(ValueError, match="iord/jord must be in"):
+            sk._check("transport3d", slabs, args[0].shape, args[6],
+                      [("cosp", args[7])], iord, jord)
+        with pytest.raises(ValueError, match="iord/jord"):
+            sk.transport3d(*args[:10], iord, jord)
     with pytest.raises(ValueError, match="shape"):
         sk._check("transport3d", slabs, args[0].shape, args[6][:, :-1],
                   [("cosp", args[7])], 4, 4)
@@ -202,6 +214,48 @@ def test_tracer_row_kernels_on_the_host(name, order, ffsl, band, host_lib):
         for i, (g, w) in enumerate(zip(got, want)):
             assert torch.isfinite(g).all()
             assert_close(g, w, tol, f"{name} output {i} {dtype}")
+
+
+# the orders beside 1 and 4 and the two mixed pairs
+OTHER_ORDERS = [(2, 2), (3, 3), (5, 5), (6, 6), (7, 7), (-2, -2), (3, 5),
+                (6, 2)]
+
+
+@pytest.mark.parametrize("iord,jord", OTHER_ORDERS)
+@pytest.mark.parametrize("name", list(RUNS))
+def test_row_kernels_at_every_order_on_the_host(name, iord, jord, host_lib):
+    """The row kernels (csrc/tp_core.cuh), built for the host, against the
+    plain version of `name` at (iord, jord), 24x16x2: FFSL rows with a
+    polar band (rows 1 and JM-2 take the FFSL branch, the
+    other flagged rows the band's Eulerian one), and none; float32
+    bitwise, float64 within 1e-12 of each output's max."""
+    for ffsl, band in ((True, TRACER_BAND), (False, None)):
+        f = slab_fields(2, 16, 24, seed=21 + iord,
+                        ffsl_rows=3 if ffsl else 0)
+        grid = make_grid(24, 16, 2)
+        f.update(cosp=np.asarray(grid.cosp), acosp=np.asarray(grid.acosp),
+                 rcap=float(grid.rcap))
+        f["udt"] = 450.0 * f["crx"]
+        f["vdt"] = 450.0 * f["cry"]
+        f["yfx"] = f["cry"] * f["cosp"][:, None]
+        f["va"] = 0.5 * (f["cry"] + np.asarray(jtp.edge_north(f["cry"])))
+        f["ffsl"] = np.abs(f["crx"]).max(-1) > 1.0
+        args = _torch(CASES[name](f, iord))
+        args[-1] = jord
+        for dtype in (torch.float64, torch.float32):
+            a = [x.to(dtype) if isinstance(x, torch.Tensor) and
+                 x.is_floating_point() else x for x in args]
+            want = _outputs(getattr(sk, name + "_ref")(*a, band=band))
+            suf = "f32" if dtype == torch.float32 else "f64"
+            got = _outputs(RUNS[name](getattr(host_lib, f"cam_{name}_{suf}"),
+                                      None, *a, band))
+            for i, (g, w) in enumerate(zip(got, want)):
+                msg = f"{name} ({iord}, {jord}) {ffsl} {band} output {i}"
+                assert torch.isfinite(g).all(), msg
+                if dtype == torch.float32:
+                    assert torch.equal(g, w), msg
+                else:
+                    assert_close(g, w, 1e-12, msg)
 
 
 @pytest.mark.cuda

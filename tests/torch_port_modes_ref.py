@@ -14,7 +14,8 @@ test; the script writes DIR/out.pkl, {case: {key: numpy array}}.
 cd_step_fused(interpret=True) for one of its flag sets, jitted. "dyn":
 dyn_run with each option set of cases["configs"]
 (FVConfig(use_pallas=False) and filter_impl="matmul", the unfused step
-the port's "matmul" runs), jitted, and, unless cases["debug"] is None,
+the port's "matmul" runs, unless the set names another filter_impl),
+jitted, and, unless cases["debug"] is None,
 one unfused cd_step with return_debug. "scam" (run by
 tests/torch_port_microp_ref.py): scam_run, scam_run_iop and one
 scam_step, op by op under jax.disable_jit() (jitted, SCAM's phys_run1 and
@@ -50,9 +51,11 @@ def run_dyn(cases):
     phis = jnp.asarray(cases["phis"])
     out = {}
     for name, kw in cases["configs"].items():
+        kw = dict(kw)
+        filter_impl = kw.pop("filter_impl", "matmul")
         cfg = FVConfig(use_pallas=False, **kw)
         new, diags = jax.jit(lambda s, p: dyn_run(
-            s, grid, coord, p, cfg, cases["dt"], filter_impl="matmul",
+            s, grid, coord, p, cfg, cases["dt"], filter_impl=filter_impl,
             return_diags=True))(state, phis)
         out[name] = {**{f: np.asarray(getattr(new, f)) for f in DYN},
                      **{f"diag.{k}": np.asarray(v) for k, v in diags.items()}}
