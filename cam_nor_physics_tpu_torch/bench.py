@@ -34,9 +34,17 @@ Environment, as bench.py's:
   BENCH_MICROP=1         with BENCH_COUPLED=1: ZMConfig(microp=True), the
                          in-plume microphysics (bench.py's production
                          configuration; ZM's fused tail is off under it)
-BENCH_ROOFLINE=1 raises NotImplementedError. The JSON
-line carries bench.py's keys plus `impl` (what the headline measures) and
-`card` (nvidia-smi's name and power limit; null on the CPU).
+  BENCH_ROOFLINE=1       after the timings, each step's bytes and
+                         operations counted over one eager call
+                         (ops/cost.py: the kernels' own work and the
+                         PyTorch glue op by op) and one stderr line per
+                         step and loop shape timed: the achieved rates and
+                         their shares of the card's peaks (`roofline_line`);
+                         with BENCH_COUPLED=1 it raises ValueError (bench.py
+                         ignores it there)
+The JSON line carries bench.py's keys plus `impl` (what the headline
+measures) and `card` (nvidia-smi's name and power limit; null on the
+CPU).
 
 BENCH_COUPLED=1 is the twin of bench.py's `coupled_main`: the coupled
 atm_step in bench.py's configuration ("config-4b", entry.build_coupled:
@@ -71,7 +79,7 @@ import time
 import torch
 
 from .entry import DT, build_coupled, build_step, build_zm_step
-from .ops import cuda_build
+from .ops import cost, cuda_build
 from .ops.probe_kernels import SHAPE as PROBE_SHAPE
 from .ops.probe_kernels import probe
 from .utils.config import FVConfig
@@ -109,7 +117,7 @@ COUPLED_IMPL_MICROP = {
 IMPL = {"cuda": "torch+cuda f32: fused fft HS step (K1-K4 CUDA), CUDA "
                 "tracer_div3d and te_map_remap, CUDA ZM tail",
         "cpu": "torch cpu f32: the kernels' plain PyTorch versions (fused "
-               "fft HS step, plain ZM tail)"}
+               "fft HS step, ZM tail)"}
 
 
 def grid_from_env(env) -> str:
@@ -368,11 +376,36 @@ def phase_times(state, grid, coord, phis, cfg: FVConfig, iters: int,
     return ns, t_cd, t_tr, t_te
 
 
+def roofline_line(name: str, t: float, nbytes: float, ops: float,
+                  device_name: str) -> str:
+    """bench.py's roofline line (bench.py:100-130) for a step of `t`
+    seconds that moves `nbytes` and does `ops` (cost.count_work): the
+    achieved rates and, on a card of cost.PEAKS, their shares of its HBM
+    and float32 peaks and the resource nearer its peak. A share above 100%
+    raises: the count is then wrong. On any other device the line says
+    that the device has no peak in the table."""
+    line = (f"roofline[{name}]: t={t * 1e3:.2f}ms flops={ops:.3g} "
+            f"bytes={nbytes:.3g} -> {ops / t / 1e9:.3g} GF/s")
+    gb = nbytes / t / 1e9
+    if device_name not in cost.PEAKS:
+        return (line + f" / {gb:.3g} GB/s ({device_name} has no peak in "
+                f"the table)")
+    hbm, fp32 = cost.PEAKS[device_name]
+    pct_f, pct_b = 100.0 * ops / t / fp32, 100.0 * nbytes / t / hbm
+    if max(pct_f, pct_b) > 100.0:
+        raise RuntimeError(f"roofline[{name}]: {pct_f:.1f}% of FP32, "
+                           f"{pct_b:.1f}% of HBM: a share above 100% means "
+                           f"the count is wrong")
+    return (line + f" ({pct_f:.1f}% of FP32) / {gb:.3g} GB/s ({pct_b:.1f}% "
+            f"of HBM) bound={'FP32' if pct_f >= pct_b else 'HBM'}")
+
+
 def run(grid: str = "f19", device="cuda", chunk: int = 8,
-        phases: bool = False, iters: int | None = None,
-        passes: int = 3) -> dict:
+        phases: bool = False, roofline: bool = False,
+        iters: int | None = None, passes: int = 3) -> dict:
     """The bench at `grid` (a key of GRIDS) on `device`; returns the JSON
-    record. `iters` overrides the grid's chained iterations."""
+    record. `iters` overrides the grid's chained iterations; `roofline`
+    prints each step's roofline line (BENCH_ROOFLINE=1)."""
     dev = resolve_device(device)
     im, jm, km, n_iter = GRIDS[grid]
     iters = n_iter if iters is None else iters
@@ -409,6 +442,22 @@ def run(grid: str = "f19", device="cuda", chunk: int = 8,
     t_zm = time_fn(zm, (pstate, pbuf), iters, dev, passes)
     t_zm_c = (time_chunked(chain_graph(zm, (pstate, pbuf), chunk),
                            dispatches, passes) if graphs else None)
+
+    if roofline:
+        # one eager call of each step, outside every timed window, on
+        # copies of the timed states
+        name = torch.cuda.get_device_name(dev) if on_card else dev.type
+        counts = {"dyn_step": cost.count_work(dyn_step, clone_tree(state)),
+                  "zm_tend": cost.count_work(zm, clone_tree(pstate),
+                                             clone_tree(pbuf))}
+        shapes = [("", {"dyn_step": t_dyn, "zm_tend": t_zm})]
+        if graphs:
+            shapes.append((f" chunked K={chunk}",
+                           {"dyn_step": t_dyn_c, "zm_tend": t_zm_c}))
+        for label, times in shapes:
+            for step, t in times.items():
+                print(roofline_line(step + label, t, *counts[step], name),
+                      file=sys.stderr)
 
     npts = im * jm * km
     print(f"phase timings: dyn_step={t_dyn*1e3:.1f}ms "
@@ -591,20 +640,22 @@ def main(env=None) -> dict:
     """Reads bench.py's environment variables, runs the bench, prints the
     JSON line and returns the record."""
     env = os.environ if env is None else env
-    if env.get("BENCH_ROOFLINE") == "1":
-        raise NotImplementedError(
-            "BENCH_ROOFLINE=1: bench.py reads XLA's cost model; the port's "
-            "per-step byte and operation count is not written yet "
-            "(ROADMAP.md Queue 1, the per-step roofline)")
+    roofline = env.get("BENCH_ROOFLINE") == "1"
     device = "cpu" if env.get("BENCH_CPU") == "1" else "cuda"
     chunk = int(env.get("BENCH_CHUNK", "8"))
     if env.get("BENCH_COUPLED") == "1":
+        if roofline:
+            raise ValueError(
+                "BENCH_COUPLED=1 with BENCH_ROOFLINE=1: the coupled step has "
+                "no roofline count yet (bench.py ignores BENCH_ROOFLINE "
+                "there); unset one of the two")
         record = run_coupled(grid=grid_from_env(env), device=device,
                              chunk=chunk,
                              microp=env.get("BENCH_MICROP") == "1")
     else:
         record = run(grid=grid_from_env(env), device=device, chunk=chunk,
-                     phases=env.get("BENCH_PHASES") == "1")
+                     phases=env.get("BENCH_PHASES") == "1",
+                     roofline=roofline)
     print(json.dumps(record), flush=True)
     return record
 

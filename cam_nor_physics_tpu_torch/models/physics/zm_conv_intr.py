@@ -10,15 +10,16 @@ microphysics' detrainment and in-plume fields go to the pbuf and its
 outfld family to the diagnostics, and the evaporation takes its snow
 production (prdsnow).
 
-The tail (evaporation, momentum transport, convtran1) runs as ONE fused
-CUDA kernel (`ops.zm_tail_kernels.zm_tail`) when the state lies on a CUDA
-device and the JAX package's structural conditions hold: some tracer is
-in convtran1, neither Q nor ZM_ORG is among them, and microp is off (the
-conv/evap/org updates then never touch u, v or the transported tracers;
-the tail has no prdsnow path, in the kernel as in the JAX package's
-Pallas tail). Otherwise the separate plain zm_conv_evap, momtran and
-convtran run, as in the JAX package; that choice is made before any
-launch.
+The tail (evaporation, momentum transport, convtran1) is ONE call of
+the fused tail (`ops.zm_tail_kernels.zm_tail`: its CUDA kernel for a
+state on a CUDA device, its plain version on the CPU) when the JAX
+package's structural conditions hold: some tracer is in convtran1,
+neither Q nor ZM_ORG is among them, and microp is off (the conv/evap/org
+updates then never touch u, v or the transported tracers; the tail has
+no prdsnow path, in the kernel as in the JAX package's Pallas tail).
+Otherwise the separate plain zm_conv_evap, momtran and convtran run, as
+in the JAX package; that choice is made before any launch, and is the
+same on either device.
 """
 
 from __future__ import annotations
@@ -157,7 +158,9 @@ def zm_conv_tend(cfg: ZMConfig, registry: ConstituentRegistry,
 
     doconv = registry.mask("is_convtran1")
     tr_idx = [m for m in range(pcnst) if doconv[m]]
-    fused_tail = (state.t.is_cuda and len(tr_idx) > 0 and 0 not in tr_idx
+    # the fused tail is valid where conv/evap/org updates never touch u, v
+    # or the convtran-1 species: these conditions
+    fused_tail = (len(tr_idx) > 0 and 0 not in tr_idx
                   and ix_org not in tr_idx and not cfg.microp)
     cld = pbuf.get("CLD")
     if fused_tail:

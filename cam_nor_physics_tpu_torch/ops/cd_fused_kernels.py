@@ -27,7 +27,7 @@ import torch
 from ..models.fv.cd_fused import (KE_METHODS, METRIC_ROWS, k1_ref, k2_ref,
                                   k3_ref, k4_ref)
 from ..utils import constants as c
-from . import cuda_build
+from . import cost, cuda_build
 from . import tp_core as tp
 from .stencil_kernels import check_orders
 
@@ -129,6 +129,7 @@ def _band(band):
     return -1 if band is None else band
 
 
+@cost.counted("k1")
 def k1(u, v, pt, delp, metrics, dt5: float, rcap: float, ptop: float,
        band: int | None):
     """K1, the c_sw half step and the downward pressure pass: (km, jm, im)
@@ -144,6 +145,7 @@ def k1(u, v, pt, delp, metrics, dt5: float, rcap: float, ptop: float,
     return out
 
 
+@cost.counted("k2")
 def k2(pt_h, pkz_h, dgz_h, uc0, vc0, phis, metrics, dft, dt: float,
        dt5: float, dyn_filter: bool):
     """K2, the upward geopotential pass, the C-grid PGF and Coriolis kick,
@@ -162,6 +164,7 @@ def k2(pt_h, pkz_h, dgz_h, uc0, vc0, phis, metrics, dft, dt: float,
     return out
 
 
+@cost.counted("k3")
 def k3(delp, pt, crx, cry, metrics, iord: int, jord: int, rcap: float,
        ptop: float, band: int | None):
     """K3, the D-grid transport, the floors and the downward pressure
@@ -177,6 +180,7 @@ def k3(delp, pt, crx, cry, metrics, iord: int, jord: int, rcap: float,
     return out
 
 
+@cost.counted("k4")
 def k4(u, v, pt_new, pkz, dgz, phis, crx, cry, uc, metrics, nu2_rows, dft,
        dt: float, dl: float, dp: float, iord: int, jord: int,
        ke_method: str, div2_on: bool, nu4: float, del2_velocity: float,

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda_build
+from . import cost, cuda_build
 
 SHAPE = (8, 128)       # the Pallas probe's one block
 
@@ -45,11 +45,13 @@ def _entry(dtype):
     return fn
 
 
+@cost.counted("probe")
 def probe(x):
     """2 x of one (8, 128) block, through the CUDA kernel for a CUDA
-    tensor. A call costs three attribute tests, one allocation and one
-    ctypes call: the entry point is resolved at the first call, and the
-    stream is the raw handle (no Python stream object is built)."""
+    tensor. A call costs the count's check (`cost.counted`), three
+    attribute tests, one allocation and one ctypes call: the entry point
+    is resolved at the first call, and the stream is the raw handle (no
+    Python stream object is built)."""
     if x.dtype not in _SUFFIX or x.shape != SHAPE or not x.is_contiguous():
         _check(x)
     if not x.is_cuda:

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda_build
+from . import cost, cuda_build
 from .remap import _ppm_edges_nonuniform
 
 # The kernel's walk keeps no per-level arrays, so nothing in it bounds the
@@ -90,6 +90,7 @@ def _check(pe_s, pe_t, pe_su, pe_tu, pe_sv, pe_tv, cen, u, v):
                              f"{shape}, got {tuple(t.shape)}")
 
 
+@cost.counted("te_map_remap")
 def te_map_remap(pe_s, pe_t, pe_su, pe_tu, pe_sv, pe_tv, center_fields,
                  u, v, kord: int = 4):
     """Remap center_fields (list of (km, ncol)) on pe_s -> pe_t and u / v on

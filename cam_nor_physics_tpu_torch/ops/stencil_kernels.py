@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda_build
+from . import cost, cuda_build
 from . import tp_core as tp
 
 KERNEL_ORDERS = (1, 2, 3, 4, 5, 6, 7, -2)
@@ -110,6 +110,7 @@ def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@cost.counted("transport3d")
 def transport3d(delp, pt, crx, cry, yfx, va, ffsl, cosp, acosp,
                 rcap: float, iord: int, jord: int, band: int | None = None):
     """Mass-flux (tp2c) + mass-consistent scalar (tp2d) transport of the
@@ -131,6 +132,7 @@ def transport3d(delp, pt, crx, cry, yfx, va, ffsl, cosp, acosp,
     return out
 
 
+@cost.counted("vort_flux3d")
 def vort_flux3d(zeta, crx, cry, udt, vedt, ffsl, cosp, iord: int, jord: int,
                 band: int | None = None):
     """Upwind-PPM fluxes of absolute vorticity for the vector-invariant
@@ -150,6 +152,7 @@ def vort_flux3d(zeta, crx, cry, udt, vedt, ffsl, cosp, iord: int, jord: int,
     return out
 
 
+@cost.counted("tracer_div3d")
 def tracer_div3d(q, crx, cry, mfx, mfy, va, ffsl, cosp, acosp, rcap: float,
                  iord: int, jord: int, band: int | None = None):
     """Flux divergence of tracer mass for trac2d: q (nq, km, jm, im) mixing

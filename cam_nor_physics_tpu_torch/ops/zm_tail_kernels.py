@@ -20,7 +20,7 @@ import torch
 from ..models.physics.zm_conv import zm_conv_evap
 from ..models.physics.zm_transport import convtran_single, momtran
 from ..utils.config import ZMConfig
-from . import cuda_build
+from . import cost, cuda_build
 
 # kMaxK in csrc/zm_tail_kernels.cu: its launch refuses more
 MAX_LEVELS = 64
@@ -78,6 +78,7 @@ def _check(mids, q_tr, cols, jt, mx):
                             f"tensor on {ref.device}")
 
 
+@cost.counted("zm_tail")
 def zm_tail(cfg: ZMConfig, t1, qv1, pmid, pdel, u, v, q_tr, cld,
             mu, md, du, eu, ed, dp, jt, mx, rprd, prec_in, landfrac,
             ztodt: float):

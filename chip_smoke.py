@@ -206,12 +206,31 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
     to the whole slab in float32 and float64; (c) ensure_initialized
     over NCCL with one rank, an all_reduce, then dyn_run and the coupled
     atm_step on make_mesh(1), bitwise to no mesh with equal launches;
-18. prints the kernels JSON line (ten kernels), the card's name and power
+18. the repo's long runs and the roofline at f19, float32, one step a
+    dispatch (cam_nor_physics_tpu_torch/tools/): (a) hs_climate for 60
+    days with 20 of spin-up at FVConfig() (flag 22): u finite at every
+    96-step check, max|u| below driver.UMAX_GUARD (300 m/s) and all six
+    HS94 checks ok; (b) the damping-flag ladder, hs_climate for 20 days
+    with 10 of spin-up at flags 2, 4, 24 and 42: flag 42 finite through
+    day 20 (22 is (a)), the blow-up day of 2, 4 and 24 (or none) printed
+    beside VALIDATION.md's 14, 8 and 14, not gated (float32 on another
+    chip is chaotic); (c) jw06_envelope, the nine-day JW06 wave at flag
+    2, within tests/test_baroclinic_wave.py's envelope, its day-9 ps_min
+    beside VALIDATION.md's 967.1 hPa, and the 12-day jw_baroclinic
+    series at FVConfig() beside VALIDATION.md's 992.5 hPa on day 9, not
+    gated; (d) the port's bench at f19 with the roofline on
+    (bench.run(roofline=True)): a roofline line for dyn_step and zm_tend
+    per loop shape, every share at most 100%; (e) ops/cost.py's count of
+    the bench's HS step and of the ZM step on 1,728 columns on the card
+    and on the CPU from the same state: the same bytes, operations within
+    1e-6 (FFSL sums are data dependent), the HS step's bytes at least
+    its kernels' work;
+19. prints the kernels JSON line (ten kernels), the card's name and power
     limit, then {"ok": true, "device": {...}} last. Every phase prints its
     wall time.
 
-`python3 chip_smoke.py --phase 16` (or `--phase 17`) builds the kernels
-and runs that phase alone (no result line).
+`python3 chip_smoke.py --phase 16` (or 17, 18) builds the kernels and
+runs that phase alone (no result line).
 
 Exits non-zero, printing no result, without a CUDA device, outside a
 checkout of the repo, or when any phase fails.
@@ -234,8 +253,6 @@ REPO = Path(__file__).resolve().parent
 IM, JM, KM = 144, 96, 26
 DEVICE = "cuda"
 NSTEPS = 4
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-PEAK_F32_OPS = 67e12              # float32 FLOP/s outside the tensor cores
 TOL = {"float32": 1e-5, "float64": 1e-12}
 # kernels held bitwise to their plain versions, and in which dtypes
 # (tracer_div3d and transport3d within TOL in float64: their caps sum a
@@ -257,11 +274,6 @@ FUSED_TOL = 1e-7          # float64 fused vs unfused cd_step (R2)
 NCOL = IM * JM                     # ZM columns: f19's 13,824
 ZM_DT = 1800.0
 ZM_CALLS = 3                       # timed zm_conv_tend calls after 1 warm-up
-# estimated operations per column and level of the fused ZM tail (formulas
-# of csrc/zm_tail_kernels.cu, each power or logarithm counted as one):
-# evaporation with the blended Goff-Gratch qsat ~100, momtran of two winds
-# ~120, the KE heating ~25, and per tracer ~50
-OPS_TAIL_POINT, OPS_TAIL_TRACER = 245, 50
 
 # name, source, the TPU kernel it replaces (file:line of the Pallas kernel)
 KERNELS = (
@@ -301,24 +313,6 @@ BEYOND = ("f09", "f05")    # the bench's grids beyond f19
 # repetitions of each kernel (and of its plain version) timed there
 BEYOND_REPS = {"f09": (20, 3), "f05": (10, 2)}
 
-# estimated operations per grid point of the stencil formulas (tp_core.cuh):
-# an x-flux (xtp) and a y-flux (ytp) at each order (van Leer's 4th-order
-# slope at 2 and -2; PPM's edges and constraint from 3 up, lmt 0 and 2
-# dearer than 1 and 3, Yeh's steepening two more slopes' worth at 6,
-# Huynh's bounds at 7), the inner advective operators and a flux
-# divergence
-OPS_X = {1: 3, 2: 25, -2: 22, 3: 80, 4: 70, 5: 85, 6: 120, 7: 95}
-OPS_Y = {1: 2, 2: 30, -2: 25, 3: 90, 4: 80, 5: 95, 6: 85, 7: 85}
-OPS_ADX, OPS_ADY, OPS_DIV = 2 * OPS_X[1] + 6, 5, 5
-# ... and per grid point of the fused kernels' other formulas
-# (csrc/cd_fused_kernels.cu, a power or logarithm counted as one): K1's
-# C-grid winds, Courants and floors, K2's PGF and kicks, K3's fluxes and
-# floors, K4's vorticity, KE, corners, fluxes of order 4, PGF and damping;
-# the downward pass 9 and the upward pass 3 per point
-OPS_FUSED = {"k1": 26 + 9, "k2": 3 + 45, "k3": 9 + 9,
-             "k4": 3 + 120 + OPS_Y[4] + OPS_X[4]}
-OPS_DEL4 = 12             # K4's del4 Laplacian of the divergence
-OPS_DEL2 = 20             # K4's del2 Laplacians of u and v
 
 
 def log(msg: str) -> None:
@@ -338,12 +332,12 @@ class Smoke:
         import cam_nor_physics_tpu_torch.models.fv.cd_core as cd_core
         import cam_nor_physics_tpu_torch.models.fv.cd_fused as cd_fused
         import cam_nor_physics_tpu_torch.models.fv.dyn_comp as dyn_comp
-        from cam_nor_physics_tpu_torch.ops import (cd_fused_kernels,
+        from cam_nor_physics_tpu_torch.ops import (cd_fused_kernels, cost,
                                                    remap_kernels,
-                                                   stencil_kernels, tp_core)
+                                                   stencil_kernels)
         self.torch = torch
         self.card = card
-        self.tp = tp_core
+        self.cost = cost
         self.cd_fused = cd_fused
         self.sk = stencil_kernels
         self.dyn_comp, self.ck = dyn_comp, cd_fused_kernels
@@ -442,8 +436,8 @@ class Smoke:
 
         if name == "k1":
             a[0] = raised(a[0], 150.0)
-            c0 = self.fused_courant(a)
-            return tuple(a), kw, int(self.ffsl_rows(c0, a[-1]).sum())
+            c0 = self.cost.fused_courant(a[0], a[1], a[4], a[5])
+            return tuple(a), kw, int(self.cost.ffsl_rows(c0, a[-1]).sum())
         at = {"transport3d": (2, 6), "vort_flux3d": (1, 5),
               "tracer_div3d": (1, 6), "k3": (2, None), "k4": (6, None)}
         ic, iflag = at[name]
@@ -452,21 +446,6 @@ class Smoke:
         if iflag is not None:
             a[iflag] = ffsl
         return tuple(a), kw, int(ffsl.sum())
-
-    def fused_courant(self, a):
-        """K1's C-grid x-Courant from its arguments (u, v, ..., metrics,
-        dt5, ...), through the plain version's own helper."""
-        return self.cd_fused.c_grid_courants(a[0], a[1], a[4], a[5])[2]
-
-    def ffsl_rows(self, crx, band):
-        """Rows that take the FFSL branch: a |Courant| above 1 within the
-        polar band."""
-        torch = self.torch
-        ffsl = torch.amax(torch.abs(crx), dim=-1) > 1.0
-        rows = torch.arange(crx.shape[-2], device=crx.device)
-        if band is not None and 2 * band < crx.shape[-2]:
-            ffsl = ffsl & ((rows < band) | (rows >= crx.shape[-2] - band))
-        return ffsl
 
     def variants(self, name, a, kw, grid):
         """(label, args, kwargs) of K2 and K4 with the polar filter off; K4
@@ -696,110 +675,18 @@ class Smoke:
         torch.cuda.synchronize()
         return t0.elapsed_time(t1) / reps
 
-    def ffsl_sums(self, crx, ffsl, band):
-        """Integer-Courant cells summed by one FFSL x-flux evaluation over
-        the slab (data dependent)."""
-        torch = self.torch
-        rows = torch.arange(crx.shape[-2], device=crx.device)
-        if band is not None and 2 * band < crx.shape[-2]:
-            ffsl = ffsl & ((rows < band) | (rows >= crx.shape[-2] - band))
-        iu = torch.trunc(crx).abs().clamp(
-            max=self.tp.max_cfl_int(crx.shape[-1]))
-        return float((iu * ffsl[..., None]).sum())
-
     def work(self, name, a, kw):
-        """(bytes moved, operations) the call needs: each input read once,
-        each output written once; operations from the per-point counts."""
-        torch = self.torch
-        out = self.flat(self.kernel(name)(*a, **kw))
-        ins = [x for x in self.flat(list(a)) if isinstance(x, torch.Tensor)]
-        nbytes = sum(t.numel() * t.element_size() for t in ins + out)
-        if name == "te_map_remap":
-            # what the remap needs: pe_s and pe_t are monotone, so one
-            # merge pass and a prefix sum give each target interface's mass
-            # (the kernel's walk). Per column and field: PPM edges and
-            # limiter (~40 per source cell), ~11 for the partial cell at
-            # each target interface, and the merge's km + km_t + 1
-            # comparisons plus the prefix sum's km additions
-            km, ncol = a[7].shape
-            km_t = a[1].shape[0] - 1
-            nf = len(a[6]) + 2
-            ops = ncol * nf * (km * 40 + (km_t + 1) * 11
-                               + (km + km_t + 1) + km)
-            return nbytes, ops
-        if name in FUSED:
-            return nbytes, self.fused_ops(name, a)
-        band = kw.get("band")
-        if name == "transport3d":
-            crx, ffsl, iord, jord = a[2], a[6], a[10], a[11]
-            pts = crx.numel()
-            ops = pts * (2 * (OPS_ADX + OPS_ADY) + 2 * (OPS_Y[jord] +
-                         OPS_X[iord]) + 2 * OPS_DIV)
-            ops += 6 * self.ffsl_sums(crx, ffsl, band)
-        elif name == "vort_flux3d":
-            crx, ffsl, iord, jord = a[1], a[5], a[7], a[8]
-            ops = crx.numel() * (OPS_Y[jord] + OPS_X[iord])
-            ops += self.ffsl_sums(crx, ffsl, band)
-        else:
-            q, crx, ffsl, iord, jord = a[0], a[1], a[6], a[10], a[11]
-            ops = q.numel() * (OPS_ADX + OPS_ADY + OPS_Y[jord] + OPS_X[iord]
-                               + OPS_DIV)
-            ops += 3 * q.shape[0] * self.ffsl_sums(crx, ffsl, band)
-        return nbytes, ops
+        """(bytes moved, operations) the call needs (cost.kernel_work: each
+        input read once, each output written once; operations from the
+        per-point counts)."""
+        out = self.kernel(name)(*a, **kw)
+        return self.cost.kernel_work(name, a, kw, out)
 
     def filter_ops(self, name, a):
-        """Operations of K2's or K4's polar filter (0 with the filter off),
-        as (what the function needs, what the kernel does). The function
-        needs an rfft and an irfft, 5 im log2(im) together, and 2 nf
-        products with the response on each level row whose response is not
-        1 everywhere (the rows equatorward of the filter's edge need no
-        work). The kernel takes the dense real-DFT sums on every row: 16 jm
-        nf im a level (forward and inverse sums of two fields, a product
-        and an addition a term)."""
-        flag, dft = {"k2": (10, 7), "k4": (21, 11)}[name]
-        if not a[flag]:
-            return 0, 0
-        km, jm, im = a[0].shape
-        nf = im // 2 + 1
-        # K2 filters its x-kick on center rows and y-kick on edge rows, K4
-        # the other way round: each response table serves one field
-        rows = sum(int((resp != 1.0).any(dim=-1).sum())
-                   for resp in a[dft][4:])
-        need = km * rows * (5.0 * im * math.log2(im) + 2 * nf)
-        return need, km * 16 * jm * nf * im
-
-    def fused_ops(self, name, a):
-        """Operations one K call needs: the per-point counts, the transport
-        of K1 (order 1) and K3 (order 4) with this call's FFSL sums, and the
-        polar filter of K2 and K4 at an FFT's cost on the rows it changes
-        (`filter_ops`)."""
-        km, jm, im = a[0].shape
-        pts = km * jm * im
-        ops = pts * OPS_FUSED[name]
-        if name in ("k1", "k3"):
-            iord, jord = (1, 1) if name == "k1" else (a[5], a[6])
-            ops += pts * (2 * (OPS_ADX + OPS_ADY) + 2 * (OPS_Y[jord] +
-                          OPS_X[iord]) + 2 * OPS_DIV)
-            crx = self.fused_courant(a) if name == "k1" else a[2]
-            ffsl = self.ffsl_rows(crx, a[-1])
-            ops += 6 * self.ffsl_sums(crx, ffsl, a[-1])
-        if name in ("k2", "k4"):
-            ops += self.filter_ops(name, a)[0]
-        if name == "k4":
-            ops += pts * ((OPS_DEL4 if a[19] > 0.0 else 0) +
-                          (OPS_DEL2 if a[20] > 0.0 else 0))
-            # OPS_FUSED counts the vorticity fluxes at order 4
-            ops += pts * (OPS_Y[a[16]] + OPS_X[a[15]] - OPS_Y[4] - OPS_X[4])
-            ops += self.ffsl_sums(a[6], self.ffsl_rows(a[6], a[-1]), a[-1])
-        return ops
-
-    def bound(self, nbytes, ops):
-        """(bound ms, "bytes" or "operations") of a call that moves nbytes
-        and does ops."""
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_F32_OPS * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                     else "operations")
+        """K2's or K4's polar filter: (what the function needs, what the
+        kernel's dense DFT sums do), cost.filter_ops."""
+        dft, on = {"k2": (7, 10), "k4": (11, 21)}[name]
+        return self.cost.filter_ops(name, a[0].shape, a[dft], a[on])
 
     def split(self, name, label, a, kw, reps):
         """A kernel's device time a call split by the kernels it launches
@@ -825,7 +712,7 @@ class Smoke:
             log(f"    DFT products: {ops:.3e} ops in {dft_ms:.4f} ms = "
                 f"{ops / dft_ms / 1e9:.3f} TFLOP/s (a multiply and an add a "
                 f"term; FP32 lanes' ceiling without fused multiply-add "
-                f"{PEAK_F32_OPS / 2e12:.1f})")
+                f"{self.cost.PEAK_F32_OPS / 2e12:.1f})")
 
     def device_ms(self, label, fn, a, kw, key, reps=20):
         """Device ms a launch of the kernel whose name holds `key` (one a
@@ -850,7 +737,7 @@ class Smoke:
         ms = self.time_call(self.kernel(name), a, kw, reps)
         plain_ms = self.time_call(self.plain(name), a, kw, plain_reps)
         nbytes, ops = self.work(name, a, kw)
-        bound, bound_by = self.bound(nbytes, ops)
+        bound, bound_by = self.cost.bound(nbytes, ops)
         own = ""
         if name in ("k2", "k4"):
             # the kernel's dense DFT sums: its own work, not the bound
@@ -908,7 +795,7 @@ class Smoke:
         dev = {n: device_us(lambda f=f, a=a: f(*a), PROBE_CALLS)
                for n, (f, a) in calls.items()}
         nbytes = 2 * x.numel() * x.element_size()
-        bound, bound_by = self.bound(nbytes, x.numel())
+        bound, bound_by = self.cost.bound(nbytes, x.numel())
         log(f"time probe              kernel {ms:.4f} ms  plain "
             f"{plain_ms:.4f} ms  library (torch.mul) {library_ms:.4f} ms  "
             f"bound {bound:.3e} ms by {bound_by} ({nbytes} B, "
@@ -1263,15 +1150,9 @@ class ZMSmoke:
         self.gate("zm_conv_tend", rel, dtype_name, abs_err)
 
     def work(self, a, kw):
-        """(bytes, operations) of one tail call: inputs read once, outputs
-        written once; operations from the per-point estimate."""
-        torch = self.torch
-        out = list(self.tail_outputs(self.tk.zm_tail(*a, **kw)).values())
-        ins = [x for x in a if isinstance(x, torch.Tensor)]
-        nbytes = sum(t.numel() * t.element_size() for t in ins + out)
-        t1, q_tr = a[1], a[7]          # zm_tail(cfg, t1, qv1, ..., q_tr, ...)
-        ops = t1.numel() * (OPS_TAIL_POINT + OPS_TAIL_TRACER * q_tr.shape[2])
-        return nbytes, ops
+        """(bytes, operations) of one tail call (cost.kernel_work)."""
+        return self.sm.cost.kernel_work("zm_tail", a, kw,
+                                        self.tk.zm_tail(*a, **kw))
 
     def time_tail(self, label, a, kw, reps, plain_reps):
         """zm_tail's and zm_tail_ref's time a call (CUDA events) beside the
@@ -1280,7 +1161,7 @@ class ZMSmoke:
         ms = sm.time_call(self.tk.zm_tail, a, kw, reps)
         plain_ms = sm.time_call(self.tk.zm_tail_ref, a, kw, plain_reps)
         nbytes, ops = self.work(a, kw)
-        bound, bound_by = sm.bound(nbytes, ops)
+        bound, bound_by = sm.cost.bound(nbytes, ops)
         log(f"time {label:<18} kernel {ms:.4f} ms  plain {plain_ms:.4f} "
             f"ms  bound {bound:.5f} ms by {bound_by} ({nbytes} B, {ops:.3e} "
             f"ops)  [{sm.card}]")
@@ -2803,6 +2684,176 @@ def run_orders(torch, sm: Smoke, card: str) -> None:
                                         for k, v in t.items()))
 
 
+# phase 18: the long runs (days of spin-up are not averaged)
+HS_DAYS, HS_SPINUP = 60, 20           # the HS climate at flag 22
+LADDER_DAYS, LADDER_SPINUP = 20, 10   # the damping-flag ladder
+# VALIDATION.md's blow-up day of each flag in the JAX package's 20-day HS
+# runs on the TPU (None: stable through day 20); flag 22 is phase 18 (a)
+LADDER = {2: 14, 4: 8, 24: 14, 42: None}
+# VALIDATION.md's JW06 day-9 ps_min (hPa), JAX on the TPU, float32
+JW06_DAY9 = {2: 967.1, 22: 992.5}
+JW_DAYS = 12                          # jw_baroclinic's days (the JAX tool's)
+ROOFLINE_ITERS, ROOFLINE_PASSES = 8, 2   # the bench's chained steps in (d)
+COUNT_NCOL = NCOL // 8                # ZM columns of the count in (e)
+COUNT_TOL = 1e-6                      # operations, card against CPU
+
+
+class LongSmoke:
+    """Phase 18: the repo's long runs and the roofline at f19."""
+
+    def __init__(self, torch, sm: Smoke, card: str):
+        from cam_nor_physics_tpu_torch import driver
+        from cam_nor_physics_tpu_torch.tools import hs_climate, jw_baroclinic
+        self.torch, self.sm, self.card = torch, sm, card
+        self.hs, self.jw, self.guard = (hs_climate.hs_climate, jw_baroclinic,
+                                        driver.UMAX_GUARD)
+
+    def climate(self):
+        """(a) 60 days of HS at flag 22."""
+        r = self.hs(HS_DAYS, HS_SPINUP, IM, JM, KM, device=DEVICE,
+                    log=sys.stdout)
+        steps = int(HS_DAYS * 48)
+        log(f"HS climate {HS_DAYS} days ({HS_SPINUP} spin-up) at flag 22 "
+            f"[{self.card}]: status {r['status']}, {r['wall_s']:.1f} s "
+            f"wall, {1e3 * r['wall_s'] / steps:.3f} ms a step ({steps} "
+            f"steps with the samples and checks), nsamples "
+            f"{r.get('nsamples')}, max|u| at the checks "
+            f"{max(r['umax_ms'], default=float('nan')):.2f} m/s")
+        if r["status"] == "blowup":
+            raise RuntimeError(f"HS climate: u not finite at day {r['day']}")
+        for k, v in r["checks"].items():
+            log(f"    {k:<24} {v['value']:10.3f}  "
+                f"{'ok' if v['ok'] else 'FAIL'}")
+        if max(r["umax_ms"]) >= self.guard:
+            raise RuntimeError(f"HS climate: max|u| {max(r['umax_ms'])} "
+                               f"m/s at or above {self.guard}")
+        bad = [k for k, v in r["checks"].items() if not v["ok"]]
+        if bad:
+            raise RuntimeError(f"HS climate: HS94 checks failed {bad}")
+
+    def ladder(self):
+        """(b) 20 days of HS at flags 2, 4, 24 and 42."""
+        for flag, jax_day in LADDER.items():
+            r = self.hs(LADDER_DAYS, LADDER_SPINUP, IM, JM, KM, flag=flag,
+                        device=DEVICE, log=sys.stdout)
+            day = r["day"] if r["status"] == "blowup" else None
+            log(f"ladder flag {flag:2d} [{self.card}]: blow-up day "
+                f"{day if day is not None else 'none'} (VALIDATION.md, "
+                f"JAX on the TPU: {jax_day if jax_day else 'none'}), "
+                f"{r['wall_s']:.1f} s wall, max|u| at the checks "
+                f"{max(r['umax_ms'], default=float('nan')):.2f} m/s")
+            if flag == 42 and day is not None:
+                raise RuntimeError(f"ladder: flag 42 blew up at day {day}")
+
+    def waves(self):
+        """(c) the JW06 envelope at flag 2 and the 12-day series."""
+        r = self.jw.jw06_envelope(IM, JM, KM, device=DEVICE, log=sys.stdout)
+        log(f"JW06 envelope, flag 2 [{self.card}]: ps_min day 9 "
+            f"{r['ps_min'].get(9, float('nan')):.2f} hPa (VALIDATION.md, "
+            f"JAX on the TPU: {JW06_DAY9[2]}), d78 {r.get('d78', 0.0):.2f} "
+            f"d89 {r.get('d89', 0.0):.2f} hPa, eke day 5 "
+            f"{r['eke'].get(5, float('nan')):.4g} day 9 "
+            f"{r['eke'].get(9, float('nan')):.4g}, {r['wall_s']:.1f} s wall")
+        for k, ok in r["checks"].items():
+            log(f"    {k:<32} {'ok' if ok else 'FAIL'}")
+        if not r["ok"]:
+            raise RuntimeError(f"JW06 envelope failed: {r}")
+        r = self.jw.jw_baroclinic(JW_DAYS, IM, JM, KM, device=DEVICE,
+                                  log=sys.stdout)
+        day9 = next((s["ps_min_hpa"] for s in r["series"]
+                     if s["day"] == 9.0), float("nan"))
+        log(f"JW06 {JW_DAYS} days at FVConfig() (flag 22) [{self.card}]: "
+            f"status {r['status']}, ps_min day 9 {day9:.2f} hPa "
+            f"(VALIDATION.md, JAX on the TPU: {JW06_DAY9[22]}), quiet "
+            f"through day 4 {r['quiet_through_day4']}, first day below "
+            f"960 hPa {r['first_day_below_960']}, {r['wall_s']:.1f} s wall, "
+            f"{1e3 * r['wall_s'] / (JW_DAYS * 48):.3f} ms a step")
+
+    def roofline(self):
+        """(d) the bench at f19 with the roofline on."""
+        import contextlib
+        import io
+        from cam_nor_physics_tpu_torch import bench
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            record = bench.run("f19", DEVICE, roofline=True,
+                               iters=ROOFLINE_ITERS, passes=ROOFLINE_PASSES)
+        lines = [ln for ln in err.getvalue().splitlines()
+                 if ln.startswith("roofline[")]
+        for ln in err.getvalue().splitlines():
+            log(f"bench: {ln}")
+        log(json.dumps(record))
+        names = sorted(ln.split("]")[0][len("roofline["):] for ln in lines)
+        want = sorted(f"{s}{x}" for s in ("dyn_step", "zm_tend")
+                      for x in ("", f" chunked K={record['chunked_k']}"))
+        if names != want:
+            raise RuntimeError(f"roofline lines {names}, expected {want}")
+
+    def count(self):
+        """(e) the count of the HS and ZM steps on the card and the CPU."""
+        torch = self.torch
+        from cam_nor_physics_tpu_torch import convert
+        from cam_nor_physics_tpu_torch.entry import build_step, build_zm_step
+        from cam_nor_physics_tpu_torch.utils.config import FVConfig
+        cost = self.sm.cost
+        hs, state, grid, coord, phis = build_step(
+            IM, JM, KM, torch.float32, DEVICE, cfg=FVConfig())
+        for _ in range(3):
+            state = hs(state, grid, coord, phis)
+        cpu = build_step(IM, JM, KM, torch.float32, "cpu", cfg=FVConfig())
+        zm, pstate, pbuf, _ = build_zm_step(COUNT_NCOL, KM, torch.float32,
+                                            DEVICE)
+        zcpu, pcpu, bcpu, _ = build_zm_step(COUNT_NCOL, KM, torch.float32,
+                                            "cpu")
+        cases = {
+            "HS step": ((hs, state, grid, coord, phis),
+                        (cpu[0], convert.dynstate_from_numpy(
+                            convert.dynstate_to_numpy(state), "cpu"),
+                         *cpu[2:])),
+            f"ZM step {COUNT_NCOL} columns": ((zm, pstate, pbuf),
+                                              (zcpu, pcpu, bcpu))}
+        for label, (card_call, cpu_call) in cases.items():
+            counts = {}
+            for dev, (fn, *args) in (("card", card_call), ("cpu", cpu_call)):
+                t0 = time.perf_counter()
+                with cost.WorkCount() as c:
+                    fn(*args)
+                counts[dev] = (c, time.perf_counter() - t0)
+            (cc, t_card), (cp, t_cpu) = counts["card"], counts["cpu"]
+            kb = sum(b for _, b, _ in cc.kernels.values())
+            ko = sum(o for _, _, o in cc.kernels.values())
+            log(f"count {label} [{self.card}]: card {cc.bytes} B "
+                f"{cc.ops:.6e} ops ({t_card:.1f} s), CPU {cp.bytes} B "
+                f"{cp.ops:.6e} ops ({t_cpu:.1f} s); the kernels' work "
+                f"{kb} B {ko:.6e} ops ({100 * kb / cc.bytes:.1f}% of the "
+                f"bytes), the glue {cc.bytes - kb} B {cc.ops - ko:.6e} ops")
+            for n, (calls, b, o) in cc.kernels.items():
+                log(f"    {n:<14} {calls:3d} calls {b:12d} B {o:.4e} ops")
+            rel = abs(cc.ops - cp.ops) / max(cp.ops, 1.0)
+            if cc.bytes != cp.bytes or rel > COUNT_TOL or \
+                    cc.kernels.keys() != cp.kernels.keys():
+                raise RuntimeError(f"count {label}: card and CPU differ "
+                                   f"({cc.bytes} / {cp.bytes} B, ops rel "
+                                   f"{rel:.2e}, {cc.kernels} / "
+                                   f"{cp.kernels})")
+            if cc.bytes < kb or not cc.kernels:
+                raise RuntimeError(f"count {label}: {cc.bytes} B below its "
+                                   f"kernels' {kb} B")
+
+
+def run_long(torch, sm: Smoke, card: str) -> None:
+    """Phase 18: (a)-(e) of the module docstring's item 18."""
+    lg = LongSmoke(torch, sm, card)
+    for name, fn in (("(a) HS climate", lg.climate),
+                     ("(b) damping-flag ladder", lg.ladder),
+                     ("(c) JW06", lg.waves), ("(d) roofline", lg.roofline),
+                     ("(e) count", lg.count)):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.empty_cache()
+        log(f"  18 {name}: {time.perf_counter() - t0:.1f} s wall")
+
+
 def device_us(fn, reps):
     """Device µs a call of fn, which launches one kernel: the mean
     duration of the launches torch.profiler recorded in `reps` calls."""
@@ -3020,6 +3071,10 @@ def run(torch) -> dict:
         run_orders(torch, sm, card)
         torch.cuda.empty_cache()
 
+    # ---- phase 18: the long runs and the roofline
+    with phase("18 long runs and roofline at f19"):
+        run_long(torch, sm, card)
+
     kernels = []
     for name, source, replaces in KERNELS:
         if name in ("zm_tail", "probe"):
@@ -3044,9 +3099,9 @@ def run(torch) -> dict:
 
 
 def run_phase(torch, n: int) -> int:
-    """`python3 chip_smoke.py --phase 16` or `--phase 17`: the build and
-    that phase alone (phase 16 without the HS graph step); prints no
-    result line."""
+    """`python3 chip_smoke.py --phase 16` (17, 18): the build and that
+    phase alone (phase 16 without the HS graph step); prints no result
+    line."""
     from cam_nor_physics_tpu_torch.bench import card_label
     from cam_nor_physics_tpu_torch.ops import cuda_build
     card = card_label()
@@ -3057,9 +3112,12 @@ def run_phase(torch, n: int) -> int:
     if n == 16:
         with phase("16 other modes at f19"):
             run_modes(torch, sm, card, None)
-    else:
+    elif n == 17:
         with phase("17 orders and strips at f19"):
             run_orders(torch, sm, card)
+    else:
+        with phase("18 long runs and roofline at f19"):
+            run_long(torch, sm, card)
     return 0
 
 
@@ -3074,7 +3132,8 @@ def main() -> int:
               "is False", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    if sys.argv[1:] in (["--phase", "16"], ["--phase", "17"]):
+    if sys.argv[1:] in (["--phase", "16"], ["--phase", "17"],
+                        ["--phase", "18"]):
         return run_phase(torch, int(sys.argv[2]))
     t0 = time.perf_counter()
     record = run(torch)

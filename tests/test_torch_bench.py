@@ -16,8 +16,18 @@ and what the bench configuration adds to the HS step, on the CPU.
   2-step unfused test of test_torch_slice.py measures ~1e-12).
 - The bench on the CPU at BENCH_SMALL's 72x46x10, one iteration and one
   pass: bench.py's per-dispatch keys plus `impl` and `card`; the
-  environment it reads; BENCH_ROOFLINE raises; BENCH_COUPLED with
+  environment it reads; BENCH_ROOFLINE prints a roofline line for
+  dyn_step and for zm_tend and leaves the record's keys as they were,
+  and raises ValueError beside BENCH_COUPLED; BENCH_COUPLED with
   BENCH_MICROP runs the microp coupled bench.
+- The roofline's count (ops/cost.py): a glue function counted by hand
+  (elementwise, in-place, reduction, matrix product, FFT, views,
+  allocations); each kernel wrapper under the count adds exactly its
+  `kernel_work` and nothing of its plain version, on inputs captured
+  from the HS steps and the ZM step (and vort_flux3d's FFSL sums by
+  hand); a step counts the same when each kernel's implementation does
+  other work (the count is the step's, not its implementation's); the
+  roofline line's shares, and a share above 100% raising.
 - The coupled bench (BENCH_COUPLED=1 BENCH_SMALL=1 BENCH_CPU=1,
   BENCH_CHUNK=1) on the CPU, one step a shape and one pass: bench.py's
   coupled keys plus `impl` and `card`, and the environment it reads.
@@ -36,14 +46,18 @@ import torch
 
 from cam_nor_physics_tpu_torch import bench as tbench
 from cam_nor_physics_tpu_torch import convert
-from cam_nor_physics_tpu_torch.entry import build_step
+from cam_nor_physics_tpu_torch.entry import build_step, build_zm_step
 from cam_nor_physics_tpu_torch.models.fv import dyn_comp as tdc
-from cam_nor_physics_tpu_torch.ops import cuda_build
+from cam_nor_physics_tpu_torch.ops import cd_fused_kernels as ck
+from cam_nor_physics_tpu_torch.ops import cost, cuda_build
+from cam_nor_physics_tpu_torch.ops import remap_kernels as rk
+from cam_nor_physics_tpu_torch.ops import stencil_kernels as sk
+from cam_nor_physics_tpu_torch.ops import zm_tail_kernels as zk
 from cam_nor_physics_tpu_torch.ops import probe_kernels as pk
 from cam_nor_physics_tpu_torch.ops.tp_core import wset_row
 from cam_nor_physics_tpu_torch.utils.config import FVConfig
 from conftest import run_test_in_subprocess
-from torch_port_util import assert_close
+from torch_port_util import assert_close, slab_fields, t64
 
 pytest_plugins = ("torch_port_plugin",)
 
@@ -244,17 +258,19 @@ def test_bench_record_on_cpu():
 
 
 @pytest.mark.parametrize("env,want", [
-    ({}, ("f19", "cuda", 8, False)),
-    ({"BENCH_SMALL": "1", "BENCH_GRID": "f05"}, ("small", "cuda", 8, False)),
-    ({"BENCH_GRID": "f09", "BENCH_CPU": "1"}, ("f09", "cpu", 8, False)),
+    ({}, ("f19", "cuda", 8, False, False)),
+    ({"BENCH_SMALL": "1", "BENCH_GRID": "f05"},
+     ("small", "cuda", 8, False, False)),
+    ({"BENCH_GRID": "f09", "BENCH_CPU": "1"}, ("f09", "cpu", 8, False, False)),
     ({"BENCH_GRID": "f05", "BENCH_CHUNK": "4", "BENCH_PHASES": "1"},
-     ("f05", "cuda", 4, True)),
+     ("f05", "cuda", 4, True, False)),
+    ({"BENCH_ROOFLINE": "1"}, ("f19", "cuda", 8, False, True)),
 ])
 def test_bench_reads_benchpy_environment(env, want, monkeypatch, capsys):
     seen = []
 
-    def fake_run(grid, device, chunk, phases):
-        seen.append((grid, device, chunk, phases))
+    def fake_run(grid, device, chunk, phases, roofline):
+        seen.append((grid, device, chunk, phases, roofline))
         return {"value": 1.0}
     monkeypatch.setattr(tbench, "run", fake_run)
     assert tbench.main(env) == {"value": 1.0}
@@ -267,20 +283,37 @@ def test_bench_refuses_unknown_grid():
         tbench.grid_from_env({"BENCH_GRID": "f10"})
 
 
-@pytest.mark.parametrize("var,names", [("BENCH_COUPLED", "microp"),
-                                       ("BENCH_ROOFLINE", "roofline")])
-def test_bench_unported_modes_raise(var, names, monkeypatch, capsys):
-    """BENCH_ROOFLINE raises. BENCH_COUPLED with BENCH_MICROP, which
-    raised until ZM's microphysics was ported, runs the coupled bench
-    with ZMConfig(microp=True) (here on the CPU at BENCH_SMALL, one step
-    a shape and one pass), under bench.py's microp metric."""
-    monkeypatch.setattr(tbench, "run", lambda **kw: pytest.fail("ran"))
+@pytest.mark.parametrize("var", ["BENCH_COUPLED", "BENCH_ROOFLINE"])
+def test_bench_roofline_and_microp_modes_run(var, monkeypatch, capsys):
+    """BENCH_ROOFLINE, which raised until the count was written, and
+    BENCH_COUPLED with BENCH_MICROP, which raised until ZM's microphysics
+    was ported, run, here on the CPU at BENCH_SMALL with one iteration
+    and one pass. The roofline prints one stderr line for dyn_step and
+    one for zm_tend (the CPU has no peaks: counts and rates only) and
+    leaves the record's keys as they were; the microp coupled bench runs
+    with ZMConfig(microp=True) under bench.py's microp metric."""
     env = {var: "1", "BENCH_CPU": "1", "BENCH_SMALL": "1",
            "BENCH_MICROP": "1", "BENCH_CHUNK": "1"}
     if var == "BENCH_ROOFLINE":
-        with pytest.raises(NotImplementedError, match=names):
-            tbench.main(env)
+        monkeypatch.setattr(tbench, "run_coupled",
+                            lambda **kw: pytest.fail("ran"))
+        real_run = tbench.run
+        monkeypatch.setattr(tbench, "run",
+                            lambda **kw: real_run(**kw, iters=1, passes=1))
+        rec = tbench.main(env)
+        assert set(rec) == PER_DISPATCH_KEYS | {"impl", "card"}
+        out, err = capsys.readouterr()
+        assert json.loads(out.strip()) == rec
+        lines = [ln for ln in err.splitlines() if ln.startswith("roofline[")]
+        assert [ln.split("]")[0] for ln in lines] == ["roofline[dyn_step",
+                                                      "roofline[zm_tend"]
+        for ln in lines:
+            assert "GF/s" in ln and "GB/s" in ln and \
+                "cpu has no peak in the table" in ln, ln
+            assert float(ln.split("flops=")[1].split()[0]) > 0.0
+            assert float(ln.split("bytes=")[1].split()[0]) > 0.0
         return
+    monkeypatch.setattr(tbench, "run", lambda **kw: pytest.fail("ran"))
     real = tbench.run_coupled
     monkeypatch.setattr(tbench, "run_coupled",
                         lambda **kw: real(**kw, iters=1, passes=1))
@@ -290,6 +323,170 @@ def test_bench_unported_modes_raise(var, names, monkeypatch, capsys):
     assert rec["impl"] == tbench.COUPLED_IMPL_MICROP["cpu"]
     assert rec["grid"] == "72x46x10" and rec["value"] > 0.0
     assert json.loads(capsys.readouterr().out.strip()) == rec
+
+
+def test_bench_coupled_roofline_raises(monkeypatch):
+    """bench.py ignores BENCH_ROOFLINE under BENCH_COUPLED; the port
+    refuses the pair."""
+    monkeypatch.setattr(tbench, "run", lambda **kw: pytest.fail("ran"))
+    monkeypatch.setattr(tbench, "run_coupled",
+                        lambda **kw: pytest.fail("ran"))
+    with pytest.raises(ValueError, match="BENCH_COUPLED.*BENCH_ROOFLINE"):
+        tbench.main({"BENCH_COUPLED": "1", "BENCH_ROOFLINE": "1",
+                     "BENCH_CPU": "1", "BENCH_SMALL": "1"})
+
+
+def test_roofline_line_shares_and_refusal():
+    h100 = "NVIDIA H100 80GB HBM3"
+    line = tbench.roofline_line("dyn_step", 1e-3, 1.675e9, 6.7e9, h100)
+    assert line.startswith("roofline[dyn_step]: t=1.00ms flops=6.7e+09 "
+                           "bytes=1.68e+09 -> 6.7e+03 GF/s (10.0% of FP32)")
+    assert line.endswith("/ 1.68e+03 GB/s (50.0% of HBM) bound=HBM")
+    assert tbench.roofline_line("k", 1e-3, 1e6, 6.03e10, h100).endswith(
+        "(90.0% of FP32) / 1 GB/s (0.0% of HBM) bound=FP32")
+    with pytest.raises(RuntimeError, match="count is wrong"):
+        tbench.roofline_line("k", 1e-3, 3.36e9, 1.0, h100)
+    assert tbench.roofline_line("k", 1.0, 2e9, 1e9, "cpu").endswith(
+        "-> 1 GF/s / 2 GB/s (cpu has no peak in the table)")
+
+
+# ------------------------------------------------------------ the count
+def _glue(x, y, w):
+    z = x * y + 1.0
+    s = z.sum(-1)
+    m = x @ w
+    f = torch.fft.rfft(x)
+    torch.empty(5)
+    torch.zeros(3)
+    y.add_(x.reshape(4, 8))
+    y[0].copy_(x[0])
+    return s, m, f
+
+
+def test_glue_counted_by_hand():
+    """x, y (4, 8) and w (8, 3) float32: mul 384 B and 32 operations; the
+    scalar add 256 and 32; the sum over the last axis 144 and 32 (one a
+    summed element); the matrix product 272 and 2*4*3*8; the rfft of
+    length 8, 4 transforms, 288 (128 in, 4*5 complex64 out) and
+    4*5*8*log2(8); add_ 384 and 32 (y read and written); a row's copy_
+    64 and none; the reshape, the row views, empty and zeros nothing."""
+    x = torch.arange(32, dtype=torch.float32).reshape(4, 8)
+    y = torch.ones(4, 8)
+    w = torch.ones(8, 3)
+    nbytes, ops = cost.count_work(_glue, x, y, w)
+    assert nbytes == 384 + 256 + 144 + 272 + 288 + 384 + 64
+    assert ops == 32 + 32 + 32 + 192 + 480 + 32
+
+
+def _owner(name):
+    """The module of kernel `name`'s wrapper and plain version."""
+    return {"k1": ck, "k2": ck, "k3": ck, "k4": ck, "te_map_remap": rk,
+            "zm_tail": zk, "probe": pk}.get(name, sk)
+
+
+@pytest.fixture(scope="module")
+def kernel_calls():
+    """The arguments of each kernel wrapper's first call in the fused
+    (fft) and unfused (matmul) HS steps at 24x16x4 and a ZM step on 16
+    columns, float64 on the CPU, and the probe's block."""
+    calls = {"probe": ((torch.ones(pk.SHAPE, dtype=torch.float64),), {})}
+    real = cost.kernel_work
+
+    def record(name, args, kwargs, out):
+        calls.setdefault(name, (args, kwargs))
+        return real(name, args, kwargs, out)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cost, "kernel_work", record)
+        with cost.WorkCount():
+            for impl in ("fft", "matmul"):
+                step, st, grid, coord, phis = build_step(
+                    24, 16, 4, torch.float64, "cpu", filter_impl=impl)
+                step(st, grid, coord, phis)
+            zm, pstate, pbuf, _ = build_zm_step(16, 26, torch.float64, "cpu")
+            zm(pstate, pbuf)
+    return calls
+
+
+KERNELS = ("transport3d", "vort_flux3d", "tracer_div3d", "te_map_remap",
+           "zm_tail", "k1", "k2", "k3", "k4", "probe")
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_kernel_wrapper_counts_its_work_only(kernel_calls, name):
+    """Under the count a wrapper adds exactly kernel_work (its tensor
+    arguments read once, its outputs written once, its formulas'
+    operations) and none of its plain version's ops, which the count
+    sees when the plain version is called bare."""
+    args, kwargs = kernel_calls[name]
+    wrapper = getattr(_owner(name), name)
+    plain = getattr(_owner(name), name + "_ref")
+    with cost.WorkCount() as count:
+        out = wrapper(*args, **kwargs)
+    want = cost.kernel_work(name, args, kwargs, out)
+    assert (count.bytes, count.ops) == want
+    assert count.kernels == {name: [1, *want]}
+    tensors = tbench.tensors([list(args), kwargs]) + tbench.tensors(out)
+    assert want[0] == sum(t.numel() * t.element_size() for t in tensors)
+    assert want[1] > 0
+    with cost.WorkCount() as bare:
+        plain(*args, **kwargs)
+    assert bare.kernels == {} and bare.bytes > 0
+
+
+def test_vort_flux3d_ffsl_sums_by_hand():
+    """vort_flux3d with FFSL rows: per point OPS_Y[jord] + OPS_X[iord],
+    plus each FFSL row's integer Courants capped at max_cfl_int (numpy)."""
+    km, jm, im = 3, 12, 16
+    f = slab_fields(km, jm, im, seed=4, ffsl_rows=2, cmax_ffsl=3.7)
+    crx = f["crx"]
+    ffsl = np.abs(crx).max(-1) > 1.0
+    cosp = np.cos(np.linspace(-np.pi / 2, np.pi / 2, jm))
+    args = (t64(f["zeta"]), t64(crx), t64(f["cry"]), t64(f["cry"]),
+            t64(f["cry"]), t64(ffsl), t64(cosp), 4, 4)
+    with cost.WorkCount() as count:
+        sk.vort_flux3d(*args)
+    cap = sk.tp.max_cfl_int(im)
+    sums = (np.minimum(np.abs(np.trunc(crx)), cap) * ffsl[..., None]).sum()
+    assert ffsl.any() and sums > 0
+    assert count.ops == km * jm * im * (cost.OPS_Y[4] + cost.OPS_X[4]) + sums
+    assert count.bytes == 8 * (7 * km * jm * im + jm) + km * jm
+
+
+def _busier(real):
+    """real with other work around it: its inputs copied first, its
+    outputs copied after."""
+    def f(*a, **kw):
+        a = [x.clone() if isinstance(x, torch.Tensor) else x for x in a]
+        return tbench.clone_tree(real(*a, **kw))
+    return f
+
+
+@pytest.mark.parametrize("step_name", ["fft", "matmul", "zm"])
+def test_step_count_does_not_depend_on_the_kernels_implementation(
+        step_name, monkeypatch):
+    """A step's count is the work it needs: it stays the same when every
+    kernel's implementation does more (here the plain versions with
+    copies around them, as a CUDA kernel does other work than its plain
+    version)."""
+    if step_name == "zm":
+        zm, pstate, pbuf, _ = build_zm_step(16, 26, torch.float64, "cpu")
+        fn, args = zm, (pstate, pbuf)
+    else:
+        step, st, grid, coord, phis = build_step(
+            24, 16, 4, torch.float64, "cpu", filter_impl=step_name)
+        fn, args = step, (st, grid, coord, phis)
+    with cost.WorkCount() as want:
+        fn(*args)
+    assert want.kernels and want.bytes > sum(
+        b for _, b, _ in want.kernels.values())
+    for name in KERNELS:
+        owner, ref = _owner(name), name + "_ref"
+        monkeypatch.setattr(owner, ref, _busier(getattr(owner, ref)))
+    with cost.WorkCount() as got:
+        fn(*args)
+    assert (got.bytes, got.ops) == (want.bytes, want.ops)
+    assert got.kernels == want.kernels
 
 
 # bench.py's coupled record keys (bench.py:443-457)

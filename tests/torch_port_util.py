@@ -233,28 +233,41 @@ def shared_jax_reference(tmp_path_factory, mode, port):
     cases = {m: getattr(importlib.import_module(mod), fn)()
              for m, (mod, fn, _) in SHARED_REFERENCES.items()}
     key = hashlib.sha256(pickle.dumps(cases)).hexdigest()[:16]
+    jobs = [(m, job) for m, (_, _, js) in SHARED_REFERENCES.items()
+            for job in js]
+    got = []
+
+    def compute(root):
+        port_out, outs = reference_processes(
+            root, "torch_port_microp_ref.py",
+            [(job, cases[m]) for m, job in jobs], port, cases[mode])
+        got.append(port_out)
+        merged = {m: {} for m in cases}
+        for (m, _), out in zip(jobs, outs):
+            merged[m].update(out)
+        return merged
+
+    want = session_result(tmp_path_factory, f"jax_reference_{key}",
+                          compute)[mode]
+    return (got[0] if got else port(cases[mode])), want
+
+
+def session_result(tmp_path_factory, name, compute):
+    """compute(root)'s result, computed once a session: the first test to
+    ask, in this process or in any xdist worker, calls it under a file
+    lock in the workers' common temporary directory (root, a directory
+    there named `name`) and pickles what it returns; the others wait on
+    the lock and read it."""
     base = tmp_path_factory.getbasetemp()
     if os.environ.get("PYTEST_XDIST_WORKER"):
         base = base.parent          # the workers' common root
-    root = base / f"jax_reference_{key}"
+    root = base / name
     root.mkdir(parents=True, exist_ok=True)
-    jobs = [(m, job) for m, (_, _, js) in SHARED_REFERENCES.items()
-            for job in js]
-    got = None
     with open(root / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if not (root / "done").exists():
-            got, outs = reference_processes(
-                root, "torch_port_microp_ref.py",
-                [(job, cases[m]) for m, job in jobs], port, cases[mode])
-            merged = {m: {} for m in cases}
-            for (m, _), out in zip(jobs, outs):
-                merged[m].update(out)
-            for m, out in merged.items():
-                with open(root / f"{m}.pkl", "wb") as f:
-                    pickle.dump(out, f)
-            (root / "done").touch()
-    if got is None:
-        got = port(cases[mode])
-    with open(root / f"{mode}.pkl", "rb") as f:
-        return got, pickle.load(f)
+        if not (root / "result.pkl").exists():
+            with open(root / "result.tmp", "wb") as f:
+                pickle.dump(compute(root), f)
+            os.replace(root / "result.tmp", root / "result.pkl")
+    with open(root / "result.pkl", "rb") as f:
+        return pickle.load(f)
