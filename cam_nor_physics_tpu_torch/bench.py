@@ -60,9 +60,7 @@ PyTorch, which builds the diagnostics whichever the caller keeps: one
 per-dispatch loop is timed and reported under both keys. Then the
 per-phase table: phys_run1 (bc_physics), phys_run2 (ac_physics),
 p_d_coupling, dyn_run (dyn) and d_p_coupling, each timed as its own
-dispatch on the same state, and on the card one step under
-torch.profiler: its device kernels, the port's (csrc/) and PyTorch's,
-and the device's busy share. The metric is grid points per second of the
+dispatch on the same state. The metric is grid points per second of the
 fastest shape.
 """
 
@@ -550,22 +548,6 @@ def coupled_phases(model, start, sst, iters: int, dev: torch.device,
                              ("d_p_coupling", dp))}
 
 
-def profile_line(profiled, per_step: float) -> str:
-    """One profiled step (kernel_times' table and wall seconds) beside the
-    step's per-dispatch seconds without the profiler: the device kernels,
-    the port's and PyTorch's, the busy time (one stream: the kernels'
-    summed durations) and its share of both times."""
-    times, wall = profiled
-    n = sum(c for c, _ in times.values())
-    busy = sum(us for _, us in times.values()) / 1e6
-    split = ", ".join(f"{k} {c} launches {us / 1e3:.3f} ms"
-                      for k, (c, us) in by_origin(times).items())
-    return (f"profile: {n} device kernels a step ({split}); device busy "
-            f"{busy * 1e3:.3f} ms, {100 * busy / wall:.1f}% of the profiled "
-            f"{wall * 1e3:.1f} ms, {100 * busy / per_step:.1f}% of the "
-            f"{per_step * 1e3:.1f} ms a step per dispatch")
-
-
 def run_coupled(grid: str = "f19", device="cuda", chunk: int = 8,
                 iters: int | None = None, passes: int = 3,
                 microp: bool = False) -> dict:
@@ -612,9 +594,6 @@ def run_coupled(grid: str = "f19", device="cuda", chunk: int = 8,
           "latency): " + " ".join(f"{k}={v*1e3:.1f}ms"
                                   for k, v in phases.items()),
           file=sys.stderr)
-    if on_card:
-        print(profile_line(kernel_times(lambda: prog_only(start)), t_step),
-              file=sys.stderr)
     record = {
         "metric": COUPLED_METRIC_MICROP if microp else COUPLED_METRIC,
         "value": npts / shapes[shape],

@@ -23,7 +23,9 @@ returns the final state and the timing table. Two loop shapes:
   region; "atm_step" times the replays). A capture or replay that fails
   raises: there is no eager fallback on the card. On CPU tensors the
   same chunks run as eager steps. The graph's carry is a copy, so the
-  caller's state is never written.
+  caller's state is never written. Every call captures its graphs anew,
+  so the spans' device markers (utils/timing.span) are in the graphs of
+  a call made under torch.profiler and in no other.
 
 The first step of a run from nstep 0 runs alone and eagerly with
 first_step=True (no energy fixer yet), as in JAX. At a boundary the tapes
@@ -51,7 +53,7 @@ from .utils import constants as c
 from .utils.checkpoint import restore_checkpoint
 from .utils.ckptio_native import AsyncCheckpointWriter
 from .utils.history import INIT, default_registry_atm, outfld_many
-from .utils.timing import PhaseTimer
+from .utils.timing import PhaseTimer, span
 
 UMAX_GUARD = 300.0        # m/s wind sanity bound (dyn_comp.F90:996-997)
 
@@ -93,9 +95,8 @@ class _HistoryTapes:
         self.counts = {t: 0 for t in self.every}
 
     def accumulate(self, payload) -> dict:
-        for t in self.bufs:
-            outfld_many(self.bufs[t], payload, self.reg)
-        return self.bufs
+        """_accumulate into every tape's buffers."""
+        return _accumulate(self.bufs, self.reg, payload)
 
     def maybe_write(self, istep, time_days):
         for t, every in self.every.items():
@@ -111,6 +112,17 @@ class _HistoryTapes:
     def close(self):
         self.writer.flush()
         self.writer.close()
+
+
+def _accumulate(bufs: dict, reg, payload) -> dict:
+    """One step's history into `bufs` ({tape: buffer}) in place, inside
+    the span "history_accumulate": the payload, `payload()` (built inside
+    the span), through outfld_many into each tape's buffer."""
+    with span("history_accumulate"):
+        fields = payload()
+        for b in bufs.values():
+            outfld_many(b, fields, reg)
+    return bufs
 
 
 def _dyn_payload(state: AtmState) -> dict:
@@ -257,8 +269,8 @@ def run(model: AtmModel, state: AtmState, cam_in: CamIn, nsteps: int,
         nstep = nstep0 + i + 1
 
         if hist:
-            timer.timed("outfld", lambda: hist.accumulate(_step_payload(
-                state, cam_in, cam_out, diags, area)))
+            timer.timed("outfld", hist.accumulate, lambda: _step_payload(
+                state, cam_in, cam_out, diags, area))
             with timer.region("history_write"):
                 hist.maybe_write(i + 1, nstep * model.dt / 86400.0)
 
@@ -324,9 +336,8 @@ def _run_chunked(model: AtmModel, state: AtmState, cam_in: CamIn,
         the step's sentinel flag shifted into the end of `flags`."""
         st2, cam_out, diags = atm_step(model, st, cam_in)
         if bufs:
-            payload = _step_payload(st2, cam_in, cam_out, diags, area)
-            for b in bufs.values():
-                outfld_many(b, payload, reg)
+            _accumulate(bufs, reg, lambda: _step_payload(
+                st2, cam_in, cam_out, diags, area))
         return st2, bufs, torch.cat([flags[1:], _state_ok(st2)[None]])
 
     i = 0
@@ -370,8 +381,8 @@ def _run_chunked(model: AtmModel, state: AtmState, cam_in: CamIn,
         state, cam_out, diags = timer.timed(
             "atm_step", atm_step, model, state, cam_in, first_step=True)
         if hist:
-            timer.timed("outfld", lambda: hist.accumulate(_step_payload(
-                state, cam_in, cam_out, diags, area)))
+            timer.timed("outfld", hist.accumulate, lambda: _step_payload(
+                state, cam_in, cam_out, diags, area))
         if check_eff:
             pending_flags.append((1, _state_ok(state)[None]))
         i = 1
@@ -459,11 +470,11 @@ def run_coupled(model: AtmModel, state: AtmState, sst, nsteps: int,
         nstep = nstep0 + i + 1
 
         if hist:
-            def accumulate():
-                payload = _step_payload(state, cam_in, cam_out, diags, area)
-                payload["SST"] = sst
-                return hist.accumulate(payload)
-            timer.timed("outfld", accumulate)
+            def payload():
+                fields = _step_payload(state, cam_in, cam_out, diags, area)
+                fields["SST"] = sst
+                return fields
+            timer.timed("outfld", hist.accumulate, payload)
             with timer.region("history_write"):
                 hist.maybe_write(i + 1, nstep * model.dt / 86400.0)
 

@@ -32,6 +32,7 @@ from ..parallel import shard_stencil as ss
 from ..parallel.mesh import shard_state, take_cols
 from ..utils.config import FVConfig, PhysConfig, ZMConfig
 from ..utils.device import resolve_device
+from ..utils.timing import span
 from .coupling.camsrfexch import CamIn, CamOut
 from .coupling.dp_coupling import (d_p_coupling, d_p_coupling_diags,
                                    p_d_coupling)
@@ -170,28 +171,6 @@ def atm_step(model: AtmModel, state: AtmState, cam_in: CamIn,
                                    True)
     phys = d_p_coupling(dyn, g, phis, coord.ptop, reg,
                         omega=dyn_diags["omega"])
-    if mesh is not None:
-        phys = shard_state(phys, mesh, g.jm, g.im)
-
-    diags = dict(o1.diagnostics)
-    diags.update(o2.diagnostics)
-    pbuf = o2.pbuf
-
-    # before/after-physics snapshots and the total physics tendencies
-    # (cam_diagnostics.F90:246-298, 2696), the column burdens
-    diags.update(diag_phys_tend_writeout(state.phys, o2.state, model.dt,
-                                         cnst_names=reg.names))
-    diags.update(constituent_burdens(o2.state, reg.names))
-
-    # migrating-tide products (cam_diagnostics.F90:2156-2161): DTCOND
-    # times the local-solar-time harmonics of this step
-    if "DTCOND" in diags:
-        dtype = diags["DTCOND"].dtype
-        time_days = (state.nstep.to(dtype) + 1.0) * (model.dt / 86400.0)
-        diags.update(diag_conv_tidal(diags["DTCOND"],
-                                     tidal_coeffs(g.lons.to(dtype),
-                                                  time_days)))
-
     # the diagnostic side of d_p_coupling (dp_coupling.F90:274-320): the
     # gravity-wave frontogenesis sources and the QBO zonal mean into the
     # pbuf, the TEM diagnostics and the dycore's AM payload into the
@@ -201,17 +180,37 @@ def atm_step(model: AtmModel, state: AtmState, cam_in: CamIn,
         dyn, g, coord.ptop, omega=dyn_diags["omega"],
         use_gw_front=pc.use_gw_front, qbo_use_forcing=pc.qbo_use_forcing,
         do_circulation_diags=pc.do_circulation_diags)
-    ctem = cdiag.pop("ctem", None)
     if mesh is not None:
-        cdiag = {k: take_cols(v, mesh, g.jm, g.im) for k, v in cdiag.items()}
+        phys = shard_state(phys, mesh, g.jm, g.im)
+        cdiag = {k: v if k == "ctem" else take_cols(v, mesh, g.jm, g.im)
+                 for k, v in cdiag.items()}
         dyn = shard_state(dyn, mesh)
-    if cdiag:
-        pbuf = pbuf.update(**cdiag)
-    if ctem is not None:
-        diags.update(ctem)
-    if model.fv_cfg.am_diag:
-        diags.update({k: v for k, v in dyn_diags.items()
-                      if k.startswith("AM_")})
+
+    with span("atm_diagnostics"):
+        diags = dict(o1.diagnostics)
+        diags.update(o2.diagnostics)
+
+        # before/after-physics snapshots and the total physics tendencies
+        # (cam_diagnostics.F90:246-298, 2696), the column burdens
+        diags.update(diag_phys_tend_writeout(state.phys, o2.state, model.dt,
+                                             cnst_names=reg.names))
+        diags.update(constituent_burdens(o2.state, reg.names))
+
+        # migrating-tide products (cam_diagnostics.F90:2156-2161): DTCOND
+        # times the local-solar-time harmonics of this step
+        if "DTCOND" in diags:
+            dtype = diags["DTCOND"].dtype
+            time_days = (state.nstep.to(dtype) + 1.0) * (model.dt / 86400.0)
+            diags.update(diag_conv_tidal(diags["DTCOND"],
+                                         tidal_coeffs(g.lons.to(dtype),
+                                                      time_days)))
+        ctem = cdiag.pop("ctem", None)
+        if ctem is not None:
+            diags.update(ctem)
+        if model.fv_cfg.am_diag:
+            diags.update({k: v for k, v in dyn_diags.items()
+                          if k.startswith("AM_")})
+    pbuf = o2.pbuf.update(**cdiag) if cdiag else o2.pbuf
 
     new = AtmState(dyn=dyn, phys=phys, pbuf=pbuf, phis=state.phis,
                    nstep=state.nstep + 1)

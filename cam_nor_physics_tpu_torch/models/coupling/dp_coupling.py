@@ -27,6 +27,7 @@ from ...ops.fill import qneg3
 from ...ops.geopotential import geopotential_t
 from ...ops.tp_core import _rollx, _rolly, wset_row
 from ...utils import constants as c
+from ...utils.timing import span, spanned
 from ..fv.cd_core import DynState, d2a_winds, pressure_vars
 from ..fv.ctem import ctem_diags
 from ..fv.grid import FVGrid
@@ -51,6 +52,7 @@ def _from_cols(a, jm: int, im: int):
         a.shape[:-2] + (a.shape[-1], jm, im)).contiguous()
 
 
+@spanned("d_p_coupling")
 def d_p_coupling(state: DynState, grid: FVGrid, phis, ptop: float,
                  registry: ConstituentRegistry, omega=None) -> PhysicsState:
     """Dycore export -> physics state (d_p_coupling, dp_coupling.F90:
@@ -165,22 +167,24 @@ def d_p_coupling_diags(state: DynState, grid: FVGrid, ptop: float,
     out = {}
     if not (use_gw_front or qbo_use_forcing or do_circulation_diags):
         return out
-    pe, pk, pkz, peln = pressure_vars(state.delp, ptop)
-    ua, va = d2a_winds(state.u, state.v)
-    t3 = state.pt * pkz / (1.0 + c.ZVIR * state.q[0])
-    pmid = state.delp / (peln[1:] - peln[:-1])
-    if use_gw_front:
-        fgf, fga = gws_src_fnct(ua, va, t3, pmid, grid)
-        out["FRONTGF"] = _to_cols(fgf)
-        out["FRONTGA"] = _to_cols(fga)
-    if qbo_use_forcing:
-        out["UZM"] = _to_cols(zonal_mean_3d(ua))
-    if do_circulation_diags:
-        om = omega if omega is not None else torch.zeros_like(t3)
-        out["ctem"] = ctem_diags(ua, va, om, t3, pmid)
+    with span("d_p_coupling"):
+        pe, pk, pkz, peln = pressure_vars(state.delp, ptop)
+        ua, va = d2a_winds(state.u, state.v)
+        t3 = state.pt * pkz / (1.0 + c.ZVIR * state.q[0])
+        pmid = state.delp / (peln[1:] - peln[:-1])
+        if use_gw_front:
+            fgf, fga = gws_src_fnct(ua, va, t3, pmid, grid)
+            out["FRONTGF"] = _to_cols(fgf)
+            out["FRONTGA"] = _to_cols(fga)
+        if qbo_use_forcing:
+            out["UZM"] = _to_cols(zonal_mean_3d(ua))
+        if do_circulation_diags:
+            om = omega if omega is not None else torch.zeros_like(t3)
+            out["ctem"] = ctem_diags(ua, va, om, t3, pmid)
     return out
 
 
+@spanned("p_d_coupling")
 def p_d_coupling(state: DynState, pstate: PhysicsState, grid: FVGrid,
                  ptop: float, dt: float,
                  registry: ConstituentRegistry) -> DynState:

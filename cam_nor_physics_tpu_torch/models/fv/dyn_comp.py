@@ -43,11 +43,13 @@ from ...parallel import shard_stencil as ss
 from ...parallel.mesh import gather_state, shard_state
 from ...utils import constants as c
 from ...utils.config import FVConfig
+from ...utils.timing import span, spanned
 from .cd_core import DynState, cd_step, d2a_winds, pressure_vars
 from .grid import FVGrid
 from .vertical import HybridCoord
 
 
+@spanned("trac2d")
 def trac2d(q, dp0, cx, cy, mfx, mfy, grid: FVGrid, iord: int, jord: int,
            fill: bool = True, mesh=None):
     """Large-timestep tracer transport with accumulated Courant numbers and
@@ -94,6 +96,7 @@ def _layer_te(pt, u, v, pk):
     return ke + phi_below + c.CPAIR * pt * pk[1:]
 
 
+@spanned("te_map")
 def te_map(state: DynState, coord: HybridCoord, grid: FVGrid, ptop: float,
            kord: int = 4, consv: bool = False):
     """Vertical remap from Lagrangian surfaces to the hybrid coordinate:
@@ -280,6 +283,7 @@ def dyn_run(state: DynState, grid: FVGrid, coord: HybridCoord, phis,
         for k, v in diags.items()}
 
 
+@spanned("dyn_run")
 def dyn_run_whole(state: DynState, grid: FVGrid, coord: HybridCoord, phis,
                   cfg: FVConfig, ndt: float, filter_impl: str,
                   c_sw_pgf: bool | None, mesh, return_diags: bool):
@@ -329,40 +333,44 @@ def dyn_run_whole(state: DynState, grid: FVGrid, coord: HybridCoord, phis,
         for _ in range(n2):
             dp0 = state.delp
             acc = None
-            for _ in range(nsplit):
-                delp_before = state.delp
-                am0 = (axial_angular_momentum(state, grid, per_level=True)
-                       if cfg.am_fixer or cfg.am_correction else None)
-                tq = (mountain_torque(state, phis, grid, ptop)
-                      if cfg.am_correction else None)
-                state, d = cd_step(
-                    state, grid, ptop, phis, dt, iord=cfg.iord,
-                    jord=cfg.jord, dyn_filter=cfg.fft_flt >= 0,
-                    filter_impl=filter_impl, c_sw_pgf=c_sw_pgf,
-                    filter_dm=cfg.filter_dm, filter_csw_dm=cfg.filter_csw_dm,
-                    ke_method=cfg.ke_method, div2_coef_nd=cfg.div2_coef_nd,
-                    div2_on=div2_on, div4_coef_nd=div4_nd,
-                    div_taper=div_taper, del2_velocity=del2_vel, mesh=mesh)
-                if cfg.am_correction:
-                    # close the step's AM budget: AM_after = AM_before +
-                    # dt·torque, the torque entering at the surface layer;
-                    # with the fixer on, this one projection serves both
-                    am_tgt = torch.cat([am0[:-1], am0[-1:] + dt * tq])
-                    state, du_k = am_fixer(
-                        state, grid, am_tgt,
-                        taper=fix_taper if cfg.am_fixer else None,
-                        lbl=cfg.am_fixer and cfg.am_fix_lbl)
-                    if cfg.am_diag:
-                        duf = duf + du_k
-                elif cfg.am_fixer:
-                    state, du_k = am_fixer(state, grid, am0, taper=fix_taper,
-                                           lbl=cfg.am_fix_lbl)
-                    if cfg.am_diag:
-                        duf = duf + du_k
-                step = {k: d[k] for k in ("cx", "cy", "mfx", "mfy")}
-                acc = step if acc is None else \
-                    {k: acc[k] + step[k] for k in acc}
-                n_floor = n_floor + _floor_count(state.delp, delp_before)
+            with span("cd_core"):
+                for _ in range(nsplit):
+                    delp_before = state.delp
+                    am0 = (axial_angular_momentum(state, grid, per_level=True)
+                           if cfg.am_fixer or cfg.am_correction else None)
+                    tq = (mountain_torque(state, phis, grid, ptop)
+                          if cfg.am_correction else None)
+                    state, d = cd_step(
+                        state, grid, ptop, phis, dt, iord=cfg.iord,
+                        jord=cfg.jord, dyn_filter=cfg.fft_flt >= 0,
+                        filter_impl=filter_impl, c_sw_pgf=c_sw_pgf,
+                        filter_dm=cfg.filter_dm,
+                        filter_csw_dm=cfg.filter_csw_dm,
+                        ke_method=cfg.ke_method,
+                        div2_coef_nd=cfg.div2_coef_nd, div2_on=div2_on,
+                        div4_coef_nd=div4_nd, div_taper=div_taper,
+                        del2_velocity=del2_vel, mesh=mesh)
+                    if cfg.am_correction:
+                        # close the step's AM budget: AM_after = AM_before +
+                        # dt·torque, the torque entering at the surface layer;
+                        # with the fixer on, this one projection serves both
+                        am_tgt = torch.cat([am0[:-1], am0[-1:] + dt * tq])
+                        state, du_k = am_fixer(
+                            state, grid, am_tgt,
+                            taper=fix_taper if cfg.am_fixer else None,
+                            lbl=cfg.am_fixer and cfg.am_fix_lbl)
+                        if cfg.am_diag:
+                            duf = duf + du_k
+                    elif cfg.am_fixer:
+                        state, du_k = am_fixer(state, grid, am0,
+                                               taper=fix_taper,
+                                               lbl=cfg.am_fix_lbl)
+                        if cfg.am_diag:
+                            duf = duf + du_k
+                    step = {k: d[k] for k in ("cx", "cy", "mfx", "mfy")}
+                    acc = step if acc is None else \
+                        {k: acc[k] + step[k] for k in acc}
+                    n_floor = n_floor + _floor_count(state.delp, delp_before)
             if cfg.high_altitude:
                 # κ of the cycle's entry composition rides trac2d as one
                 # more tracer slot (dyn_comp.F90:2371-2383); cat gives the

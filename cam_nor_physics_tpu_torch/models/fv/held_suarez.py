@@ -12,6 +12,7 @@ import torch
 
 from ...ops.tp_core import _rollx, _rolly, wset_row
 from ...utils import constants as c
+from ...utils.timing import spanned
 from .cd_core import DynState, pressure_vars
 from .grid import FVGrid
 from .vertical import HybridCoord
@@ -36,6 +37,7 @@ def equilibrium_temperature(p, lat):
     return torch.clamp(teq, min=T_MIN)
 
 
+@spanned("hs_forcing")
 def hs_forcing(state: DynState, grid: FVGrid, ptop: float, dt: float
                ) -> DynState:
     """One forward step of HS94 temperature relaxation + Rayleigh friction."""

@@ -41,6 +41,7 @@ from ...ops.fill import qneg3, qneg4
 from ...ops.saturation import qsat_water
 from ...utils import constants as c
 from ...utils.config import PhysConfig, ZMConfig
+from ...utils.timing import spanned
 from ..coupling.camsrfexch import CamIn, CamOut, cam_export
 from .cam_diagnostics import (diag_clip_tend_writeout, diag_conv,
                               diag_conv_tend_ini, diag_physvar_ic)
@@ -521,6 +522,7 @@ def tphysac(phys_cfg: PhysConfig, registry: ConstituentRegistry,
                       diagnostics=diags)
 
 
+@spanned("phys_run1")
 def phys_run1(phys_cfg: PhysConfig, zm_cfg: ZMConfig,
               registry: ConstituentRegistry, state: PhysicsState,
               pbuf: PhysicsBuffer, cam_in: CamIn, ztodt: float,
@@ -535,6 +537,7 @@ def phys_run1(phys_cfg: PhysConfig, zm_cfg: ZMConfig,
     return out
 
 
+@spanned("phys_run2")
 def phys_run2(phys_cfg: PhysConfig, registry: ConstituentRegistry,
               state: PhysicsState, pbuf: PhysicsBuffer, cam_in: CamIn,
               ztodt: float) -> PhysRunOut:

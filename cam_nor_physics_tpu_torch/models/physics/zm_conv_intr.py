@@ -31,6 +31,7 @@ import torch
 from ...ops.zm_tail_kernels import zm_tail
 from ...utils import constants as c
 from ...utils.config import ZMConfig
+from ...utils.timing import spanned
 from .constituents import ConstituentRegistry
 from .physics_buffer import PhysicsBuffer
 from .state import (PhysicsPtend, PhysicsState, physics_update, ptend_init,
@@ -84,6 +85,7 @@ def _take_level(arr, idx):
                        torch.full_like(got, float("nan")))
 
 
+@spanned("zm_conv_tend")
 def zm_conv_tend(cfg: ZMConfig, registry: ConstituentRegistry,
                  state: PhysicsState, pbuf: PhysicsBuffer,
                  pblh, tpert, landfrac, ztodt: float, msg: int = 0,

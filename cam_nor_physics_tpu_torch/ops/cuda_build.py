@@ -32,6 +32,7 @@ SOURCES = {
     "cd_fused_kernels": ("cd_fused_kernels.cu", "dft_filter.cuh",
                          "tp_core.cuh"),
     "probe_kernels": ("probe_kernels.cu",),
+    "span_kernels": ("span_kernels.cu",),
 }
 
 # --fmad=false: no multiply-add contraction, so the kernels round like
@@ -44,7 +45,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 
-# C signatures: (function stem, argtypes); each stem exists as _f32 and _f64
+# C signatures: (function stem, argtypes); each stem exists as _f32 and _f64,
+# but in the libraries of UNTYPED, whose entry points take no float data
 SIGNATURES = {
     "stencil_kernels": (
         ("cam_transport3d", [_P] * 9 + [_D] + [_I] * 7 + [_P] * 6),
@@ -66,7 +68,11 @@ SIGNATURES = {
     "probe_kernels": (
         ("cam_probe", [_P] * 2 + [_I] + [_P]),
     ),
+    "span_kernels": (
+        ("cam_span_mark", [_I, _I, _P]),
+    ),
 }
+UNTYPED = frozenset({"span_kernels"})
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -138,6 +144,14 @@ def kernel_names() -> frozenset:
                      for name in _GLOBAL.findall(f.read_text()))
 
 
+def entry_points(name: str) -> list:
+    """(C function name, argtypes) of each entry point of library
+    `name`."""
+    sufs = ("",) if name in UNTYPED else ("_f32", "_f64")
+    return [(stem + suf, argtypes) for stem, argtypes in SIGNATURES[name]
+            for suf in sufs]
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library `name`, built first if needed, with the argtypes
     of its entry points declared."""
@@ -147,10 +161,9 @@ def library(name: str) -> ctypes.CDLL:
         if not path.exists():
             build([name])
         lib = ctypes.CDLL(str(path))
-        for stem, argtypes in SIGNATURES[name]:
-            for suf in ("f32", "f64"):
-                fn = getattr(lib, f"{stem}_{suf}")
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+        for fname, argtypes in entry_points(name):
+            fn = getattr(lib, fname)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib

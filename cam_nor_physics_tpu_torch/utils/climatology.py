@@ -18,6 +18,7 @@ import torch
 from ..models.fv.ctem import (default_ctem_levels, interp_to_pressure,
                              pressure_levels)
 from .device import resolve_device
+from .timing import spanned
 
 
 def climo_init(km: int, jm: int, nplev: int | None = None,
@@ -31,6 +32,7 @@ def climo_init(km: int, jm: int, nplev: int | None = None,
             "count": torch.zeros((), dtype=dtype, device=dev)}
 
 
+@spanned("climo_update")
 def climo_update(acc: dict, u3, v3, t3, pmid, plev=None) -> dict:
     """Add one sample of the zonal-mean state: (km, jm, im) A-grid winds,
     temperature and layer mid-pressures."""

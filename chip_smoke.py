@@ -1821,7 +1821,7 @@ class DriverSmoke:
         area = drv._grid_area(model.grid, torch.float32)
         s1, cam_out, diags = atm_step(model, st_a, cam_in)
         by_name, wall = kernel_times(lambda: tapes.accumulate(
-            drv._step_payload(s1, cam_in, cam_out, diags, area)))
+            lambda: drv._step_payload(s1, cam_in, cam_out, diags, area)))
         tapes.close()
         log(f"driver payload + outfld a step [{self.card}]: "
             f"{sum(c for c, _ in by_name.values())} device kernels, "

@@ -536,8 +536,8 @@ def test_profile_splits_port_and_pytorch_kernels():
     names = cuda_build.kernel_names()
     assert {"k1_winds_kernel", "k2_kick_kernel", "dft_forward_kernel",
             "row_inner_kernel", "tp_q_flux_kernel", "te_map_kernel",
-            "zm_tail_kernel", "probe_kernel"} <= names
-    assert len(names) == 19
+            "zm_tail_kernel", "probe_kernel", "span_mark_kernel"} <= names
+    assert len(names) == 20
     times = {
         "void (anonymous namespace)::k1_winds_kernel<float>(float const*, "
         "float const*, float const*, double, int, int)": [24, 100.0],

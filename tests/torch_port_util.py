@@ -178,10 +178,9 @@ def host_build(lib, tmp, n_launches):
                    check=True, timeout=300)
     dll = ctypes.CDLL(str(out))
     dll.cam_host_launches.restype = ctypes.c_long
-    for stem, argtypes in cuda_build.SIGNATURES[lib]:
-        for suf in ("f32", "f64"):
-            fn = getattr(dll, f"{stem}_{suf}")
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    for fname, argtypes in cuda_build.entry_points(lib):
+        fn = getattr(dll, fname)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return dll
 
 
