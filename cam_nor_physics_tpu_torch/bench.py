@@ -88,6 +88,11 @@ GRIDS = {"small": (72, 46, 10, 3), "f19": (144, 96, 26, 40),
          "f09": (288, 192, 26, 5), "f05": (576, 384, 32, 3)}
 SPINUP = 3
 PROFILE_TRIES = 3          # profiler windows run before giving up
+# spin kernels (torch.cuda._sleep, ~1 ms each) at each end of a profiled
+# window: the profiler drops device records now and then, up to a few
+# dozen of a window's first ones or every one of a short window
+PROFILE_PAD = 48
+PROFILE_PAD_CYCLES = 10 ** 6
 METRIC = "grid-points/s per chip (FV dyn step + ZM physics step)"
 # chained steps of the coupled bench, bench.py:289-297
 COUPLED_ITERS = {"small": 3, "f19": 20, "f09": 5, "f05": 3}
@@ -140,30 +145,44 @@ def card_label() -> str:
 def kernel_times(fn, reps: int = 1):
     """One warm-up call of fn, then `reps` calls under torch.profiler:
     ({device kernel name: [launches recorded, µs]}, wall seconds). The
-    profiler drops launches in short windows, at times all of them: a
-    window that recorded no device kernel is run again, up to
-    PROFILE_TRIES windows in all."""
+    profiler drops launches in short windows, at times all of them, so
+    the calls sit between PROFILE_PAD spin kernels at each end of the
+    window (left out of the table), and a window that recorded no device
+    kernel of fn is run again, up to PROFILE_TRIES windows in all."""
     from torch.profiler import ProfilerActivity, profile
+
+    def pad():
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(PROFILE_PAD_CYCLES)
+        torch.cuda.synchronize()
+
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, PROFILE_TRIES + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            pad()
             t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        by_name = {}
+            pad()
+        by_name, pads = {}, 0
         for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                n_us = by_name.setdefault(e.name, [0, 0.0])
-                n_us[0] += 1
-                n_us[1] += e.time_range.elapsed_us()
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if "spin_kernel" in e.name:
+                pads += 1
+                continue
+            n_us = by_name.setdefault(e.name, [0, 0.0])
+            n_us[0] += 1
+            n_us[1] += e.time_range.elapsed_us()
         if by_name:
             return by_name, wall
         print(f"profiler: no device kernel recorded in window {attempt} "
-              f"of {PROFILE_TRIES}", file=sys.stderr, flush=True)
+              f"of {PROFILE_TRIES} ({pads} of {2 * PROFILE_PAD} spin "
+              f"kernels)", file=sys.stderr, flush=True)
     raise RuntimeError("the profiler recorded no device time")
 
 

@@ -5,7 +5,9 @@ layout (reference zm_conv.F90). Every column is computed
 and non-triggered columns are masked at the end; level recursions are
 Python loops over levels on (ncol,) rows (`_scan`, the JAX package's
 `lax.scan`), so a call issues thousands of small launches on a card and
-no host synchronisation on the default path. Level indices (mx, lcl, lel,
+no host synchronisation on the default path. zm_convr's two parcel calls
+go through ops.zm_parcel_kernels.zm_parcel: on a card, one CUDA kernel
+launch each in place of buoyan_dilute's ~6,950. Level indices (mx, lcl, lel,
 jt, j0, jd, jlcl) are int64 tensors; `_take_col` gathers with them.
 
 Level k=0 is the model top, k=pver-1 the surface layer; `msg` is the
@@ -1483,7 +1485,10 @@ def zm_convr(cfg: ZMConfig, msg: int, t, qh, pap, paph, dpp, zm_, geos, zi_,
     cldprp: freezing heat in the plume budget, the dcape closure boost,
     the vapour fixer, and the ice and number detrainment streams
     (zm_conv.F90:3526-3874, 4378-4396); `aero` is its modal activation
-    bundle (zm_aero_t role)."""
+    bundle (zm_aero_t role). buoyan_dilute runs through
+    ops.zm_parcel_kernels.zm_parcel: its CUDA kernel for CUDA tensors it
+    takes, else the plain function."""
+    from ...ops.zm_parcel_kernels import zm_parcel
     ncol, pver = t.shape
     karr = _karr(pver, t)
 
@@ -1508,8 +1513,8 @@ def zm_convr(cfg: ZMConfig, msg: int, t, qh, pap, paph, dpp, zm_, geos, zi_,
     s = t + (GRAV / ((1.0 + c.ZVIR * q) * CP)) * z
     dmpdz0 = torch.full_like(t, -cfg.tentrm)
 
-    b1 = buoyan_dilute(cfg, msg, q, t, p, z, pf, zi_, zs, pblt, tpert,
-                       landfrac, dmpdz0)
+    b1 = zm_parcel(cfg, msg, q, t, p, z, pf, zi_, zs, pblt, tpert, landfrac,
+                   dmpdz0)
 
     def trigger(cape, cin):
         trig = cape > cfg.capelmt
@@ -1536,8 +1541,8 @@ def zm_convr(cfg: ZMConfig, msg: int, t, qh, pap, paph, dpp, zm_, geos, zi_,
         dmpdz2_col = torch.where(ideep, torch.where(cnt > 0, dmsm, -1.0),
                                  -cfg.tentrm)
         dmpdz2 = dmpdz2_col[:, None].expand(ncol, pver)
-        b2 = buoyan_dilute(cfg, msg, q, t, p, z, pf, zi_, zs, pblt, tpert,
-                           landfrac, dmpdz2)
+        b2 = zm_parcel(cfg, msg, q, t, p, z, pf, zi_, zs, pblt, tpert,
+                       landfrac, dmpdz2)
         if cfg.retrigger:
             ideep = trigger(b2.cape, b2.cin)
         cld = cldprp(cfg, msg, q, t, p, z, s, zf, shat, qhat, b2.mx, b2.lel,

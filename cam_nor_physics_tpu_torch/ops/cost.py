@@ -28,6 +28,7 @@ operations from the dispatch mode.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import inspect
 import math
@@ -70,6 +71,14 @@ OPS_DEL2 = 20             # K4's del2 Laplacians of u and v
 # Goff-Gratch qsat ~100, momtran of two winds ~120, the KE heating ~25,
 # and per tracer ~50
 OPS_TAIL_POINT, OPS_TAIL_TRACER = 245, 50
+# per column and level of the ZM parcel (csrc/zm_parcel_kernels.cu, each
+# power or logarithm counted as one; a saturation ~25, an enthalpy ~35, an
+# entropy ~45, a secant inversion ten of them): the environment's enthalpy
+# and increments ~45, the ascent's enthalpy inversion with its saturation
+# ~375, the profile's entropy ~45, the buoyancy and CAPE/CIN ~30; and per
+# precipitation sweep an entropy inversion with its saturation ~475 and
+# its carry terms ~15
+OPS_PARCEL_POINT, OPS_PARCEL_SWEEP = 495, 490
 
 
 def bound(nbytes, ops, peaks=(HBM_BYTES_PER_S, PEAK_F32_OPS)):
@@ -203,6 +212,11 @@ def _ops_zm_tail(p):
                               + OPS_TAIL_TRACER * p["q_tr"].shape[2])
 
 
+def _ops_zm_parcel(p):
+    return p["t"].numel() * (OPS_PARCEL_POINT
+                             + OPS_PARCEL_SWEEP * p["cfg"].precip_sweeps)
+
+
 def _zm_tail_out_bytes(p):
     """zm_tail's outputs from its shapes (the plain version returns the
     same fields in other containers): 17 (ncol, pver) rows, the two
@@ -217,12 +231,22 @@ _OPS = {"transport3d": _ops_transport3d, "vort_flux3d": _ops_vort_flux3d,
         "tracer_div3d": _ops_tracer_div3d,
         "te_map_remap": _ops_te_map_remap, "k1": _ops_k1, "k2": _ops_k2,
         "k3": _ops_k3, "k4": _ops_k4, "zm_tail": _ops_zm_tail,
+        "zm_parcel": _ops_zm_parcel,
         "probe": lambda p: p["x"].numel()}
 _SIGNATURES = {}            # kernel name -> its wrapper's signature
 
 
 def _tensors(tree):
-    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+    """The tensors of a pytree, a dataclass's fields among them (zm_parcel
+    returns a BuoyanOut)."""
+    out = []
+    for t in tree_flatten(tree)[0]:
+        if isinstance(t, torch.Tensor):
+            out.append(t)
+        elif dataclasses.is_dataclass(t) and not isinstance(t, type):
+            out += _tensors([getattr(t, f.name)
+                             for f in dataclasses.fields(t)])
+    return out
 
 
 def _nbytes(ts):

@@ -29,6 +29,7 @@ SOURCES = {
     "stencil_kernels": ("stencil_kernels.cu", "tp_core.cuh"),
     "remap_kernels": ("remap_kernels.cu",),
     "zm_tail_kernels": ("zm_tail_kernels.cu",),
+    "zm_parcel_kernels": ("zm_parcel_kernels.cu",),
     "cd_fused_kernels": ("cd_fused_kernels.cu", "dft_filter.cuh",
                          "tp_core.cuh"),
     "probe_kernels": ("probe_kernels.cu",),
@@ -58,6 +59,9 @@ SIGNATURES = {
     ),
     "zm_tail_kernels": (
         ("cam_zm_tail", [_P] * 19 + [_I] * 4 + [_D] * 5 + [_P] * 4),
+    ),
+    "zm_parcel_kernels": (
+        ("cam_zm_parcel", [_P] * 10 + [_I] * 11 + [_D] * 3 + [_P] * 4),
     ),
     "cd_fused_kernels": (
         ("cam_cd_k1", [_P] * 5 + [_D] * 7 + [_I] * 5 + [_P] * 8),

@@ -62,7 +62,8 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
    and whether it is 0;
 7. runs the ZM step, build_zm_step(13824, 26, float32, "cuda"), once on
    those inputs with the launch counts set to 0 just before and read just
-   after: exactly 1 zm_tail launch, a triggered share strictly inside
+   after: exactly 1 zm_tail launch and 2 zm_parcel launches (zm_convr's
+   two parcel calls), a triggered share strictly inside
    (0, 1), finite fields; then zm_conv_tend through the kernel against the
    same call through the plain tail, float32 and float64, on the ptend's
    s, u, v and q per species and the pbuf stores PREC_DP, SNOW_DP,
@@ -114,14 +115,15 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
     diffusion, the FV dycore with FVConfig()'s splits, aquaplanet bulk
     fluxes), float32: the first step and 3 more, eager, with the launch
     counts set to 0 before each step and read after it: K1-K4,
-    tracer_div3d, te_map_remap and zm_tail each exactly as one HS step
-    and one ZM step launch them, transport3d and vort_flux3d never;
+    tracer_div3d, te_map_remap, zm_tail and zm_parcel each exactly as one
+    HS step and one ZM step launch them, transport3d and vort_flux3d
+    never;
     every tensor of the state finite and the dry-air mass (cos-lat
     weighted delp (1 - q), tests/test_atm_comp.py:48-65) within 1e-5 of
     the step before; the energy fixer's EFIX range printed per step, and
     for the same 4 steps in float64 through the kernels; the first step
     and one more in float64 through the
-    kernels and through their plain versions (all seven sites routed),
+    kernels and through their plain versions (all eight sites routed),
     each dycore and physics field within 1e-9 of its max, with the count
     of columns whose ZM trigger or level indices differ printed; a CUDA
     graph of 8 prog_only steps (bench.chain_graph: its first replay
@@ -192,7 +194,8 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
     float64 within 1e-12; (G) zm_tail against its plain version at 1 and
     16 columns (float32, float64), then scam_run_iop on 16 columns for 48
     steps (a simulated day; an IOP file of 9 records) in float32, exactly
-    one zm_tail launch a step, and in float64 on the card against the
+    one zm_tail and two zm_parcel launches a step, and in float64 on the
+    card against the
     CPU within 1e-9 with ZM trigger flips counted; ms a step of each;
 17. the transport orders beside 1 and 4, latitude strips and a world of
     one (OrdersSmoke): (a) transport3d, vort_flux3d, tracer_div3d, K3
@@ -225,12 +228,26 @@ Drives cam_nor_physics_tpu_torch only (never the JAX package):
     and on the CPU from the same state: the same bytes, operations within
     1e-6 (FFSL sums are data dependent), the HS step's bytes at least
     its kernels' work;
-19. prints the kernels JSON line (ten kernels), the card's name and power
-    limit, then {"ok": true, "device": {...}} last. Every phase prints its
-    wall time.
+19. holds ZM's parcel kernel (zm_parcel) against its plain version
+    (zm_parcel_ref, the port's buoyan_dilute) on the arguments of
+    zm_convr's two calls on entry.varied_zm_inputs at f19's, f09's and
+    f05's columns, float32 and float64: each field's largest error and
+    the columns whose trigger (cape > capelmt, cin < cin_threshd cape),
+    lcl, lel or mx differ, with their CAPE and CIN margins; each timed
+    (CUDA events, the device time by torch.profiler) beside its plain
+    version and its bound; then zm_convr in the coupled step at f19
+    (entry.build_coupled, the aqua cell's configuration) at its first
+    step and after 48 steps, through the kernel and through the plain
+    version: ideep, maxg, lcl and lel flips. Each field within 1e-12
+    (float64) or 1e-5 (float32) of its max in the columns whose lcl, lel
+    and mx agree; float64: no flip; float32: a flip only where the CAPE
+    or CIN margin is within 1e-5 of its threshold;
+20. prints the kernels JSON line (eleven kernels), the card's name and
+    power limit, then {"ok": true, "device": {...}} last. Every phase
+    prints its wall time.
 
-`python3 chip_smoke.py --phase 16` (or 17, 18) builds the kernels and
-runs that phase alone (no result line).
+`python3 chip_smoke.py --phase 16` (or 17, 18, 19) builds the kernels
+and runs that phase alone (no result line).
 
 Exits non-zero, printing no result, without a CUDA device, outside a
 checkout of the repo, or when any phase fails.
@@ -287,6 +304,9 @@ KERNELS = (
      "cam_nor_physics_tpu/ops/remap_pallas.py:115"),
     ("zm_tail", "cam_nor_physics_tpu_torch/csrc/zm_tail_kernels.cu",
      "cam_nor_physics_tpu/models/physics/zm_tail_pallas.py:206"),
+    ("zm_parcel", "cam_nor_physics_tpu_torch/csrc/zm_parcel_kernels.cu",
+     "none: the JAX package's buoyan_dilute is jnp "
+     "(cam_nor_physics_tpu/models/physics/zm_conv.py)"),
     ("k1", "cam_nor_physics_tpu_torch/csrc/cd_fused_kernels.cu",
      "cam_nor_physics_tpu/models/fv/cd_pallas.py:224"),
     ("k2", "cam_nor_physics_tpu_torch/csrc/cd_fused_kernels.cu",
@@ -312,6 +332,12 @@ DRIVER_LONG = 40           # steps of the resumed run that times replays
 BEYOND = ("f09", "f05")    # the bench's grids beyond f19
 # repetitions of each kernel (and of its plain version) timed there
 BEYOND_REPS = {"f09": (20, 3), "f05": (10, 2)}
+PARCEL_STEPS = 48         # coupled steps before the second flip count
+PARCEL_MARGIN = 1e-5      # a float32 flip's CAPE or CIN margin, relative
+# repetitions of zm_parcel and of zm_parcel_ref timed at each grid
+PARCEL_REPS = {"f19": (50, 3), "f09": (20, 2), "f05": (10, 1)}
+# calls in a profiled window of zm_parcel (its device mean at every grid)
+PARCEL_PROFILE_REPS = 100
 
 
 
@@ -325,6 +351,16 @@ def phase(name: str):
     t0 = time.perf_counter()
     yield
     log(f"phase {name}: {time.perf_counter() - t0:.1f} s wall")
+
+
+def parcel_launches(torch, cfg, km: int) -> int:
+    """zm_parcel's launches in one zm_convr call on the card at km levels:
+    one for each parcel call (two with second_call) where the kernel
+    takes it."""
+    from cam_nor_physics_tpu_torch.ops import zm_parcel_kernels
+    t = torch.empty((1, km), device=DEVICE)
+    return (2 if cfg.second_call else 1) \
+        if zm_parcel_kernels.takes(cfg, t) else 0
 
 
 class Smoke:
@@ -351,9 +387,11 @@ class Smoke:
                            for k in FUSED})
         self.kernels = {n: getattr(m, n) for n, (_, m) in self.sites.items()}
         from cam_nor_physics_tpu_torch.ops import (probe_kernels,
+                                                   zm_parcel_kernels,
                                                    zm_tail_kernels)
         # every kernel wrapper with a launch count
         self.counted = dict(self.kernels, zm_tail=zm_tail_kernels.zm_tail,
+                            zm_parcel=zm_parcel_kernels.zm_parcel,
                             probe=probe_kernels.probe)
 
     def zero_counts(self):
@@ -1216,17 +1254,20 @@ def run_zm(torch, sm: Smoke, card: str) -> dict:
     err = zm.compare_tail(a, kw, "float32")
     zm.compare_tail(a, kw, "float64")
 
-    # ---- phase 7: the ZM step through the kernel, counted
-    zm.tk.zm_tail.launches = 0
+    # ---- phase 7: the ZM step through the kernels, counted
+    from cam_nor_physics_tpu_torch.utils.config import ZMConfig
+    sm.zero_counts()
     state1, pbuf1 = zstep(*inputs)
     torch.cuda.synchronize()
-    launches = zm.tk.zm_tail.launches
+    got = {k: v for k, v in sm.counts().items() if v}
+    want = {"zm_tail": 1,
+            "zm_parcel": parcel_launches(torch, ZMConfig(), KM)}
     share = float(pbuf1.get("ZM_IDEEP").double().mean())
     log(f"main path: 1 zm_conv_tend on {NCOL}x{KM} float32, launches "
-        f"{{'zm_tail': {launches}}}, triggered share {share:.4f} [{card}]")
-    if launches != 1:
-        raise RuntimeError(f"zm_tail launched {launches} times in one "
-                           f"zm_conv_tend (expected 1)")
+        f"{got}, triggered share {share:.4f} [{card}]")
+    if got != want:
+        raise RuntimeError(f"one zm_conv_tend launched {got} (expected "
+                           f"{want})")
     if not 0.0 < share < 1.0:
         raise RuntimeError(f"triggered share {share} not inside (0, 1)")
     for f in ("t", "u", "v", "q"):
@@ -1248,9 +1289,10 @@ def run_zm(torch, sm: Smoke, card: str) -> dict:
         f"{1e3 * call_s / ZM_CALLS:.2f} ms per call "
         f"({100.0 * convr_s / call_s:.1f}%) in {ZM_CALLS} more calls with "
         f"zm_convr timed inside them")
-    return {"row": {"launches": launches, "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bound,
+    return {"row": {"launches": got["zm_tail"], "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                     "bound_by": bound_by},
+            "parcel_launches": got["zm_parcel"],
             "zm_s": tend_s, "step": lambda: zstep(*inputs)}
 
 
@@ -1270,6 +1312,245 @@ def run_zm_grid(torch, sm: Smoke, gname: str) -> None:
                  5)
 
 
+class ParcelSmoke:
+    """Phase 19: ZM's parcel kernel (zm_parcel) against its plain version
+    (zm_parcel_ref, the port's buoyan_dilute) on the arguments of
+    zm_convr's two calls, and the trigger and level indices the two give
+    zm_convr in the coupled step."""
+
+    def __init__(self, torch, sm: Smoke):
+        from cam_nor_physics_tpu_torch.models.physics import zm_conv, \
+            zm_conv_intr
+        from cam_nor_physics_tpu_torch.ops import zm_parcel_kernels
+        from cam_nor_physics_tpu_torch.utils.config import ZMConfig
+        self.torch, self.sm = torch, sm
+        self.zc, self.intr, self.pk = zm_conv, zm_conv_intr, zm_parcel_kernels
+        self.kernel = zm_parcel_kernels.zm_parcel
+        self.cfg = ZMConfig()
+
+    @contextmanager
+    def recorded(self, out, plain=False):
+        """zm_convr's parcel calls through the kernel or, with plain,
+        through the plain version, each call's (arguments, output) of
+        `_launch` or of zm_parcel_ref appended to out (zm_convr looks
+        zm_parcel up in its module at each call)."""
+        pk = self.pk
+        name = "zm_parcel" if plain else "_launch"
+        fn = pk.zm_parcel_ref if plain else pk._launch
+
+        def rec(*a):
+            res = fn(*a)
+            out.append((a, res))
+            return res
+
+        setattr(pk, name, rec)
+        try:
+            yield
+        finally:
+            setattr(pk, name, self.kernel if plain else fn)
+
+    def calls(self, convr_args):
+        """The arguments of zm_convr's zm_parcel calls (through the plain
+        version)."""
+        rec = []
+        with self.recorded(rec, plain=True):
+            self.zc.zm_convr(*convr_args)
+        return [a for a, _ in rec]
+
+    def varied_args(self, ncol, km, dtype):
+        """zm_convr's arguments on entry.varied_zm_inputs (as zm_conv_tend
+        forms them, msg 0, half of ZM_DT)."""
+        from cam_nor_physics_tpu_torch.entry import varied_zm_inputs
+        ps, _, fo = varied_zm_inputs(ncol, km, dtype, DEVICE)
+        return (self.cfg, 0, ps.t, ps.q[:, :, 0], ps.pmid, ps.pint, ps.pdel,
+                ps.zm, ps.phis, ps.zi, fo["pblh"], fo["tpert"],
+                fo["landfrac"], 0.5 * ZM_DT)
+
+    def trigger(self, cape, cin):
+        return (cape > self.cfg.capelmt) & \
+            (cin < cape * self.cfg.cin_threshd)
+
+    def flips(self, label, got, want):
+        """Columns whose trigger (from the call's CAPE and CIN), lcl, lel
+        or mx differ, each with the plain version's CAPE margin to capelmt
+        and CIN margin to cin_threshd * cape (relative); logs them and
+        returns (count, the largest of each flip's smaller margin)."""
+        torch, cfg = self.torch, self.cfg
+        diff = self.trigger(got.cape, got.cin) != \
+            self.trigger(want.cape, want.cin)
+        for f in ("lcl", "lel", "mx"):
+            diff |= getattr(got, f) != getattr(want, f)
+        cols = torch.nonzero(diff).flatten().tolist()
+        worst = 0.0
+        for i in cols[:20]:
+            cape, cin = float(want.cape[i]), float(want.cin[i])
+            m_cape = abs(cape - cfg.capelmt) / cfg.capelmt
+            thr = cfg.cin_threshd * cape
+            m_cin = abs(cin - thr) / max(abs(thr), 1e-30)
+            worst = max(worst, min(m_cape, m_cin))
+            log(f"    {label} column {i}: cape {cape:.6g} / "
+                f"{float(got.cape[i]):.6g}, cin {cin:.6g} / "
+                f"{float(got.cin[i]):.6g}, lcl {int(want.lcl[i])}/"
+                f"{int(got.lcl[i])}, lel {int(want.lel[i])}/"
+                f"{int(got.lel[i])}, mx {int(want.mx[i])}/{int(got.mx[i])};"
+                f" margins cape {m_cape:.3e} cin {m_cin:.3e}")
+        if len(cols) > 20:
+            worst = float("inf")
+        return len(cols), worst
+
+    def compare(self, label, args, dtype_name):
+        """zm_parcel against zm_parcel_ref on one call's arguments cast to
+        dtype_name: each field's largest error relative to its max in the
+        columns whose lcl, lel and mx agree, held to TOL; the largest
+        absolute error over all columns; the flips, none in float64 (a
+        float32 flip's margins are held by run_parcel). Returns (max abs
+        error, max rel error, flips, worst margin)."""
+        torch, pk = self.torch, self.pk
+        a, _ = self.sm.cast(list(args), {}, getattr(torch, dtype_name))
+        n0 = self.kernel.launches
+        got = self.kernel(*a)
+        want = pk.zm_parcel_ref(*a)
+        torch.cuda.synchronize()
+        if self.kernel.launches != n0 + 1:
+            raise RuntimeError(f"{label}: zm_parcel did not launch once")
+        same = (got.lcl == want.lcl) & (got.lel == want.lel) & \
+            (got.mx == want.mx)
+        rel, abs_err = {}, 0.0
+        for f in ("tp", "qstp", "buoy", "tl", "cape", "cin", "pl"):
+            g, w = getattr(got, f).double(), getattr(want, f).double()
+            if not bool(torch.isfinite(g).all()):
+                raise RuntimeError(f"{label} {f}: non-finite output")
+            d = (g - w).abs()
+            abs_err = max(abs_err, float(d.max()))
+            d = d.reshape(d.shape[0], -1).amax(1)[same]
+            rel[f] = float(d.max()) / max(float(w.abs().max()), 1e-30)
+        n, worst = self.flips(f"{label} {dtype_name}", got, want)
+        top = max(rel, key=rel.get)
+        tol = TOL[dtype_name]
+        log(f"check {label:<24} {dtype_name}: max_abs_err={abs_err:.3e} "
+            f"({'exact' if abs_err == 0.0 else 'not exact'}) "
+            f"max_rel_err={rel[top]:.3e} ({top}) tol={tol:.0e}; columns "
+            f"with trigger or index flips: {n}")
+        if rel[top] > tol or (dtype_name == "float64" and n):
+            raise RuntimeError(f"{label} {dtype_name}: zm_parcel disagrees "
+                               f"with its plain version: {rel}, {n} flips")
+        return abs_err, rel[top], n, worst
+
+    def time_pair(self, label, args, reps, plain_reps):
+        """zm_parcel's and zm_parcel_ref's ms a call (CUDA events), the
+        kernel's device ms (torch.profiler, PARCEL_PROFILE_REPS calls)
+        and the call's bound."""
+        sm, pk = self.sm, self.pk
+        ms = sm.time_call(self.kernel, args, {}, reps)
+        plain_ms = sm.time_call(pk.zm_parcel_ref, args, {}, plain_reps)
+        dev = sm.device_ms(label, self.kernel, args, {}, "zm_parcel_kernel",
+                           PARCEL_PROFILE_REPS)
+        nbytes, ops = sm.cost.kernel_work("zm_parcel", args, {},
+                                          self.kernel(*args))
+        bound, bound_by = sm.cost.bound(nbytes, ops)
+        log(f"time {label:<18} kernel {ms:.4f} ms (device {dev:.4f})  "
+            f"plain {plain_ms:.4f} ms  bound {bound:.5f} ms by {bound_by} "
+            f"({nbytes} B, {ops:.3e} ops)  [{sm.card}]")
+        return ms, plain_ms, dev, bound, bound_by
+
+    def coupled_states(self, dtype, steps):
+        """zm_convr's arguments in the coupled step (entry.build_coupled,
+        the aqua cell's configuration) at its first step and after
+        `steps` more, the parcel through the kernel."""
+        from cam_nor_physics_tpu_torch.entry import build_coupled
+        seen, real = [], self.intr.zm_convr
+
+        def rec(*a, **kw):
+            seen[:] = seen[:1] + [(tuple(
+                x.clone() if isinstance(x, self.torch.Tensor) else x
+                for x in a), kw)]
+            return real(*a, **kw)
+
+        _, step, state, _ = build_coupled(IM, JM, KM, dtype, DEVICE)
+        self.intr.zm_convr = rec
+        try:
+            state, _, _ = step(state, first_step=True)
+            first = seen[0]
+            for _ in range(steps):
+                state, _, _ = step(state)
+        finally:
+            self.intr.zm_convr = real
+        return {"start": first, f"after {steps} steps": seen[-1]}
+
+    def coupled_flips(self, dtype_name, steps):
+        """zm_convr on the coupled step's arguments with the parcel through
+        the kernel and through its plain version: ideep, maxg (mx) and
+        each call's lcl and lel flips with their margins. Returns (count,
+        worst margin)."""
+        torch = self.torch
+        total, worst = 0, 0.0
+        for tag, (a, kw) in self.coupled_states(
+                getattr(torch, dtype_name), steps).items():
+            got_calls, want_calls = [], []
+            with self.recorded(got_calls):
+                got = self.zc.zm_convr(*a, **kw)
+            with self.recorded(want_calls, plain=True):
+                want = self.zc.zm_convr(*a, **kw)
+            torch.cuda.synchronize()
+            n_ideep = int((got.ideep != want.ideep).sum())
+            n_mx = int((got.maxg != want.maxg).sum())
+            log(f"coupled {tag} {dtype_name}: zm_convr ideep flips {n_ideep},"
+                f" maxg flips {n_mx}, triggered share "
+                f"{float(want.ideep.double().mean()):.4f}")
+            n_calls = 0
+            for i, ((_, g), (_, w)) in enumerate(zip(got_calls, want_calls)):
+                n, m = self.flips(f"coupled {tag} call {i + 1} {dtype_name}",
+                                  g, w)
+                n_calls += n
+                worst = max(worst, m)
+            if (n_ideep or n_mx) and not n_calls:
+                worst = float("inf")      # a flip with no parcel flip
+            total += n_calls + n_ideep + n_mx
+        return total, worst
+
+
+def run_parcel(torch, sm: Smoke, card: str) -> dict:
+    """Phase 19: zm_parcel against zm_parcel_ref at f19's, f09's and f05's
+    columns (float32, float64) on entry.varied_zm_inputs, timed; then
+    the flips in the coupled step at f19, at its start and after
+    PARCEL_STEPS steps. Each field within TOL in the columns whose level
+    indices agree; float64: no flip; float32: every flip's CAPE or CIN
+    margin within PARCEL_MARGIN of its threshold. Returns the f19 float32
+    row of the kernels JSON line (its launches are phase 7's count)."""
+    from cam_nor_physics_tpu_torch.bench import GRIDS
+    ps = ParcelSmoke(torch, sm)
+    row, bad = None, []
+    for gname in ("f19",) + BEYOND:
+        im, jm, km, _ = GRIDS[gname]
+        calls = ps.calls(ps.varied_args(im * jm, km, torch.float32))
+        for dtype_name in ("float32", "float64"):
+            errs = [ps.compare(f"zm_parcel@{gname} call {i + 1}", a,
+                               dtype_name) for i, a in enumerate(calls)]
+            if dtype_name == "float32":
+                bad += [e for e in errs if e[2] and e[3] > PARCEL_MARGIN]
+            a, _ = sm.cast(list(calls[1]), {}, getattr(torch, dtype_name))
+            ms, plain_ms, dev, bound, bound_by = ps.time_pair(
+                f"zm_parcel@{gname} {dtype_name[5:]}", a,
+                *PARCEL_REPS[gname])
+            if gname == "f19" and dtype_name == "float32":
+                row = {"max_abs_err": max(e[0] for e in errs), "ms": ms,
+                       "plain_ms": plain_ms, "device_ms": dev,
+                       "bound_ms": bound, "bound_by": bound_by}
+        torch.cuda.empty_cache()
+    for dtype_name in ("float64", "float32"):
+        n, worst = ps.coupled_flips(dtype_name, PARCEL_STEPS)
+        log(f"coupled f19 {dtype_name}: {n} flips, worst margin "
+            f"{worst:.3e} [{card}]")
+        if dtype_name == "float64" and n:
+            raise RuntimeError(f"coupled float64: {n} trigger or index flips")
+        if n and worst > PARCEL_MARGIN:
+            bad.append((dtype_name, n, worst))
+    if bad:
+        raise RuntimeError(f"zm_parcel float32 flips beyond a margin of "
+                           f"{PARCEL_MARGIN}: {bad}")
+    return row
+
+
 def dyn_launches(sm: Smoke, fv_cfg, dt, grid) -> dict:
     """The launches of one FV large step with the fused small step: K1-K4
     ns times, tracer_div3d n2 times, te_map_remap nv times."""
@@ -1279,7 +1560,8 @@ def dyn_launches(sm: Smoke, fv_cfg, dt, grid) -> dict:
     lpc = sm.sk.LAUNCHES_PER_CALL
     out = {k: nsplit * n2 * nv * sm.ck.launches_per_call(k) for k in FUSED}
     out.update(tracer_div3d=n2 * nv * lpc["tracer_div3d"], te_map_remap=nv,
-               zm_tail=0, transport3d=0, vort_flux3d=0, probe=0)
+               zm_tail=0, zm_parcel=0, transport3d=0, vort_flux3d=0,
+               probe=0)
     return out
 
 
@@ -1294,23 +1576,29 @@ class CoupledSmoke:
 
     @contextmanager
     def plain(self):
-        """All seven kernel sites of the coupled step at their plain
-        versions."""
-        saved = self.intr.zm_tail
+        """All eight kernel sites of the coupled step at their plain
+        versions (zm_convr looks zm_parcel up in its module at each
+        call)."""
+        from cam_nor_physics_tpu_torch.ops import zm_parcel_kernels as pk
+        saved = self.intr.zm_tail, pk.zm_parcel
         self.intr.zm_tail = self.tk.zm_tail_ref
+        pk.zm_parcel = pk.zm_parcel_ref
         try:
             with self.sm.routed(self.sm.plain):
                 yield
         finally:
-            self.intr.zm_tail = saved
+            self.intr.zm_tail, pk.zm_parcel = saved
 
     def expected(self, model) -> dict:
         """The launches of one coupled step: one HS large step's (K1-K4
         ns times, tracer_div3d n2 times, te_map_remap nv times) and one ZM
-        step's (its tail kernel once; never under microp, where the plain
-        tail runs, as in the JAX package)."""
+        step's (its tail kernel once, never under microp, where the plain
+        tail runs, as in the JAX package; the parcel kernel once for each
+        of zm_convr's parcel calls)."""
         out = dyn_launches(self.sm, model.fv_cfg, model.dt, model.grid)
         out["zm_tail"] = 0 if model.zm_cfg.microp else 1
+        out["zm_parcel"] = parcel_launches(self.torch, model.zm_cfg,
+                                           model.grid.km)
         return out
 
     @staticmethod
@@ -2333,7 +2621,9 @@ class ModesSmoke:
             f"{SCAM_NCOL}")
         self.gate_rel(f"SCAM float64, {SCAM_STEPS} steps, card vs CPU",
                       rel_diffs(got, want), SCAM_TOL_F64)
-        if launched != {"zm_tail": SCAM_STEPS} or not fin:
+        want = {"zm_tail": SCAM_STEPS, "zm_parcel": SCAM_STEPS *
+                parcel_launches(torch, ZMConfig(), KM)}
+        if launched != want or not fin:
             raise RuntimeError(f"SCAM: launches {launched}, finite {fin}")
         return wall / SCAM_STEPS
 
@@ -3039,7 +3329,7 @@ def run(torch) -> dict:
         print(json.dumps(record), flush=True)
         log(f"bench at f19: launches {bench_launches}")
         idle = [n for n in FUSED + ("tracer_div3d", "te_map_remap",
-                                    "zm_tail", "probe")
+                                    "zm_tail", "zm_parcel", "probe")
                 if bench_launches[n] == 0]
         if idle or bench_launches["probe"] != 1:
             raise RuntimeError(f"bench at f19: kernels not launched {idle}, "
@@ -3075,11 +3365,21 @@ def run(torch) -> dict:
     with phase("18 long runs and roofline at f19"):
         run_long(torch, sm, card)
 
+    # ---- phase 19: ZM's parcel kernel
+    with phase("19 ZM parcel at f19, f09, f05"):
+        parcel_row = run_parcel(torch, sm, card)
+        torch.cuda.empty_cache()
+
     kernels = []
     for name, source, replaces in KERNELS:
-        if name in ("zm_tail", "probe"):
-            row = (dict(zm["row"], library_ms=None) if name == "zm_tail"
-                   else dict(probe_row, launches=bench_launches["probe"]))
+        if name in ("zm_tail", "zm_parcel", "probe"):
+            row = {"zm_tail": lambda: dict(zm["row"], library_ms=None),
+                   "zm_parcel": lambda: dict(
+                       parcel_row, launches=zm["parcel_launches"],
+                       library_ms=None),
+                   "probe": lambda: dict(probe_row,
+                                         launches=bench_launches["probe"])
+                   }[name]()
             kernels.append({"name": name, "route": "cuda", "source": source,
                             "replaces": replaces, **row})
             continue
@@ -3099,8 +3399,9 @@ def run(torch) -> dict:
 
 
 def run_phase(torch, n: int) -> int:
-    """`python3 chip_smoke.py --phase 16` (17, 18): the build and that
-    phase alone (phase 16 without the HS graph step); prints no result
+    """`python3 chip_smoke.py --phase 16` (17, 18, 19): the build and that
+    phase alone (phase 16 without the HS graph step; phase 19 prints its
+    kernels row, without the launches phase 7 counts); prints no result
     line."""
     from cam_nor_physics_tpu_torch.bench import card_label
     from cam_nor_physics_tpu_torch.ops import cuda_build
@@ -3115,9 +3416,12 @@ def run_phase(torch, n: int) -> int:
     elif n == 17:
         with phase("17 orders and strips at f19"):
             run_orders(torch, sm, card)
-    else:
+    elif n == 18:
         with phase("18 long runs and roofline at f19"):
             run_long(torch, sm, card)
+    else:
+        with phase("19 ZM parcel at f19, f09, f05"):
+            log(json.dumps({"zm_parcel": run_parcel(torch, sm, card)}))
     return 0
 
 
@@ -3133,7 +3437,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     if sys.argv[1:] in (["--phase", "16"], ["--phase", "17"],
-                        ["--phase", "18"]):
+                        ["--phase", "18"], ["--phase", "19"]):
         return run_phase(torch, int(sys.argv[2]))
     t0 = time.perf_counter()
     record = run(torch)

@@ -52,6 +52,7 @@ from cam_nor_physics_tpu_torch.ops import cd_fused_kernels as ck
 from cam_nor_physics_tpu_torch.ops import cost, cuda_build
 from cam_nor_physics_tpu_torch.ops import remap_kernels as rk
 from cam_nor_physics_tpu_torch.ops import stencil_kernels as sk
+from cam_nor_physics_tpu_torch.ops import zm_parcel_kernels as zpk
 from cam_nor_physics_tpu_torch.ops import zm_tail_kernels as zk
 from cam_nor_physics_tpu_torch.ops import probe_kernels as pk
 from cam_nor_physics_tpu_torch.ops.tp_core import wset_row
@@ -381,7 +382,7 @@ def test_glue_counted_by_hand():
 def _owner(name):
     """The module of kernel `name`'s wrapper and plain version."""
     return {"k1": ck, "k2": ck, "k3": ck, "k4": ck, "te_map_remap": rk,
-            "zm_tail": zk, "probe": pk}.get(name, sk)
+            "zm_tail": zk, "zm_parcel": zpk, "probe": pk}.get(name, sk)
 
 
 @pytest.fixture(scope="module")
@@ -409,7 +410,7 @@ def kernel_calls():
 
 
 KERNELS = ("transport3d", "vort_flux3d", "tracer_div3d", "te_map_remap",
-           "zm_tail", "k1", "k2", "k3", "k4", "probe")
+           "zm_tail", "zm_parcel", "k1", "k2", "k3", "k4", "probe")
 
 
 @pytest.mark.parametrize("name", KERNELS)
@@ -536,8 +537,9 @@ def test_profile_splits_port_and_pytorch_kernels():
     names = cuda_build.kernel_names()
     assert {"k1_winds_kernel", "k2_kick_kernel", "dft_forward_kernel",
             "row_inner_kernel", "tp_q_flux_kernel", "te_map_kernel",
-            "zm_tail_kernel", "probe_kernel", "span_mark_kernel"} <= names
-    assert len(names) == 20
+            "zm_tail_kernel", "zm_parcel_kernel", "probe_kernel",
+            "span_mark_kernel"} <= names
+    assert len(names) == 21
     times = {
         "void (anonymous namespace)::k1_winds_kernel<float>(float const*, "
         "float const*, float const*, double, int, int)": [24, 100.0],
